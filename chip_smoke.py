@@ -7,26 +7,38 @@ Phases, each of which exits non-zero on failure:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every CUDA kernel of the port, from the sources in this checkout;
-3. kernels: each kernel against its plain PyTorch version at the serving
-   shapes, fp32 and bf16, with the tolerance printed beside the error; then
-   its time, the plain version's time and the bound (the least time the card
-   could take: bytes over 3.35 TB/s or operations over the type's peak);
-4. serving: the full-width NUWA of bench.py (dim 512, fmap 8, 4 frames,
-   depth 6, bf16, CFG 2.0) from a seed answers generate (b = 1 and 8),
-   generate_long (8 frames) and forward, with the kernel launch counts
+3. kernels: each kernel against its plain PyTorch version, fp32 and bf16,
+   with the tolerance printed beside the error: the forward at the serving
+   shapes; the forward, the query-side and the key-side backward at the
+   training shapes and around them; the autograd function against autograd
+   of the plain forward. Then each kernel's time, the plain version's time
+   and the bound (the least time the card could take: bytes over 3.35 TB/s
+   or operations over the type's peak);
+4. serving: the full-width NUWA of bench.py's decode config (dim 512, fmap 8,
+   4 frames, depth 6, bf16, CFG 2.0) from a seed answers generate (b = 1 and
+   8), generate_long (8 frames) and forward, with the kernel launch counts
    checked; then the same weights in fp32 on the GPU against the CPU plain
    path: forward logits and greedy generate_long ids;
-5. throughput: tokens/s of each request (CUDA events, median after warm-up).
+5. training: NUWATrainer at bench.py's training config (dim 512, fmap 16, 10
+   frames, kernel (5, 3, 3), dilations (1, 2, 4), rel-pos bias, token shift,
+   reversible decoder of depth 6, bf16, batch 2) on one seeded batch: falling
+   finite losses, the exact launches of each kernel per step, ms per step,
+   tokens/s, peak memory and the device's busy share; then the loss and
+   every gradient of the same weights in fp32 on the GPU against the CPU;
+6. throughput: tokens/s of each serving request (CUDA events, median after
+   warm-up) and the device's busy share of a generate.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 FULL = dict(
@@ -36,11 +48,24 @@ FULL = dict(
     dec_dim_head=64, sparse_3dna_kernel_size=3, sparse_3dna_dilation=2,
     shift_video_tokens=True,
 )
+TRAIN = dict(
+    dim=512, image_size=16, num_image_tokens=1024, max_video_frames=10,
+    text_num_tokens=49408, text_max_seq_len=32, text_enc_depth=2,
+    text_enc_heads=8, text_enc_dim_head=64, dec_depth=6, dec_heads=8,
+    dec_dim_head=64, dec_reversible=True, sparse_3dna_kernel_size=(5, 3, 3),
+    sparse_3dna_dilation=(1, 2, 4), sparse_3dna_rel_pos_bias=True,
+    shift_video_tokens=True,
+)
+TRAIN_BATCH, TRAIN_STEPS = 2, 5
 SEED = 0
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # the JAX tests' bf16 tolerance
 LOGITS_ATOL = 1e-3  # fp32 GPU vs CPU logits: sums in another order, 6 layers deep
+# fp32 GPU vs CPU training: loss within LOSS_ATOL, each gradient within
+# GRAD_REL of its max abs: sums in another order through 6 reversible couples
+# whose backward rebuilds activations by subtraction
+LOSS_ATOL, GRAD_REL = 1e-4, 1e-3
 TIE_GAP = 1e-3
 
 
@@ -85,10 +110,17 @@ def device_ms(fn, iters=20, reps=5):
 # ---------------------------------------------------------------------------
 
 HEADS, DIM_HEAD, FMAP, KERNEL = 8, 64, (8, 8), (3, 3, 3)
+TRAIN_FMAP = (TRAIN["image_size"],) * 2
+TRAIN_KERNEL = TRAIN["sparse_3dna_kernel_size"]
+TRAIN_T = TRAIN["max_video_frames"] * TRAIN["image_size"] ** 2 - 1  # shifted by one
+# (frame shape, frames) of the backward checks: the serving and training fmaps
+BWD_GRIDS = (((8, 8), 8), ((16, 16), 10))
 
 
-def nda_inputs(b, t, dtype, bias, gen):
-    h, d = HEADS, DIM_HEAD
+def nda_inputs(b, t, dtype, bias, gen, kernel=KERNEL):
+    """q (pre-scaled), k, v, k_bos, v_bos, talking heads, rel-pos bias and
+    an output cotangent, as Sparse3DNA hands them to the kernels."""
+    h, d, kn = HEADS, DIM_HEAD, kernel[0] * kernel[1] * kernel[2]
 
     def rnd(*shape, scale=1.0):
         x = torch.randn(*shape, generator=gen, device="cuda") * scale
@@ -98,22 +130,44 @@ def nda_inputs(b, t, dtype, bias, gen):
     k, v = rnd(b, h, t, d), rnd(b, h, t, d)
     k_bos, v_bos = rnd(b, h, 1, d), rnd(b, h, 1, d)
     th = (torch.rand(h, h, generator=gen, device="cuda") * 2 - 1) * (3 / h) ** 0.5
-    rel = rnd(h, 27, scale=0.5).float() if bias else None
-    return (q, k, v, k_bos, v_bos, th, rel)
+    rel = rnd(h, kn, scale=0.5).float() if bias else None
+    return (q, k, v, k_bos, v_bos, th, rel), rnd(b, h, t, d)
 
 
-def nda_bound_ms(knda, b, t, dil, dtype, bias):
-    """(least time, what bounds it) for the work this input needs: each
-    input read once, each output written once; operations (multiply and add
-    counted apart) for the valid neighbours only."""
-    h, d, kn = HEADS, DIM_HEAD, 27
-    es = torch.finfo(dtype).bits // 8
-    nbytes = (4 * b * h * t * d + 2 * b * h * d) * es + h * h * 4 + b * h * t * 4
-    nbytes += h * kn * 4 if bias else 0
-    pairs = b * h * (knda.valid_neighbours(t, FMAP, KERNEL, (dil,) * 3) + t)  # + bos
-    ops = pairs * 4 * d + b * t * h * (kn + 1) * 2 * h  # scores + PV, head mix
+def bound_ms(nbytes, ops, dtype):
+    """(least time, what bounds it): the bytes over the memory rate or the
+    operations over the peak rate of the type, whichever is longer."""
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL):
+    """{kernel: (least time, what bounds it)} for the work this input needs:
+    each input read once, each output written once; operations (multiply and
+    add counted apart) for the valid (query, neighbour) pairs only, bos
+    included. "bwd" is the whole backward as a function (q, k, v, g, bos,
+    lse in; dq, dk, dv, the bos and parameter cotangents out), with no dS or
+    mix between its two kernels."""
+    h, d, kn = HEADS, DIM_HEAD, kernel[0] * kernel[1] * kernel[2]
+    es = torch.finfo(dtype).bits // 8
+    row, bos, lse = b * h * t * d * es, b * h * d * es, b * h * t * 4
+    params = h * h * 4 + (h * kn * 4 if bias else 0)
+    slots = 2 * b * h * t * (kn + 1) * 4  # dS and mix, fp32
+    pairs = b * h * (knda.valid_neighbours(t, fmap, kernel, (dil,) * 3) + t)
+    mixes = b * t * (kn + 1) * 2 * h * h  # one (h x h) head mix of every slot
+    # scores, dA and dq, the bos sums, the mixes of dP and P and the dth sum
+    ops_q = pairs * 6 * d + b * t * h * 4 * d + 3 * mixes
+    ops_kv = (pairs - b * h * t) * 4 * d  # dK and dV over the neighbour slots
+    return {
+        # q, k, v, bos in; out, lse out: scores and PV, the mix
+        "fwd": bound_ms(4 * row + 2 * bos + params + lse, pairs * 4 * d + mixes, dtype),
+        # q, k, v, g, bos, lse in; dq, dS, mix, the sums out
+        "bwd_q": bound_ms(5 * row + 2 * bos + 2 * params + lse + slots + 2 * b * h * d * 4,
+                          ops_q, dtype),
+        # q, g, dS, mix in; dk, dv out
+        "bwd_kv": bound_ms(4 * row + slots, ops_kv, dtype),
+        "bwd": bound_ms(7 * row + 4 * bos + 2 * params + lse, ops_q + ops_kv, dtype),
+    }
 
 
 def check_nda(knda):
@@ -124,24 +178,25 @@ def check_nda(knda):
             for dil in (1, 2):
                 for t in (256, 191, 64, 1):
                     for bias in (False, True):
-                        args = nda_inputs(b, t, dtype, bias, gen)
+                        args, _ = nda_inputs(b, t, dtype, bias, gen)
                         kw = dict(fmap=FMAP, kernel=KERNEL, dilation=(dil,) * 3)
                         out, lse = knda.sparse_3dna_fwd(*args, **kw)
                         torch.cuda.synchronize()
                         ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **kw)
                         if out.dtype != dtype or out.shape != ref.shape:
                             fail(f"kernel out {out.dtype} {tuple(out.shape)}")
-                        err = max(
-                            (out.float() - ref.float()).abs().max().item(),
-                            (lse - ref_lse).abs().max().item(),
-                        )
-                        if not err <= TOL[dtype]:
-                            fail(f"sparse_3dna_fwd b={b} t={t} dil={dil} {dtype} "
-                                 f"bias={bias}: max err {err} > {TOL[dtype]}")
-                        worst[dtype] = max(worst.get(dtype, 0.0), err)
-    for dtype, err in worst.items():
-        print(f"sparse_3dna_fwd vs plain, {dtype}: max abs err {err:.3e} "
-              f"(tolerance {TOL[dtype]:.0e}, 32 cases)", flush=True)
+                        # out in q's dtype; lse is fp32 in both versions
+                        for name, a, w, tol in (("out", out, ref, TOL[dtype]),
+                                                ("lse", lse, ref_lse, TOL[torch.float32])):
+                            err = (a.float() - w.float()).abs().max().item()
+                            if not err <= tol:
+                                fail(f"sparse_3dna_fwd {name} b={b} t={t} dil={dil} "
+                                     f"{dtype} bias={bias}: max err {err} > {tol}")
+                            key = (dtype, name, tol)
+                            worst[key] = max(worst.get(key, 0.0), err)
+    for (dtype, name, tol), err in worst.items():
+        print(f"sparse_3dna_fwd {name} vs plain, {dtype}: max abs err {err:.3e} "
+              f"(tolerance {tol:.0e}, 32 cases)", flush=True)
     return max(worst.values())
 
 
@@ -152,18 +207,152 @@ def time_nda(knda):
     rows = []
     for b, t in ((2, 191), (16, 191), (1, 256)):
         for dil in (1, 2):
-            args = nda_inputs(b, t, torch.bfloat16, False, gen)
+            args, _ = nda_inputs(b, t, torch.bfloat16, False, gen)
             kw = dict(fmap=FMAP, kernel=KERNEL, dilation=(dil,) * 3)
             call_ms = cuda_ms(lambda: knda.sparse_3dna_fwd(*args, **kw))
             ms = device_ms(lambda: knda.sparse_3dna_fwd(*args, **kw))
             plain = device_ms(lambda: knda.sparse_3dna_fwd_plain(*args, **kw))
-            bound, by = nda_bound_ms(knda, b, t, dil, torch.bfloat16, False)
+            bound, by = nda_bounds(knda, b, t, dil, torch.bfloat16, False)["fwd"]
             rows.append(dict(b=b, t=t, dilation=dil, ms=ms, plain_ms=plain,
                              bound_ms=bound, bound_by=by))
             print(f"sparse_3dna_fwd bf16 b={b} t={t} dilation={dil}: kernel "
                   f"{ms:.4f} ms (device; {call_ms:.4f} ms a call with the "
                   f"wrapper's host work), plain {plain:.4f} ms, bound "
                   f"{bound:.5f} ms ({by})", flush=True)
+    return rows
+
+
+BWD_NAMES = ("dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk", "dv")
+# the outputs in q's dtype; the rest are fp32 in the kernels and the plain
+# versions alike, from the same loaded values, so fp32's tolerance holds them
+ROUNDED = ("out", "dq", "dk_bos", "dv_bos", "dk", "dv")
+
+
+def check_bwd(knda):
+    """The forward, query-side and key-side kernels against their plain
+    versions: HW 64 and 256, kernel 3 and (5, 3, 3), dilations 1, 2 and 4,
+    rel-pos bias on and off, full frames, a ragged last frame and t = 1,
+    b 1 and 2. Errors are normalised by each reference's max abs (at least
+    1): the backward's outputs span two orders of magnitude (dS near 0, the
+    sums over all queries in the hundreds), its sums over queries run in
+    atomics' order, and in bf16 dq, dk and dv round to 8 bits of mantissa,
+    a relative step of 2**-8 of the value: those are held to bf16's
+    tolerance, every fp32 output (lse, dS, mix, dth, the bias cotangent) to
+    fp32's in both runs. Returns the largest absolute error of each
+    kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst_rel, worst_abs, cases = {}, {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for fmap, frames in BWD_GRIDS:
+            full = frames * fmap[0] * fmap[1]
+            for kernel in ((3, 3, 3), (5, 3, 3)):
+                for dil in (1, 2, 4):
+                    for bias in (False, True):
+                        for t in (full, full - 1, 1):
+                            for b in (1, 2):
+                                args, g = nda_inputs(b, t, dtype, bias, gen, kernel)
+                                kw = dict(fmap=fmap, kernel=kernel, dilation=(dil,) * 3)
+                                out, lse = knda.sparse_3dna_fwd(*args, **kw)
+                                ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **kw)
+                                got = knda.sparse_3dna_bwd_q(*args, g, ref_lse, **kw)
+                                want = knda.sparse_3dna_bwd_q_plain(*args, g, ref_lse, **kw)
+                                got += knda.sparse_3dna_bwd_kv(args[0], g, *want[1:3], **kw)
+                                want += knda.sparse_3dna_bwd_kv_plain(args[0], g, *want[1:3], **kw)
+                                torch.cuda.synchronize()
+                                pairs = [("fwd", "out", out, ref), ("fwd", "lse", lse, ref_lse)]
+                                pairs += [("bwd_kv" if n in ("dk", "dv") else "bwd_q", n, a, w)
+                                          for n, a, w in zip(BWD_NAMES, got, want)]
+                                for kname, name, a, w in pairs:
+                                    if w is None:
+                                        if a is not None:
+                                            fail(f"{name}: None expected without a bias")
+                                        continue
+                                    if a.dtype != w.dtype or a.shape != w.shape:
+                                        fail(f"{name}: {a.dtype} {tuple(a.shape)} != "
+                                             f"{w.dtype} {tuple(w.shape)}")
+                                    err = (a.float() - w.float()).abs().max().item()
+                                    rel = err / max(1.0, w.float().abs().max().item())
+                                    tol = TOL[dtype if name in ROUNDED else torch.float32]
+                                    if not rel <= tol:
+                                        fail(f"{name} fmap={fmap} kernel={kernel} dil={dil} "
+                                             f"bias={bias} t={t} b={b} {dtype}: error {rel} "
+                                             f"of the max abs > {tol}")
+                                    key = (kname, dtype, name in ROUNDED)
+                                    worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+                                    worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
+                                cases += 1
+    print("backward checks: errors over each reference's max abs (at least 1), since "
+          "the outputs span orders of magnitude, sums over queries run in atomics' "
+          "order, and bf16 outputs round to 2**-8 of the value", flush=True)
+    for (kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
+        tol = TOL[dtype if rounded else torch.float32]
+        which = f"outputs in {dtype}" if rounded else "fp32 outputs"
+        print(f"sparse_3dna_{kname} vs plain, {dtype} inputs, {which}: max error "
+              f"{rel:.3e} of the reference's max abs (tolerance {tol:.0e}, "
+              f"{cases // 2} cases)", flush=True)
+    return worst_abs
+
+
+def check_autograd(knda):
+    """The whole autograd function (kernels forward and backward) against
+    torch.autograd of the plain forward, fp32, at the training shape with a
+    ragged last frame: every input's gradient within 1e-5 of its max abs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    t = TRAIN_T
+    args, g = nda_inputs(2, t, torch.float32, True, gen, TRAIN_KERNEL)
+    args = [x.detach().requires_grad_() for x in args]
+    kw = dict(fmap=TRAIN_FMAP, kernel=TRAIN_KERNEL, dilation=(2, 2, 2))
+    out, _ = knda.sparse_3dna_fwd_plain(*args, **kw)
+    want = torch.autograd.grad(out, args, g)
+    got = torch.autograd.grad(knda.sparse_3dna(*args, **kw), args, g)
+    worst = 0.0
+    for name, a, w in zip(("q", "k", "v", "k_bos", "v_bos", "talking_heads", "rel_bias"),
+                          got, want):
+        rel = (a - w).abs().max().item() / max(1.0, w.abs().max().item())
+        if not rel <= 1e-5:
+            fail(f"sparse_3dna autograd: d{name} error {rel} of the max abs > 1e-5")
+        worst = max(worst, rel)
+    print(f"sparse_3dna autograd function vs autograd of the plain forward, fp32, "
+          f"b=2 t={t}: max error {worst:.3e} of the max abs (tolerance 1e-5)", flush=True)
+
+
+def time_train_kernels(knda):
+    """Each kernel at the training shape: b = 2, t = 2559 (10 frames of 256
+    tokens, shifted by one), 8 heads of 64, kernel (5, 3, 3), rel-pos bias,
+    bf16, at each dilation of the stack."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b, t, dtype = TRAIN_BATCH, TRAIN_T, torch.bfloat16
+    rows = []
+    for dil in (1, 2, 4):
+        args, g = nda_inputs(b, t, dtype, True, gen, TRAIN_KERNEL)
+        kw = dict(fmap=TRAIN_FMAP, kernel=TRAIN_KERNEL, dilation=(dil,) * 3)
+        _, lse = knda.sparse_3dna_fwd(*args, **kw)
+        _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
+        bounds = nda_bounds(knda, b, t, dil, dtype, True, TRAIN_FMAP, TRAIN_KERNEL)
+        for name, kernel, plain in (
+            ("fwd", lambda: knda.sparse_3dna_fwd(*args, **kw),
+             lambda: knda.sparse_3dna_fwd_plain(*args, **kw)),
+            ("bwd_q", lambda: knda.sparse_3dna_bwd_q(*args, g, lse, **kw),
+             lambda: knda.sparse_3dna_bwd_q_plain(*args, g, lse, **kw)),
+            ("bwd_kv", lambda: knda.sparse_3dna_bwd_kv(args[0], g, ds, mix, **kw),
+             lambda: knda.sparse_3dna_bwd_kv_plain(args[0], g, ds, mix, **kw)),
+        ):
+            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
+            bound, by = bounds[name]
+            rows.append(dict(name=name, dilation=dil, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by))
+            print(f"sparse_3dna_{name} bf16 b={b} t={t} kernel {TRAIN_KERNEL} "
+                  f"dilation={dil}: kernel {ms:.4f} ms (device), plain {plain_ms:.4f} ms, "
+                  f"bound {bound:.5f} ms ({by}), kernel / bound {ms / bound:.1f}x",
+                  flush=True)
+        # the backward as one function: its two kernels against its own bound
+        bwd_ms = rows[-2]["ms"] + rows[-1]["ms"]
+        bound, by = bounds["bwd"]
+        for row in rows[-2:]:
+            row["backward_bound_ms"] = bound
+        print(f"sparse_3dna backward (bwd_q + bwd_kv) bf16 b={b} t={t} dilation={dil}: "
+              f"{bwd_ms:.4f} ms, bound of the whole backward {bound:.5f} ms ({by}), "
+              f"kernels / bound {bwd_ms / bound:.1f}x", flush=True)
     return rows
 
 
@@ -195,7 +384,7 @@ def serve(NUWA, knda):
     video = torch.randint(0, FULL["num_image_tokens"], (1, frames * tpf), generator=gen_cpu)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     depth, vocab = FULL["dec_depth"], FULL["num_image_tokens"]
-    knda.sparse_3dna_fwd.launches = 0
+    reset_launches(knda)
     counts = {}
     for name, call, shape, expect in (
         ("generate b=1", lambda: model.generate(texts[1], generator=gen),
@@ -206,8 +395,8 @@ def serve(NUWA, knda):
         ("generate_long b=1", lambda: model.generate_long(
             texts[1], num_frames=2 * frames, generator=gen), (1, 2 * frames * tpf),
          frames * depth),
-        ("forward b=1", lambda: model(texts[1], video), (1, frames * tpf + 1, vocab),
-         depth),
+        ("forward b=1", torch.no_grad()(lambda: model(texts[1], video)),
+         (1, frames * tpf + 1, vocab), depth),
     ):
         before = knda.sparse_3dna_fwd.launches
         out = call()
@@ -225,7 +414,149 @@ def serve(NUWA, knda):
     launches = knda.sparse_3dna_fwd.launches
     if launches == 0:
         fail("the serving path launched no sparse_3dna_fwd kernel")
+    if knda.sparse_3dna_bwd_q.launches or knda.sparse_3dna_bwd_kv.launches:
+        fail("the serving path launched a backward kernel")
     return model, texts, launches
+
+
+def reset_launches(knda):
+    for fn in (knda.sparse_3dna_fwd, knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv):
+        fn.launches = 0
+
+
+def launch_counts(knda):
+    return {"fwd": knda.sparse_3dna_fwd.launches, "bwd_q": knda.sparse_3dna_bwd_q.launches,
+            "bwd_kv": knda.sparse_3dna_bwd_kv.launches}
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def train_batch(gen):
+    """One batch of (text ids, video token ids) pairs made from a seed: the
+    texts padded after 20 tokens, as a tokenizer leaves them."""
+    tokens = TRAIN["max_video_frames"] * TRAIN["image_size"] ** 2
+    text = request_text(TRAIN_BATCH, gen)
+    video = torch.randint(0, TRAIN["num_image_tokens"], (TRAIN_BATCH, tokens), generator=gen)
+    return [(text[i].numpy(), video[i].numpy()) for i in range(TRAIN_BATCH)]
+
+
+def train(NUWA, NUWATrainer, knda):
+    """The training path at full width, bf16: NUWATrainer for TRAIN_STEPS
+    steps over a dataset of one batch, so every step sees the same batch.
+    Per step of one microbatch the reversible decoder launches the forward
+    kernel 2 x depth times (the forward under no grad, then the recompute of
+    each self-attention couple in the backward) and each backward kernel
+    depth times; the text encoder and the cached sampling at step 0 launch
+    none."""
+    depth = TRAIN["dec_depth"]
+    expect = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth}
+    model = NUWA(**TRAIN, compute_dtype="bfloat16", seed=SEED)
+    trainer = NUWATrainer(
+        nuwa=model, dataset=train_batch(torch.Generator().manual_seed(SEED + 9)),
+        num_train_steps=TRAIN_STEPS, lr=3e-4, wd=0.01, batch_size=TRAIN_BATCH,
+        grad_accum_every=1, max_grad_norm=0.5, cond_dropout_prob=0.2,
+        save_results_every=1000, num_sampled_frames=1, seed=SEED,
+    )
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, total = [], [], {k: 0 for k in expect}
+    for step in range(TRAIN_STEPS):
+        reset_launches(knda)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs = trainer.train_step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(logs["loss"])
+        got = launch_counts(knda)
+        if got != expect:
+            fail(f"train step {step}: launches {got}, expected {expect}")
+        total = {k: total[k] + got[k] for k in total}
+        if step == 0 and logs.get("sampled_indices") is None:
+            fail("train step 0 logged no sample")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(math.isfinite, losses)):
+        fail(f"train losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train loss did not fall: {losses}")
+    ms = statistics.median(times[1:])  # step 0 also samples 256 tokens
+    tokens = TRAIN_BATCH * TRAIN["max_video_frames"] * TRAIN["image_size"] ** 2
+    print(f"train: losses {', '.join(f'{x:.4f}' for x in losses)} (finite, falling)",
+          flush=True)
+    print(f"train: launches per step {expect} (as expected, every step)", flush=True)
+    print(f"train step (b={TRAIN_BATCH}, {tokens} video tokens): {ms:.1f} ms median of "
+          f"steps 1-{TRAIN_STEPS - 1} (step 0 with its sample: {times[0]:.1f} ms), "
+          f"{tokens / (ms / 1e3):.0f} video tokens/s, peak memory {peak:.2f} GiB",
+          flush=True)
+    train_device_share(trainer)
+    return total, dict(ms=ms, tokens_per_s=tokens / (ms / 1e3), peak_gib=peak)
+
+
+def kernel_events(prof):
+    """The profiler's device kernels, by name: user annotations such as
+    ``Optimizer.step`` also carry device time, that of the kernels inside
+    them, and would count it twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def train_device_share(trainer):
+    """Device busy share of one train step: kernel time from torch.profiler
+    over the wall time of the same step unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = cuda_ms(trainer.train_step, iters=1, reps=1, warmup=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step()
+        torch.cuda.synchronize()
+    kernels = kernel_events(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        print("train device busy share: not measured (the profiler saw no device time)")
+        return
+    print(f"train step: {wall:.1f} ms wall, {busy:.2f} ms of kernels ({100 * busy / wall:.2f}% "
+          f"busy, {sum(e.count for e in kernels)} kernel launches)", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d} x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def train_against_cpu(NUWA):
+    """Same weights in fp32, one microbatch with the same condition-dropout
+    mask: the GPU path (kernels) against the CPU plain path, the loss and
+    every parameter's gradient."""
+    gen = torch.Generator().manual_seed(SEED + 10)
+    (t0, v0), (t1, v1) = train_batch(gen)
+    text, video = torch.from_numpy(np.stack([t0, t1])), torch.from_numpy(np.stack([v0, v1]))
+    uncond = torch.tensor([False, True])
+    grads = []
+    for device in ("cuda", "cpu"):
+        model = NUWA(**TRAIN, device=device, seed=SEED + 11)
+        start = time.perf_counter()
+        loss = model(text, video, return_loss=True, train=True, uncond=uncond)
+        loss.backward()
+        grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+        print(f"fp32 train forward and backward on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
+    worst, where = 0.0, None
+    for name, ref in g_cpu.items():
+        rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    print(f"fp32 train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
+          f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, largest error {worst:.3e} of the "
+          f"gradient's max abs at {where} (tolerance {GRAD_REL:.0e})", flush=True)
+    if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
+        fail("the training loss differs between GPU and CPU")
+    if not worst <= GRAD_REL:
+        fail("training gradients differ between GPU and CPU")
 
 
 def cpu_top2_gap(model, text, ids, p, cond_scale):
@@ -252,7 +583,8 @@ def check_against_cpu(NUWA):
     text = request_text(1, gen)
     video = torch.randint(0, FULL["num_image_tokens"], (1, cpu.max_video_tokens),
                           generator=gen)
-    a, b = gpu(text, video).cpu(), cpu(text, video)
+    with torch.no_grad():
+        a, b = gpu(text, video).cpu(), cpu(text, video)
     err = (a - b).abs().max().item()
     print(f"forward fp32 logits GPU vs CPU: max abs err {err:.3e} "
           f"(tolerance {LOGITS_ATOL:.0e})", flush=True)
@@ -294,7 +626,6 @@ def throughput(model, texts):
 def device_share(model, texts):
     """Device busy share of one generate (b=1, one frame): kernel time from
     torch.profiler over the wall time of the same request unprofiled."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -303,7 +634,7 @@ def device_share(model, texts):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = kernel_events(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0:
         print("device busy share: not measured (the profiler saw no device time)")
@@ -322,6 +653,11 @@ def main():
     from nuwa_tpu_torch import NUWA
     from nuwa_tpu_torch.kernels import build
     from nuwa_tpu_torch.kernels import nda as knda
+    from nuwa_tpu_torch.train import NUWATrainer
+
+    # fp32 matmuls in full fp32 (no TF32) for every fp32 comparison below
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -339,22 +675,40 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    max_err = check_nda(knda)
-    rows = time_nda(knda)
-    model, texts, launches = serve(NUWA, knda)
+    fwd_err = check_nda(knda)
+    errs = check_bwd(knda)
+    check_autograd(knda)
+    time_nda(knda)
+    train_rows = time_train_kernels(knda)
+    model, texts, serve_launches = serve(NUWA, knda)
     check_against_cpu(NUWA)
+    train_launches, _ = train(NUWA, NUWATrainer, knda)
+    train_against_cpu(NUWA)
     throughput(model, texts)
     device_share(model, texts)
 
-    head = rows[1]  # generate_long prefill at b=1 (b=2 under CFG), dilation 2
-    print(json.dumps({"kernels": [{
-        "name": "sparse_3dna_fwd", "route": "cuda",
-        "source": "nuwa_tpu_torch/kernels/csrc/sparse3dna_fwd.cu",
-        "replaces": "nuwa_tpu/kernels/nda_pallas.py:239",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": None,
-    }]}), flush=True)
+    # launches: the serving run's and the training run's; times at the
+    # training shape, dilation 2; no single PyTorch call computes the
+    # talking-heads attention or its backward, so library_ms is null
+    serve_counts = {"fwd": serve_launches, "bwd_q": 0, "bwd_kv": 0}
+    entries = []
+    for name, source, line, err in (
+        ("fwd", "sparse3dna_fwd.cu", 239, max(fwd_err, errs["fwd"])),
+        ("bwd_q", "sparse3dna_bwd_q.cu", 865, errs["bwd_q"]),
+        ("bwd_kv", "sparse3dna_bwd_kv.cu", 1029, errs["bwd_kv"]),
+    ):
+        row = next(r for r in train_rows if r["name"] == name and r["dilation"] == 2)
+        entries.append({
+            "name": f"sparse_3dna_{name}", "route": "cuda",
+            "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
+            "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
+            "launches": serve_counts[name] + train_launches[name], "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
+        if "backward_bound_ms" in row:  # the bound of B2 and B3 together
+            entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

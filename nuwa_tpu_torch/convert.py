@@ -1,9 +1,11 @@
 """Load a ``nuwa_tpu`` params pytree into the port's modules.
 
 The port's parameter names mirror the JAX tree's paths (dict keys and list
-indices joined with dots), with one exception: ``ShiftVideo`` wraps its
-inner block as a module, while the JAX tree puts the inner block's params
-in its place. The pytree is passed as numpy arrays (or anything
+indices joined with dots), the reversible layout included (a
+``ReversibleTransformer``'s ``layers.<i>.f`` and ``layers.<i>.g`` are the JAX
+couples' ``{"f", "g"}``), with one exception: ``ShiftVideo`` wraps its inner
+block as a module, while the JAX tree puts the inner block's params in its
+place. The pytree is passed as numpy arrays (or anything
 ``np.asarray`` takes); every leaf must be used exactly once and every
 parameter of the module set exactly once.
 """

@@ -63,15 +63,25 @@ class Dense(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, dim):
+    """Token embedding. Under ``train=True`` only ``frac_gradient`` of the
+    gradient reaches the table (the CogView stability trick); the value is
+    unchanged. Scaling after the gather gives the table the same gradient as
+    the JAX package's scaling of the whole table, without a copy of it."""
+
+    def __init__(self, num_embeddings, dim, frac_gradient=1.0):
         super().__init__()
+        self.frac_gradient = frac_gradient
         self.table = nn.Parameter(torch.empty(num_embeddings, dim))
 
     def reset_parameters(self, generator):
         normal_(self.table, generator)
 
-    def forward(self, ids):
-        return self.table[ids]
+    def forward(self, ids, *, train=False):
+        out = self.table[ids]
+        if train and self.frac_gradient < 1.0:
+            f = self.frac_gradient
+            out = out * f + out.detach() * (1.0 - f)
+        return out
 
 
 class LayerNorm(nn.Module):
@@ -91,12 +101,13 @@ class LayerNorm(nn.Module):
 
 
 class StableLayerNorm(nn.Module):
-    """Divide by the row's amax before the LayerNorm (CogView)."""
+    """Divide by the row's amax, held constant for the gradient, before the
+    LayerNorm (CogView)."""
 
     def __init__(self, dim):
         super().__init__()
         self.norm = LayerNorm(dim)
 
     def forward(self, x):
-        amax = x.abs().amax(dim=-1, keepdim=True)
+        amax = x.detach().abs().amax(dim=-1, keepdim=True)
         return self.norm(x / amax.clamp_min(1e-6))

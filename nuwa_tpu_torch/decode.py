@@ -1,7 +1,7 @@
 """Cached autoregressive decoding.
 
-Counterpart of ``nuwa_tpu/decode.py`` for the plain (non-reversible) stack.
-Per decoder layer the cache holds what one incremental step needs:
+Counterpart of ``nuwa_tpu/decode.py``. Per decoder layer the cache holds
+what one incremental step needs:
 
   * Sparse3DNA: a (b, h, T, dh) k/v buffer plus the bos k/v slot; a new
     token attends its neighbour-table row (at most Kn entries) plus bos;
@@ -24,7 +24,7 @@ from .ops.attention import Attention
 from .ops.feedforward import FeedForward
 from .ops.shift import _torch_chunk_sizes, shift_video_tokens
 from .ops.utils import masked_fill, max_neg_value, stable_softmax
-from .transformer import Sandwich, ShiftVideo, Transformer
+from .transformer import ReversibleTransformer, Sandwich, ShiftVideo, Transformer
 
 
 def _th_mix(attn, w):
@@ -208,13 +208,20 @@ class _SandwichStep:
 
 
 class TransformerDecoder:
-    """Incremental decoder for a plain ``Transformer`` layer menu.
-    ``total_in`` is the decoder input length (1 + video tokens)."""
+    """Incremental decoder for a ``Transformer`` or ``ReversibleTransformer``.
+    ``total_in`` is the decoder input length (1 + video tokens). A reversible
+    stack decodes its couples as two-stream updates (x1 += f(x2);
+    x2 += g(x1)) and the mean of the streams: reversibility saves training
+    memory and plays no part at inference."""
 
-    def __init__(self, transformer: Transformer, total_in: int):
+    def __init__(self, transformer: Transformer | ReversibleTransformer, total_in: int):
         self.t = transformer
         self.total_in = total_in
-        self.steps = [self._build(layer) for layer in transformer.layers]
+        self.couples = isinstance(transformer, ReversibleTransformer)
+        layers = transformer.layers
+        if self.couples:  # steps f0, g0, f1, g1, ...
+            layers = [m for couple in layers for m in (couple.f, couple.g)]
+        self.steps = [self._build(layer) for layer in layers]
 
     def _build(self, sandwich: Sandwich):
         inner = sandwich.inner
@@ -249,15 +256,24 @@ class TransformerDecoder:
             caches.append(c)
         return caches
 
+    def _run(self, caches, x, call):
+        """The stack over ``x`` with ``call(step, cache, x)`` for each block."""
+        if not self.couples:
+            for step, cache in zip(self.steps, caches):
+                x = x + call(step, cache, x)
+            return x
+        x1 = x2 = x
+        for i in range(0, len(self.steps), 2):
+            x1 = x1 + call(self.steps[i], caches[i], x2)
+            x2 = x2 + call(self.steps[i + 1], caches[i + 1], x1)
+        return (x1 + x2) * 0.5
+
     def prefill(self, caches, x):
         """Run inputs ``x`` (b, n, dim), positions 0..n-1, in one pass,
         leaving the caches as n incremental steps would."""
-        for step, cache in zip(self.steps, caches):
-            x = x + step.prefill(cache, x)
+        self._run(caches, x, lambda step, cache, x: step.prefill(cache, x))
         return caches
 
     def step(self, caches, x_i, pos):
         """x_i: (b, dim) input at position ``pos``; returns the normed output."""
-        for step, cache in zip(self.steps, caches):
-            x_i = x_i + step(cache, x_i, pos)
-        return self.t.norm(x_i)
+        return self.t.norm(self._run(caches, x_i, lambda step, cache, x: step(cache, x, pos)))

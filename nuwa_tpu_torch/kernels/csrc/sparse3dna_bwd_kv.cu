@@ -1,0 +1,155 @@
+// Sparse3DNA backward, key side (causal, no dropout) for Hopper, sm_90a.
+//
+// Replaces the TPU kernel `_bwd_kv_kernel` in nuwa_tpu/kernels/nda_pallas.py
+// (reached through `_bwd_kv_call`, its pl.pallas_call). For every key token
+// it sums, over the (query, slot) pairs that read that key,
+//
+//   dK = sum dS[query, slot] * q[query]
+//   dV = sum mix[query, slot] * g[query]
+//
+// per head, from the fp32 (b, h, t, Kn + 1) tensors dS and mix that the
+// query-side kernel (sparse3dna_bwd_q.cu) wrote. The TPU kernel recomputed
+// S and P for each key frame instead, because on the TPU the probabilities
+// are a dense (T x Kf*HW) tensor; here they are the sparse (T x Kn) one, 15 MB
+// at the training shape (b = 2, h = 8, t = 2559, Kn = 45), which is cheaper
+// to read back than to recompute.
+//
+// The inverse neighbourhood: slot (a, b, c), row-major over (kf, kh, kw),
+// has the causal offset ((a-(kf-1))*df, (b-(kh-1))*dh, (c-(kw-1))*dw), so
+// key (f, y, x) is read through that slot by the query
+// (f + (kf-1-a)*df, y + (kh-1-b)*dh, x + (kw-1-c)*dw). The pair exists when
+// that query lies inside the frame on each axis (checked per axis: a flat
+// index would wrap across rows) and before the sequence end t.
+//
+// What bounds it on the card: memory. Per key and head it does 4 * Kn * d
+// operations, while the bytes the function must move are one row each of q,
+// g, dk and dv and the Kn + 1 fp32 values of dS and mix of one query: at the
+// training shape (bf16, d = 64) about 880 bytes and 11,500 operations, 13
+// operations per byte. Each key gathers up to Kn rows of q and g; one block per
+// (key token, batch element) holds all h heads, one warp per head, lanes
+// striding the head dim; the query rows shared by neighbouring keys come from
+// L1/L2. Each key's sums are its own, so no atomics are needed and dk, dv
+// are written once.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxR = 8;  // head dim up to 32 * kMaxR = 256
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+struct Geometry {
+  int t;           // valid video tokens (rows of q, k, v)
+  int fh, fw;      // frame height and width
+  int kf, kh, kw;  // kernel size per axis
+  int df, dh, dw;  // dilation per axis
+};
+
+// grid (t, b), block 32 * heads: warp w handles head w of one key token.
+template <typename T>
+__global__ void __launch_bounds__(1024) sparse3dna_bwd_kv_kernel(
+    const T* __restrict__ q, const T* __restrict__ gout, const float* __restrict__ ds,
+    const float* __restrict__ mix, T* __restrict__ dk, T* __restrict__ dv, int heads, int d,
+    Geometry g) {
+  extern __shared__ int s_q[];  // (kn) the query reading this key through slot j, or -1
+  const int kn = g.kf * g.kh * g.kw;
+  const int slots = kn + 1;
+  const int key = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const int hw = g.fh * g.fw;
+  const int f = key / hw, y = (key % hw) / g.fw, xx = key % g.fw;
+  for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+    const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
+    const int qf = f + (g.kf - 1 - a) * g.df;
+    const int qy = y + (g.kh - 1 - r / g.kw) * g.dh;
+    const int qx = xx + (g.kw - 1 - r % g.kw) * g.dw;
+    const int tok = (qf * g.fh + qy) * g.fw + qx;
+    s_q[j] = (qy < g.fh && qx < g.fw && tok < g.t) ? tok : -1;
+  }
+  __syncthreads();
+
+  const int h = warp;
+  const size_t row = static_cast<size_t>(bi) * heads + h;  // (b, h) plane
+  const T* qplane = q + row * g.t * d;
+  const T* gplane = gout + row * g.t * d;
+  const float* dsplane = ds + row * g.t * slots;
+  const float* mixplane = mix + row * g.t * slots;
+
+  float ak[kMaxR], av[kMaxR];
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) ak[r] = av[r] = 0.f;
+  for (int j = 0; j < kn; ++j) {
+    const int tok = s_q[j];  // uniform across the warp
+    if (tok < 0) continue;
+    const size_t s = static_cast<size_t>(tok) * slots + 1 + j;
+    const float wk = dsplane[s], wv = mixplane[s];
+    const T* qr = qplane + static_cast<size_t>(tok) * d;
+    const T* gr = gplane + static_cast<size_t>(tok) * d;
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      const int e = lane + 32 * r;
+      if (e < d) {
+        ak[r] += wk * to_f(qr[e]);
+        av[r] += wv * to_f(gr[e]);
+      }
+    }
+  }
+  const size_t off = (row * g.t + key) * d;
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < d) {
+      dk[off + e] = from_f<T>(ak[r]);
+      dv[off + e] = from_f<T>(av[r]);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* gout, const float* ds, const float* mix, void* dk,
+           void* dv, int b, int heads, int d, Geometry g, cudaStream_t stream) {
+  const int kn = g.kf * g.kh * g.kw;
+  const size_t smem = sizeof(int) * kn;
+  const dim3 grid(g.t, b);
+  const dim3 block(32 * heads);
+  sparse3dna_bwd_kv_kernel<T><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(gout), ds, mix, static_cast<T*>(dk),
+      static_cast<T*>(dv), heads, d, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, gout, dk, dv
+// (b, heads, t, d); ds, mix (b, heads, t, kn + 1) fp32, slot 0 being bos.
+// Returns the cudaError_t of the launch (0 on success).
+int nuwa_sparse3dna_bwd_kv(int dtype, const void* q, const void* gout, const float* ds,
+                           const float* mix, void* dk, void* dv, int b, int heads, int t, int d,
+                           int fh, int fw, int kf, int kh, int kw, int df, int dh, int dw,
+                           void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* nuwa_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,317 @@
+// Sparse3DNA backward, query side (causal, no dropout) for Hopper, sm_90a.
+//
+// Replaces the TPU kernel `_bwd_q_kernel` in nuwa_tpu/kernels/nda_pallas.py
+// (reached through `_bwd_q_call`, its pl.pallas_call). Given the forward's
+// inputs, its per-row logsumexp `lse` and the output cotangent `g`, it
+// recomputes for every query the probabilities P over bos and its Kn dilated
+// causal neighbours, and forms, per head a and slot j:
+//
+//   dA[a, j] = g[a] . v_j[a]                 (cotangent of the mixed probs)
+//   dP[b, j] = sum_a th[a, b] * dA[a, j]     (through the talking-heads mix)
+//   rho[b]   = sum_j P[b, j] * dP[b, j]
+//   dS[b, j] = P[b, j] * (dP[b, j] - rho[b]) (through the softmax)
+//   mix[a, j] = sum_b th[a, b] * P[b, j]     (the forward's mixed probs)
+//
+// It writes dq = sum_j dS[., j] k_j (bos included), and dS and mix as fp32
+// (b, h, t, Kn + 1) tensors for the key-side kernel (sparse3dna_bwd_kv.cu),
+// which gathers them per key instead of recomputing the scores. It sums over
+// all queries dth[a, b] = sum dA[a, j] P[b, j], the rel-pos bias cotangent
+// dbias[h, j] = sum dS[h, 1 + j], dk_bos = sum dS[., 0] q and
+// dv_bos = sum mix[., 0] g.
+//
+// The talking-heads mix sits between the softmax and PV, so rho is not the
+// usual flash identity rowsum(dO * O): it needs every head's P and dA of a
+// query first. As in the forward kernel, one block holds all h heads of a
+// query (one warp per head), and the h x (Kn + 1) values meet in shared
+// memory.
+//
+// What bounds it on the card: memory. Per query and head it does about
+// 6 * (Kn + 1) * d operations (scores, dA and dq), against one row each of
+// q, g, k, v and dq and 2 * (Kn + 1) fp32 values of dS and mix written: at
+// the training shape (Kn = 45, d = 64, bf16) about 1,010 bytes and 17,700
+// operations a (query, head), 17 operations per byte, far under the ~300 of
+// the bf16 tensor cores and near the ~20 of the fp32 cores it runs on. The dS and mix tensors it writes are 15 MB at
+// b = 2, h = 8, t = 2559, Kn = 45: smaller than q, k, v and g together
+// (21 MB in bf16), and they spare the key side a second pass over the scores.
+//
+// Reductions across queries: a block takes kQueriesPerBlock consecutive
+// queries and sums its share of dth, dbias, dk_bos and dv_bos in shared
+// memory and registers, then adds it to the fp32 outputs with atomicAdd
+// (which the wrapper zeroes). Atomics sum in a different order on each run,
+// so these four outputs agree with a sequential sum to rounding only.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int kMaxR = 8;              // head dim up to 32 * kMaxR = 256
+constexpr int kQueriesPerBlock = 4;   // queries whose reductions share one atomic
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Geometry {
+  int t;           // valid video tokens (rows of q, k, v)
+  int fh, fw;      // frame height and width
+  int kf, kh, kw;  // kernel size per axis
+  int df, dh, dw;  // dilation per axis
+};
+
+template <typename T>
+__device__ __forceinline__ float row_dot(const float (&x)[kMaxR], const T* row, int lane,
+                                         int d) {
+  float acc = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < d) acc += x[r] * to_f(row[e]);
+  }
+  return warp_sum(acc);
+}
+
+// grid (ceil(t / kQueriesPerBlock), b), block 32 * heads: warp w handles
+// head w of each of the block's queries in turn.
+template <typename T>
+__global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ kbos, const T* __restrict__ vbos,
+    const float* __restrict__ th, const float* __restrict__ bias,
+    const T* __restrict__ gout, const float* __restrict__ lse,
+    T* __restrict__ dq, float* __restrict__ ds_out, float* __restrict__ mix_out,
+    float* __restrict__ dkbos, float* __restrict__ dvbos, float* __restrict__ dth,
+    float* __restrict__ dbias, int heads, int d, Geometry g) {
+  extern __shared__ float smem[];
+  const int kn = g.kf * g.kh * g.kw;
+  const int slots = kn + 1;  // slot 0 is bos
+  float* s_th = smem;                        // (heads, heads)
+  float* s_dth = s_th + heads * heads;       // (heads, heads) this block's sum
+  float* s_p = s_dth + heads * heads;        // (heads, slots) probabilities
+  float* s_da = s_p + heads * slots;         // (heads, slots) dA
+  float* s_ds = s_da + heads * slots;        // (heads, slots) dP, then dS
+  float* s_mix = s_ds + heads * slots;       // (heads, slots) mixed probs
+  float* s_dbias = s_mix + heads * slots;    // (heads, kn) this block's sum
+  int* s_nb = reinterpret_cast<int*>(s_dbias + heads * kn);  // (kn) token or -1
+
+  const int bi = blockIdx.y;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h = warp;
+  const size_t row = static_cast<size_t>(bi) * heads + h;  // (b, h) plane
+  const T* kplane = k + row * g.t * d;
+  const T* vplane = v + row * g.t * d;
+  const T* kb = kbos + row * d;
+  const T* vb = vbos + row * d;
+
+  for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) {
+    s_th[x] = th[x];
+    s_dth[x] = 0.f;
+  }
+  for (int x = threadIdx.x; x < heads * kn; x += blockDim.x) s_dbias[x] = 0.f;
+
+  float dkb[kMaxR], dvb[kMaxR];
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) dkb[r] = dvb[r] = 0.f;
+
+  const int hw = g.fh * g.fw;
+  for (int qi = 0; qi < kQueriesPerBlock; ++qi) {
+    const int i = blockIdx.x * kQueriesPerBlock + qi;
+    if (i >= g.t) break;  // uniform across the block
+    __syncthreads();      // the previous query is done with s_nb, s_p, s_da
+    const int f = i / hw, y = (i % hw) / g.fw, xx = i % g.fw;
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
+      // as the forward kernel: slot j enumerates (a, b, c) row-major with
+      // causal offsets -(K-1)*dil ... 0, so only lower bounds can fail
+      const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
+      const int nf = f + (a - (g.kf - 1)) * g.df;
+      const int ny = y + (r / g.kw - (g.kh - 1)) * g.dh;
+      const int nx = xx + (r % g.kw - (g.kw - 1)) * g.dw;
+      const int tok = (nf * g.fh + ny) * g.fw + nx;
+      s_nb[j] = (nf >= 0 && ny >= 0 && nx >= 0 && tok < g.t) ? tok : -1;
+    }
+    __syncthreads();
+
+    const size_t qoff = (row * g.t + i) * d;
+    float qr[kMaxR], gr[kMaxR];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      const int e = lane + 32 * r;
+      qr[r] = e < d ? to_f(q[qoff + e]) : 0.f;
+      gr[r] = e < d ? to_f(gout[qoff + e]) : 0.f;
+    }
+    const float m = lse[row * g.t + i];
+
+    // ---- P and dA of this head, one warp-wide dot product each ----------
+    float* p = s_p + h * slots;
+    float* da = s_da + h * slots;
+    {
+      const float s = row_dot(qr, kb, lane, d);
+      const float a = row_dot(gr, vb, lane, d);
+      if (lane == 0) {
+        p[0] = expf(s - m);
+        da[0] = a;
+      }
+    }
+    for (int j = 0; j < kn; ++j) {
+      const int tok = s_nb[j];  // uniform across the warp
+      float pj = 0.f, aj = 0.f;
+      if (tok >= 0) {
+        const float s = row_dot(qr, kplane + static_cast<size_t>(tok) * d, lane, d) +
+                        (bias != nullptr ? bias[h * kn + j] : 0.f);
+        pj = expf(s - m);
+        aj = row_dot(gr, vplane + static_cast<size_t>(tok) * d, lane, d);
+      }
+      if (lane == 0) {
+        p[1 + j] = pj;
+        da[1 + j] = aj;
+      }
+    }
+    __syncthreads();  // every head's P and dA
+
+    // ---- through the mix and the softmax --------------------------------
+    float* dsr = s_ds + h * slots;
+    float* mixr = s_mix + h * slots;
+    float rho = 0.f;
+    for (int j = lane; j < slots; j += 32) {
+      float dp = 0.f, mx = 0.f;
+      for (int a = 0; a < heads; ++a) {
+        dp += s_th[a * heads + h] * s_da[a * slots + j];
+        mx += s_th[h * heads + a] * s_p[a * slots + j];
+      }
+      dsr[j] = dp;
+      mixr[j] = mx;
+      rho += p[j] * dp;
+    }
+    rho = warp_sum(rho);
+    const size_t soff = (row * g.t + i) * slots;
+    for (int j = lane; j < slots; j += 32) {
+      const float ds = p[j] * (dsr[j] - rho);
+      dsr[j] = ds;
+      ds_out[soff + j] = ds;
+      mix_out[soff + j] = mixr[j];
+      if (j > 0) s_dbias[h * kn + j - 1] += ds;  // row h is this warp's own
+    }
+    // dth[h, b] += sum_j dA[h, j] P[b, j]: lane b, row h is this warp's own
+    for (int b2 = lane; b2 < heads; b2 += 32) {
+      float acc = 0.f;
+      for (int j = 0; j < slots; ++j) acc += da[j] * s_p[b2 * slots + j];
+      s_dth[h * heads + b2] += acc;
+    }
+    __syncwarp();
+
+    // ---- dq = sum_j dS[j] k_j; bos sums -----------------------------------
+    float o[kMaxR];
+    {
+      const float w = dsr[0], wm = mixr[0];
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        const int e = lane + 32 * r;
+        o[r] = e < d ? w * to_f(kb[e]) : 0.f;
+        dkb[r] += w * qr[r];
+        dvb[r] += wm * gr[r];
+      }
+    }
+    for (int j = 0; j < kn; ++j) {
+      const int tok = s_nb[j];
+      if (tok < 0) continue;  // its dS is 0 in every head
+      const float w = dsr[1 + j];
+      const T* kr = kplane + static_cast<size_t>(tok) * d;
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        const int e = lane + 32 * r;
+        if (e < d) o[r] += w * to_f(kr[e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      const int e = lane + 32 * r;
+      if (e < d) dq[qoff + e] = from_f<T>(o[r]);
+    }
+  }
+
+  // ---- this block's share of the sums over all queries -----------------
+#pragma unroll
+  for (int r = 0; r < kMaxR; ++r) {
+    const int e = lane + 32 * r;
+    if (e < d) {
+      atomicAdd(dkbos + row * d + e, dkb[r]);
+      atomicAdd(dvbos + row * d + e, dvb[r]);
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) atomicAdd(dth + x, s_dth[x]);
+  if (dbias != nullptr) {
+    for (int x = threadIdx.x; x < heads * kn; x += blockDim.x) atomicAdd(dbias + x, s_dbias[x]);
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* kbos, const void* vbos,
+           const float* th, const float* bias, const void* gout, const float* lse, void* dq,
+           float* ds, float* mix, float* dkbos, float* dvbos, float* dth, float* dbias, int b,
+           int heads, int d, Geometry g, cudaStream_t stream) {
+  const int kn = g.kf * g.kh * g.kw;
+  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(heads) * heads +
+                                       4 * static_cast<size_t>(heads) * (kn + 1) +
+                                       static_cast<size_t>(heads) * kn) +
+                      sizeof(int) * kn;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(sparse3dna_bwd_q_kernel<T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((g.t + kQueriesPerBlock - 1) / kQueriesPerBlock, b);
+  const dim3 block(32 * heads);
+  sparse3dna_bwd_q_kernel<T><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
+      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, dkbos, dvbos, dth,
+      dbias, heads, d, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, k, v, gout,
+// dq (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
+// bias (heads, kn) fp32 or null; lse (b, heads, t) fp32; ds, mix
+// (b, heads, t, kn + 1) fp32; dkbos, dvbos (b, heads, d), dth (heads, heads)
+// and dbias (heads, kn, or null) fp32 and zeroed by the caller: the kernel
+// adds into them. Returns the cudaError_t of the launch (0 on success).
+int nuwa_sparse3dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
+                          const void* kbos, const void* vbos, const float* th,
+                          const float* bias, const void* gout, const float* lse, void* dq,
+                          float* ds, float* mix, float* dkbos, float* dvbos, float* dth,
+                          float* dbias, int b, int heads, int t, int d, int fh, int fw,
+                          int kf, int kh, int kw, int df, int dh, int dw, void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, dkbos, dvbos,
+                         dth, dbias, b, heads, d, g, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix,
+                                 dkbos, dvbos, dth, dbias, b, heads, d, g, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* nuwa_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

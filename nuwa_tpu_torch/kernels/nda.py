@@ -1,14 +1,26 @@
-"""Sparse3DNA forward: the Hopper kernel's wrapper and its plain version.
+"""Sparse3DNA attention: the Hopper kernels' wrappers, their plain versions
+and the autograd function that joins them.
 
-``sparse_3dna_fwd`` replaces the TPU kernel ``_kernel``
-(``nuwa_tpu/kernels/nda_pallas.py:239``, launched by ``_fwd_call``) in causal
-mode without dropout. On a CUDA tensor it launches the CUDA kernel of
-``csrc/sparse3dna_fwd.cu`` or raises; on a CPU tensor it runs
-``sparse_3dna_fwd_plain``, the same function written with gathers (the
-``_nda_attend`` math of ``nuwa_tpu/nda.py``). The plain version uses the copied
-neighbour table (``nuwa_tpu_torch.nda.build_nda_indices``); the kernel
-computes neighbours from coordinates, so comparing the two on the card checks
-one against the other.
+Three kernels, each replacing a TPU kernel of ``nuwa_tpu/kernels/nda_pallas.py``
+in causal mode without dropout:
+
+* ``sparse_3dna_fwd`` (``csrc/sparse3dna_fwd.cu``): the forward, out and the
+  per-row logsumexp; replaces ``_kernel`` (launched by ``_fwd_call``);
+* ``sparse_3dna_bwd_q`` (``csrc/sparse3dna_bwd_q.cu``): the query-side
+  backward, dq, the bos, talking-heads and rel-pos bias cotangents, and the
+  sparse dS and mixed probabilities; replaces ``_bwd_q_kernel``;
+* ``sparse_3dna_bwd_kv`` (``csrc/sparse3dna_bwd_kv.cu``): the key-side
+  backward, dk and dv gathered from dS and the mixed probabilities; replaces
+  ``_bwd_kv_kernel``.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its ``*_plain`` version, the same function written with gathers and
+``index_add_`` (the ``_nda_attend`` math of ``nuwa_tpu/nda.py``). The plain
+versions use the copied neighbour table (``nuwa_tpu_torch.nda.build_nda_indices``);
+the kernels compute neighbours from coordinates, so comparing the two on the
+card checks one against the other. ``sparse_3dna`` is the differentiable op:
+a ``torch.autograd.Function`` whose forward is ``sparse_3dna_fwd`` and whose
+backward runs ``sparse_3dna_bwd_q`` and then ``sparse_3dna_bwd_kv``.
 
 The JAX package reaches HW = 64 (fmap 8) only by lane-packing two frames into
 a 128-lane super-frame (``packed_frames``); the kernel reads each query's
@@ -72,18 +84,130 @@ def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     return out.to(q.dtype), lse
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = build.load("sparse3dna_fwd")
-    # dtype; q, k, v, k_bos, v_bos, th, bias, out, lse; b, heads, t, d,
-    # fh, fw, kf, kh, kw, df, dh, dw; stream
-    lib.nuwa_sparse3dna_fwd.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+def _gathered(x, idx, bos):
+    """(b, h, t, Kn + 1, d) fp32 rows of each query's slots: ``bos``
+    (b, h, 1, d) in slot 0, then the neighbours ``x[:, :, idx]``."""
+    b, h, t = x.shape[0], x.shape[1], idx.shape[0]
+    head = bos.float()[:, :, None].expand(b, h, t, 1, x.shape[-1])
+    return torch.cat([head, x.float()[:, :, idx]], dim=3)
+
+
+def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
+                            *, fmap, kernel, dilation):
+    """Plain PyTorch version of the query-side backward kernel (fp32 math);
+    same arguments and results as ``sparse_3dna_bwd_q``."""
+    b, h, t, d = q.shape
+    idx, valid = _neighbour_table(
+        t, tuple(fmap), tuple(kernel), tuple(dilation), str(q.device)
     )
-    lib.nuwa_sparse3dna_fwd.restype = ctypes.c_int
+    qf, gf, th = q.float(), grad.float(), talking_heads.float()
+    keys, vals = _gathered(k, idx, k_bos), _gathered(v, idx, v_bos)
+    sim = torch.einsum("bhid,bhijd->bhij", qf, keys)
+    if rel_bias is not None:
+        sim[..., 1:] += rel_bias.float()[None, :, None, :]
+    slot_valid = torch.cat([valid.new_ones(t, 1), valid], dim=1)
+    sim = sim.masked_fill(~slot_valid, float("-inf"))
+    p = torch.exp(sim - lse[..., None])
+    da = torch.einsum("bhid,bhijd->bhij", gf, vals)
+    dp = torch.einsum("bgij,gh->bhij", da, th)  # through the talking-heads mix
+    mix = torch.einsum("bhij,gh->bgij", p, th)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))  # through the softmax
+    dq = torch.einsum("bhij,bhijd->bhid", ds, keys)
+    dth = torch.einsum("bgij,bhij->gh", da, p)
+    dbias = ds[..., 1:].sum(dim=(0, 2)) if rel_bias is not None else None
+    dk_bos = torch.einsum("bhi,bhid->bhd", ds[..., 0], qf)[:, :, None]
+    dv_bos = torch.einsum("bhi,bhid->bhd", mix[..., 0], gf)[:, :, None]
+    return (dq.to(q.dtype), ds, mix, dk_bos.to(k_bos.dtype), dv_bos.to(v_bos.dtype),
+            dth, dbias)
+
+
+def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation):
+    """Plain PyTorch version of the key-side backward kernel (fp32 math);
+    same arguments and results as ``sparse_3dna_bwd_kv``."""
+    b, h, t, d = q.shape
+    idx, valid = _neighbour_table(
+        t, tuple(fmap), tuple(kernel), tuple(dilation), str(q.device)
+    )
+    kn = idx.shape[1]
+    flat = idx.reshape(-1)
+    out = []
+    for w, x in ((ds, q), (mix, grad)):
+        w = w[..., 1:].masked_fill(~valid, 0.0)
+        terms = (w[..., None] * x.float()[:, :, :, None, :]).reshape(b, h, t * kn, d)
+        out.append(terms.new_zeros(b, h, t, d).index_add_(2, flat, terms))
+    return out[0].to(q.dtype), out[1].to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name):
+    """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
+    an int dtype, pointers, then ints (b, heads, t, d and the geometry), then
+    the stream."""
+    pointers, ints = {
+        "sparse3dna_fwd": (9, 12),
+        "sparse3dna_bwd_q": (16, 12),
+        "sparse3dna_bwd_kv": (6, 12),
+    }[name]
+    lib = build.load(name)
+    fn = getattr(lib, f"nuwa_{name}")
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+        + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
     lib.nuwa_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nuwa_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch(name, dtype, pointers, ints, device):
+    lib = _library(name)
+    rc = getattr(lib, f"nuwa_{name}")(
+        _DTYPES[dtype], *pointers, *ints, torch.cuda.current_stream(device).cuda_stream
+    )
+    if rc != 0:
+        msg = lib.nuwa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+
+
+def _check_cuda(name, q, fmap, tensors):
+    """Raise on anything the kernels do not take. ``tensors``: (name, tensor,
+    shape, dtype) to check beside q (b, h, t, d)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    b, h, t, d = q.shape
+    fh, fw = fmap
+    if fh * fw > MAX_TOKENS_PER_FRAME:
+        raise NotImplementedError(
+            f"frames of {fh * fw} > {MAX_TOKENS_PER_FRAME} tokens belong to the "
+            "row-blocked kernel, which is not ported yet"
+        )
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, not {q.dtype}")
+    if not (1 <= h <= 32 and 1 <= d <= 256):
+        raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
+    for arg, x, shape, dtype in tensors:
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != q.device:
+            raise ValueError(f"{name}: {arg} must be {shape} {dtype} on {q.device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def _params(q, talking_heads, rel_bias, kn):
+    """The talking-heads matrix and the bias as contiguous fp32 on q's device."""
+    h = q.shape[1]
+    th = talking_heads.to(device=q.device, dtype=torch.float32).contiguous()
+    if tuple(th.shape) != (h, h):
+        raise ValueError(f"talking_heads: expected {(h, h)}, got {tuple(th.shape)}")
+    bias = None
+    if rel_bias is not None:
+        bias = rel_bias.to(device=q.device, dtype=torch.float32).contiguous()
+        if tuple(bias.shape) != (h, kn):
+            raise ValueError(f"rel_bias: expected {(h, kn)}, got {tuple(bias.shape)}")
+    return th, bias
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
 
 
 def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
@@ -101,51 +225,130 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
             q, k, v, k_bos, v_bos, talking_heads, rel_bias,
             fmap=fmap, kernel=kernel, dilation=dilation,
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"sparse_3dna_fwd runs on cuda or cpu, not {q.device}")
     b, h, t, d = q.shape
-    fh, fw = fmap
-    if fh * fw > MAX_TOKENS_PER_FRAME:
-        raise NotImplementedError(
-            f"frames of {fh * fw} > {MAX_TOKENS_PER_FRAME} tokens belong to the "
-            "row-blocked kernel, which is not ported yet"
-        )
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"sparse_3dna_fwd takes float32 or bfloat16, not {q.dtype}")
-    if not (1 <= h <= 32 and 1 <= d <= 256):
-        raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
-    for name, x, shape in (("k", k, (b, h, t, d)), ("v", v, (b, h, t, d)),
-                           ("k_bos", k_bos, (b, h, 1, d)),
-                           ("v_bos", v_bos, (b, h, 1, d))):
-        if tuple(x.shape) != shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"{name}: expected {shape} {q.dtype} on {q.device}")
-    kn = kernel[0] * kernel[1] * kernel[2]
-    th = talking_heads.to(device=q.device, dtype=torch.float32).contiguous()
-    if tuple(th.shape) != (h, h):
-        raise ValueError(f"talking_heads: expected {(h, h)}, got {tuple(th.shape)}")
-    bias = None
-    if rel_bias is not None:
-        bias = rel_bias.to(device=q.device, dtype=torch.float32).contiguous()
-        if tuple(bias.shape) != (h, kn):
-            raise ValueError(f"rel_bias: expected {(h, kn)}, got {tuple(bias.shape)}")
-
+    full, bos = (b, h, t, d), (b, h, 1, d)
+    _check_cuda("sparse_3dna_fwd", q, fmap, [
+        ("k", k, full, q.dtype), ("v", v, full, q.dtype),
+        ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
+    ])
+    th, bias = _params(q, talking_heads, rel_bias, kernel[0] * kernel[1] * kernel[2])
     ins = [x.contiguous() for x in (q, k, v, k_bos, v_bos)]
     out = torch.empty_like(ins[0])
     lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
     if t == 0:
         return out, lse
-    lib = _library()
-    rc = lib.nuwa_sparse3dna_fwd(
-        _DTYPES[q.dtype], *(x.data_ptr() for x in ins), th.data_ptr(),
-        bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        lse.data_ptr(), b, h, t, d, fh, fw, *kernel, *dilation,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        msg = lib.nuwa_cuda_error_string(rc).decode()
-        raise RuntimeError(f"sparse3dna_fwd launch failed: {msg} ({rc})")
+    _launch("sparse3dna_fwd", q.dtype,
+            [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), out.data_ptr(),
+             lse.data_ptr()],
+            [b, h, t, d, *fmap, *kernel, *dilation], q.device)
     sparse_3dna_fwd.launches += 1
     return out, lse
 
 
-sparse_3dna_fwd.launches = 0  # kernel launches since the count was last reset
+def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
+                      *, fmap, kernel, dilation):
+    """Query side of the Sparse3DNA backward.
+
+    Takes the forward's arguments, its output cotangent ``grad`` (b, h, t, d,
+    q's dtype) and its ``lse``. Returns dq (q's dtype), dS and the mixed
+    probabilities mix (both (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos
+    and dv_bos ((b, h, 1, d), k_bos's dtype), dth (h, h) fp32 and the rel-pos
+    bias cotangent (h, Kn) fp32, or None without a bias.
+    """
+    if q.device.type == "cpu":
+        return sparse_3dna_bwd_q_plain(
+            q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
+            fmap=fmap, kernel=kernel, dilation=dilation,
+        )
+    b, h, t, d = q.shape
+    full, bos = (b, h, t, d), (b, h, 1, d)
+    kn = kernel[0] * kernel[1] * kernel[2]
+    _check_cuda("sparse_3dna_bwd_q", q, fmap, [
+        ("k", k, full, q.dtype), ("v", v, full, q.dtype),
+        ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
+        ("grad", grad, full, q.dtype), ("lse", lse, (b, h, t), torch.float32),
+    ])
+    th, bias = _params(q, talking_heads, rel_bias, kn)
+    ins = [x.contiguous() for x in (q, k, v, k_bos, v_bos)]
+    grad, lse = grad.contiguous(), lse.contiguous()
+    dq = torch.empty_like(ins[0])
+    ds = torch.empty(b, h, t, kn + 1, device=q.device, dtype=torch.float32)
+    mix = torch.empty_like(ds)
+    # sums over every query: the kernel adds its blocks' shares into these
+    dk_bos = torch.zeros(b, h, 1, d, device=q.device, dtype=torch.float32)
+    dv_bos = torch.zeros_like(dk_bos)
+    dth = torch.zeros(h, h, device=q.device, dtype=torch.float32)
+    dbias = torch.zeros(h, kn, device=q.device, dtype=torch.float32) if bias is not None else None
+    if t > 0:
+        _launch("sparse3dna_bwd_q", q.dtype,
+                [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
+                 dk_bos.data_ptr(), dv_bos.data_ptr(), dth.data_ptr(), _ptr(dbias)],
+                [b, h, t, d, *fmap, *kernel, *dilation], q.device)
+        sparse_3dna_bwd_q.launches += 1
+    return dq, ds, mix, dk_bos.to(k_bos.dtype), dv_bos.to(v_bos.dtype), dth, dbias
+
+
+def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation):
+    """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
+    from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
+    ``sparse_3dna_bwd_q`` returned."""
+    if q.device.type == "cpu":
+        return sparse_3dna_bwd_kv_plain(
+            q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation
+        )
+    b, h, t, d = q.shape
+    slots = (b, h, t, kernel[0] * kernel[1] * kernel[2] + 1)
+    _check_cuda("sparse_3dna_bwd_kv", q, fmap, [
+        ("grad", grad, (b, h, t, d), q.dtype),
+        ("ds", ds, slots, torch.float32), ("mix", mix, slots, torch.float32),
+    ])
+    ins = [x.contiguous() for x in (q, grad, ds, mix)]
+    dk = torch.empty_like(ins[0])
+    dv = torch.empty_like(ins[0])
+    if t > 0:
+        _launch("sparse3dna_bwd_kv", q.dtype,
+                [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
+                [b, h, t, d, *fmap, *kernel, *dilation], q.device)
+        sparse_3dna_bwd_kv.launches += 1
+    return dk, dv
+
+
+# kernel launches since each count was last reset
+sparse_3dna_fwd.launches = 0
+sparse_3dna_bwd_q.launches = 0
+sparse_3dna_bwd_kv.launches = 0
+
+
+class Sparse3DNAFunction(torch.autograd.Function):
+    """Differentiable Sparse3DNA: the forward kernel saves only ``lse``
+    beside its inputs; the backward recomputes the probabilities query-side
+    (``sparse_3dna_bwd_q``) and then gathers dk and dv key-side
+    (``sparse_3dna_bwd_kv``), as the JAX package's ``_core_op`` does with its
+    two Pallas kernels. The rel-pos bias gradient comes back as (h, Kn), and
+    autograd chains it to the axial tables that built the bias."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry):
+        out, lse = sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias, **geometry)
+        ctx.save_for_backward(q, k, v, k_bos, v_bos, talking_heads, rel_bias, lse)
+        ctx.geometry = geometry
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, k_bos, v_bos, th, rel_bias, lse = ctx.saved_tensors
+        geo, grad = ctx.geometry, grad.to(q.dtype)
+        dq, ds, mix, dk_bos, dv_bos, dth, dbias = sparse_3dna_bwd_q(
+            q, k, v, k_bos, v_bos, th, rel_bias, grad, lse, **geo
+        )
+        dk, dv = sparse_3dna_bwd_kv(q, grad, ds, mix, **geo)
+        dbias = dbias.to(rel_bias.dtype) if rel_bias is not None else None
+        return dq, dk, dv, dk_bos, dv_bos, dth.to(th.dtype), dbias, None
+
+
+def sparse_3dna(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
+                *, fmap, kernel, dilation):
+    """``sparse_3dna_fwd``'s output, differentiable in every tensor argument."""
+    geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation))
+    return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry)

@@ -1,30 +1,39 @@
 """NUWA — text to video, autoregressive over video tokens.
 
-Counterpart of ``nuwa_tpu/models/nuwa.py`` for serving without a VAE
-(requests carry token ids; the model is in raw-fmap mode): rotary text
-encoder, axial video positions, learned bos, a causal Sparse3DNA decoder
-with dense cross-attention to the text, and cached ``generate`` /
+Counterpart of ``nuwa_tpu/models/nuwa.py`` without a VAE (requests and
+training batches carry token ids; the model is in raw-fmap mode): rotary
+text encoder, axial video positions, learned bos, a causal Sparse3DNA decoder
+(plain or reversible) with dense cross-attention to the text, the teacher-
+forced cross-entropy loss with condition dropout, and cached ``generate`` /
 ``generate_long`` with top-k, Gumbel sampling and classifier-free guidance.
 The model lives on one device, ``cuda`` unless the caller names another.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.layers import Embedding, init_weights_, normal_
 from ..decode import TransformerDecoder
 from ..ops.embeddings import AxialPositionalEmbedding, rotary_freqs
+from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
-from ..transformer import Transformer
+from ..transformer import ReversibleTransformer, Transformer
 from .common import cached_ar_rollout, long_frame_decoder
+
+
+def cross_entropy(logits, targets):
+    """Mean token cross-entropy, in fp32."""
+    return F.cross_entropy(logits.float().flatten(0, -2), targets.reshape(-1).long())
 
 
 class NUWA(nn.Module):
     def __init__(self, *, dim, image_size, num_image_tokens, max_video_frames=5,
                  text_num_tokens=49408, text_max_seq_len=256, text_enc_depth=6,
-                 text_enc_dim_head=64, text_enc_heads=8, dec_depth=6,
-                 dec_dim_head=64, dec_heads=8, shift_video_tokens=True,
+                 text_enc_dim_head=64, text_enc_heads=8, enc_reversible=False,
+                 dec_depth=6, dec_dim_head=64, dec_heads=8, dec_reversible=False,
+                 embed_gradient_frac=0.2, shift_video_tokens=True,
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
                  sparse_3dna_rel_pos_bias=False, compute_dtype=None,
                  device=None, seed=0):
@@ -43,15 +52,15 @@ class NUWA(nn.Module):
         video_shape = (max_video_frames, image_size, image_size)
 
         with torch.device(device):
-            self.text_embedding = Embedding(text_num_tokens, dim)
-            self.text_transformer = Transformer(
+            self.text_embedding = Embedding(text_num_tokens, dim, embed_gradient_frac)
+            self.text_transformer = (ReversibleTransformer if enc_reversible else Transformer)(
                 dim=dim, depth=text_enc_depth, heads=text_enc_heads,
                 dim_head=text_enc_dim_head,
             )
             self.video_bos = nn.Parameter(torch.empty(dim))
-            self.image_embedding = Embedding(num_image_tokens, dim)
+            self.image_embedding = Embedding(num_image_tokens, dim, embed_gradient_frac)
             self.video_pos_emb = AxialPositionalEmbedding(dim, shape=video_shape)
-            self.video_transformer = Transformer(
+            self.video_transformer = (ReversibleTransformer if dec_reversible else Transformer)(
                 dim=dim, depth=dec_depth, heads=dec_heads, dim_head=dec_dim_head,
                 cross_attend=True,
                 shift_video_tokens=shift_video_tokens,
@@ -76,11 +85,11 @@ class NUWA(nn.Module):
 
     # ---- text encoder -----------------------------------------------------
 
-    def embed_text(self, text, mask=None):
+    def embed_text(self, text, mask=None, *, train=False):
         seq_len = text.shape[1]
         if seq_len > self.text_max_seq_len:
             raise ValueError(f"text of {seq_len} tokens > {self.text_max_seq_len}")
-        tokens = self.text_embedding(text)
+        tokens = self.text_embedding(text, train=train)
         if self.dtype is not None:
             tokens = tokens.to(self.dtype)
         rot = rotary_freqs(seq_len, min(32, self.text_enc_dim_head), self.device)
@@ -96,11 +105,12 @@ class NUWA(nn.Module):
 
     # ---- decoder core -----------------------------------------------------
 
-    def _decode_logits(self, frame_indices_input, text_embeds, text_mask):
+    def _decode_logits(self, frame_indices_input, text_embeds, text_mask, *, train=False):
         """frame_indices_input: (b, n) tokens, already shifted for teacher
         forcing; returns (b, n + 1, vocab) logits."""
         b, n = frame_indices_input.shape
-        emb = self.image_embedding(frame_indices_input) + self.video_pos_emb()[:n][None]
+        emb = self.image_embedding(frame_indices_input, train=train)
+        emb = emb + self.video_pos_emb()[:n][None]
         bos = self.video_bos.expand(b, 1, self.dim)
         emb = torch.cat([bos, emb], dim=1)
         if self.dtype is not None:
@@ -108,14 +118,32 @@ class NUWA(nn.Module):
         out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask)
         return out @ self.to_logits.to(out.dtype)
 
-    @torch.no_grad()
-    def forward(self, text, video):
-        """Teacher-forced logits of video token ids (b, ...) given text ids."""
+    def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
+                train=False, generator=None, uncond=None):
+        """Teacher-forced logits of video token ids (b, ...) given text ids,
+        or with ``return_loss`` the mean cross-entropy of predicting each
+        token from the ones before it (the input is shifted by one, so the
+        decoder sees F * HW - 1 video tokens).
+
+        ``train`` scales the embeddings' gradients and applies condition
+        dropout: each sample's text is masked out with ``cond_dropout_prob``,
+        drawn from ``generator``, or where ``uncond`` (b,) bool says so.
+        """
         text = self._ids(text)
+        b = text.shape[0]
         text_mask = text != 0
-        text_embeds = self.embed_text(text, text_mask)
-        frame_indices = self._ids(video).reshape(text.shape[0], -1)
-        return self._decode_logits(frame_indices, text_embeds, text_mask)
+        text_embeds = self.embed_text(text, text_mask, train=train)
+        frame_indices = self._ids(video).reshape(b, -1)
+        inp = frame_indices[:, :-1] if return_loss else frame_indices
+        if train and uncond is None and cond_dropout_prob > 0:
+            uncond = prob_mask_like((b,), cond_dropout_prob, generator=generator,
+                                    device=self.device)
+        if train and uncond is not None:
+            text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
+        logits = self._decode_logits(inp, text_embeds, text_mask, train=train)
+        if not return_loss:
+            return logits
+        return cross_entropy(logits, frame_indices)
 
     # ---- sampling ---------------------------------------------------------
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``Sparse3DNA`` in ``nuwa_tpu/nda.py`` in causal mode, the
 video decoder's (the centered mode belongs to the sketch encoder, a later
-slice). The attention itself is ``kernels.nda.sparse_3dna_fwd``: the Hopper
-kernel on CUDA tensors, its plain gather version on CPU tensors.
+slice). The attention itself is ``kernels.nda.sparse_3dna``, differentiable:
+the Hopper kernels (forward, query-side and key-side backward) on CUDA
+tensors, their plain gather versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from .core.layers import Dense, kaiming_uniform_
-from .kernels.nda import sparse_3dna_fwd
+from .kernels.nda import sparse_3dna
 from .ops.attention import merge_heads, split_heads
 from .ops.embeddings import AxialPositionalEmbedding
 
@@ -115,7 +116,7 @@ class Sparse3DNA(nn.Module):
         k_bos, k = k[:, :, :1], k[:, :, 1:]
         v_bos, v = v[:, :, :1], v[:, :, 1:]
 
-        out, _ = sparse_3dna_fwd(
+        out = sparse_3dna(
             q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
             fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
         )

@@ -1,5 +1,5 @@
 """GEGLU feed-forward. Counterpart of ``nuwa_tpu/ops/feedforward.py``
-(inference only: no dropout, no sequence chunking)."""
+(no dropout and no sequence chunking: no caller on the ported paths sets them)."""
 from __future__ import annotations
 
 import torch.nn.functional as F

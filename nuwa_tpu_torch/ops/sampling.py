@@ -26,3 +26,9 @@ def top_k_filter(logits, thres=0.5):
     k = max(int((1.0 - thres) * logits.shape[-1]), 1)
     kth = logits.topk(k, dim=-1).values[..., -1:]
     return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def prob_mask_like(shape, prob, *, generator=None, device=None):
+    """Bernoulli(prob) boolean mask, drawn from ``generator``: the per-sample
+    condition dropout of classifier-free guidance training."""
+    return torch.rand(shape, generator=generator, device=device) < prob

@@ -1,8 +1,9 @@
-"""Transformer stack: depth x [self-attention, cross-attention?, feed-forward],
-each block in a sandwich norm with a residual, and a final StableLayerNorm.
+"""Transformer stacks: depth x [self-attention, cross-attention?,
+feed-forward], each block in a sandwich norm, and a final StableLayerNorm.
 
-Counterpart of the plain ``Transformer`` of ``nuwa_tpu/transformer.py``
-(``ReversibleTransformer`` belongs to the training slice).
+Counterpart of ``Transformer`` (a residual around every block) and
+``ReversibleTransformer`` (the blocks run as reversible couples) of
+``nuwa_tpu/transformer.py``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from .core.layers import LayerNorm, StableLayerNorm
 from .nda import Sparse3DNA
 from .ops.attention import Attention
 from .ops.feedforward import FeedForward
-from .ops.shift import shift_video_tokens
+from .ops.shift import shift_video_tokens as shift_tokens
+from .reversible import reversible_sequence
 
 
 class Sandwich(nn.Module):
@@ -40,19 +42,23 @@ class ShiftVideo(nn.Module):
         self.image_size = image_size
 
     def forward(self, x, **kw):
-        return self.inner(shift_video_tokens(x, self.image_size), **kw)
+        return self.inner(shift_tokens(x, self.image_size), **kw)
 
 
-def _build_layer_menu(*, dim, depth, heads, dim_head, cross_attend,
-                      sparse_3dna_attn, sparse_3dna_kernel_size,
-                      sparse_3dna_video_shape, sparse_3dna_dilations,
-                      sparse_3dna_rel_pos_bias, shift_video_tokens_flag):
+def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
+                      sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
+                      sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
+                      sparse_3dna_rel_pos_bias=False, shift_video_tokens=False,
+                      include_cross_ff=False):
     """(kind, Sandwich) entries in the order of the JAX package's menu: per
-    depth a self block, a cross block when cross-attending, and one ff. The
-    self block is causal Sparse3DNA (the video decoder) or bidirectional
-    dense attention (the text encoder)."""
+    depth a self block, a cross block when cross-attending (followed by its
+    own "ff_cross" when ``include_cross_ff``, the reversible layout), and one
+    ff. The self block is causal Sparse3DNA (the video decoder) or
+    bidirectional dense attention (the text encoder)."""
     if sparse_3dna_attn and sparse_3dna_video_shape is None:
         raise ValueError("sparse_3dna_attn needs sparse_3dna_video_shape")
+    shift = sparse_3dna_attn and shift_video_tokens
+    fmap = sparse_3dna_video_shape[-1] if shift else None
     entries = []
     for ind in range(depth):
         if sparse_3dna_attn:
@@ -66,39 +72,46 @@ def _build_layer_menu(*, dim, depth, heads, dim_head, cross_attend,
         else:
             self_attn = Attention(dim=dim, heads=heads, dim_head=dim_head)
         ff = FeedForward(dim=dim)
-        if sparse_3dna_attn and shift_video_tokens_flag:
-            fmap = sparse_3dna_video_shape[-1]
+        if shift:
             self_attn = ShiftVideo(self_attn, image_size=fmap)
             ff = ShiftVideo(ff, image_size=fmap)
         entries.append(("self", Sandwich(dim, self_attn)))
         if cross_attend:
             cross = Attention(dim=dim, heads=heads, dim_head=dim_head)
             entries.append(("cross", Sandwich(dim, cross)))
+            if include_cross_ff:
+                ff_cross = FeedForward(dim=dim)
+                if shift:
+                    ff_cross = ShiftVideo(ff_cross, image_size=fmap)
+                entries.append(("ff_cross", Sandwich(dim, ff_cross)))
         entries.append(("ff", Sandwich(dim, ff)))
     return entries
 
 
 class Transformer(nn.Module):
+    include_cross_ff = False  # the reversible stack's layout adds ff_cross
+
     def __init__(self, dim, depth, heads=8, dim_head=64, cross_attend=False,
-                 sparse_3dna_attn=False,
-                 sparse_3dna_kernel_size=3, sparse_3dna_video_shape=None,
-                 sparse_3dna_dilations=(1,), sparse_3dna_rel_pos_bias=False,
-                 shift_video_tokens=False):
+                 sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
+                 sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
+                 sparse_3dna_rel_pos_bias=False, shift_video_tokens=False):
         super().__init__()
         self.dim = dim
-        menu = _build_layer_menu(
-            dim=dim, depth=depth, heads=heads, dim_head=dim_head,
-            cross_attend=cross_attend,
+        self._assemble(_build_layer_menu(
+            dim, depth, heads=heads, dim_head=dim_head, cross_attend=cross_attend,
             sparse_3dna_attn=sparse_3dna_attn,
             sparse_3dna_kernel_size=sparse_3dna_kernel_size,
             sparse_3dna_video_shape=sparse_3dna_video_shape,
             sparse_3dna_dilations=tuple(sparse_3dna_dilations),
             sparse_3dna_rel_pos_bias=sparse_3dna_rel_pos_bias,
-            shift_video_tokens_flag=shift_video_tokens,
-        )
+            shift_video_tokens=shift_video_tokens,
+            include_cross_ff=self.include_cross_ff,
+        ))
+        self.norm = StableLayerNorm(dim)
+
+    def _assemble(self, menu):
         self.kinds = [kind for kind, _ in menu]
         self.layers = nn.ModuleList([m for _, m in menu])
-        self.norm = StableLayerNorm(dim)
 
     def forward(self, x, *, mask=None, context=None, context_mask=None,
                 rotary_pos_emb=None):
@@ -111,3 +124,46 @@ class Transformer(nn.Module):
                 kw = {}
             x = layer(x, **kw) + x
         return self.norm(x)
+
+
+class Couple(nn.Module):
+    """One reversible couple: ``f`` reads the second stream into the first,
+    ``g`` the first into the second (the JAX params' ``{"f", "g"}``)."""
+
+    def __init__(self, f, g):
+        super().__init__()
+        self.f = f
+        self.g = g
+
+
+# which call-site keyword arguments each couple's f receives (g, a
+# feed-forward, takes none)
+_ROUTES = {"self": ("mask", "rotary_pos_emb"), "cross": ("context", "context_mask")}
+
+
+class ReversibleTransformer(Transformer):
+    """The same layer menu as ``Transformer``, with a feed-forward of its own
+    after each cross block, run as reversible couples: per depth
+    (self, ff) and, when cross-attending, (cross, ff_cross)."""
+
+    include_cross_ff = True
+
+    def _assemble(self, menu):
+        kinds, couples = [], []
+        for i, (kind, module) in enumerate(menu):
+            if kind == "self":  # paired with the ff that closes its depth
+                ff = next(m for k, m in menu[i + 1 :] if k == "ff")
+                kinds.append(kind)
+                couples.append(Couple(module, ff))
+            elif kind == "cross":
+                kinds.append(kind)
+                couples.append(Couple(module, menu[i + 1][1]))
+        self.kinds = kinds
+        self.layers = nn.ModuleList(couples)
+
+    def forward(self, x, *, mask=None, context=None, context_mask=None,
+                rotary_pos_emb=None, reverse=True):
+        couples = [(c.f, _ROUTES[kind], c.g, ()) for kind, c in zip(self.kinds, self.layers)]
+        kwargs = dict(mask=mask, context=context, context_mask=context_mask,
+                      rotary_pos_emb=rotary_pos_emb)
+        return self.norm(reversible_sequence(couples, x, kwargs, reverse=reverse))

@@ -5,7 +5,7 @@ Imports neither JAX nor nuwa_tpu, so it also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Without a CUDA device every test skips. chip_smoke.py checks the same kernels
-at the full serving shapes.
+at the full serving and training shapes.
 """
 import pytest
 import torch
@@ -49,3 +49,85 @@ def test_sparse3dna_wrapper_raises_on_unsupported_frames():
     with pytest.raises(NotImplementedError):
         knda.sparse_3dna_fwd(q, q, q, kb, kb, torch.eye(2), fmap=(17, 17),
                              kernel=(3, 3, 3), dilation=(1, 1, 1))
+
+
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _bwd_inputs(dtype, t, h=4, d=32, kn=45, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q, k, v, g = (rnd(2, h, t, d).to(dtype) for _ in range(4))
+    q = (q.float() * d**-0.5).to(dtype)  # pre-scaled, as Sparse3DNA passes it
+    kb, vb = (rnd(2, h, 1, d).to(dtype) for _ in range(2))
+    th, bias = rnd(h, h), rnd(h, kn)
+    return q, k, v, kb, vb, th, bias, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t", [64, 37, 1])
+@pytest.mark.parametrize("bias", [True, False])
+def test_sparse3dna_backward_kernels_match_plain(dtype, tol, t, bias):
+    """4 heads of 32, fmap 4, dilation (2, 1, 2), kernel (3, 5, 3): the
+    query-side and key-side kernels against their plain versions on the same
+    inputs. Errors relative to each reference's max abs: sums run in another
+    order (over queries in atomics' order). ``tol`` holds the outputs in q's
+    dtype (bf16 rounds them to 8 bits of mantissa); dS, mix, dth and the
+    bias cotangent are fp32 in both versions, so 1e-5 holds them in both
+    runs."""
+    _needs_cuda()
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t)
+    rel = rel if bias else None
+    geo = dict(fmap=(4, 4), kernel=(3, 5, 3), dilation=(2, 1, 2))
+    _, lse = knda.sparse_3dna_fwd_plain(q, k, v, kb, vb, th, rel, **geo)
+    got = knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse, **geo)
+    want = knda.sparse_3dna_bwd_q_plain(q, k, v, kb, vb, th, rel, g, lse, **geo)
+    got += knda.sparse_3dna_bwd_kv(q, g, got[1], got[2], **geo)
+    want += knda.sparse_3dna_bwd_kv_plain(q, g, want[1], want[2], **geo)
+    torch.cuda.synchronize()
+    names = ("dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk", "dv")
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        scale = max(1.0, b.float().abs().max().item())
+        bound = (tol if b.dtype == dtype else 1e-5) * scale
+        assert err <= bound, f"{name}: max abs err {err} > {bound}"
+
+
+@pytest.mark.cuda
+def test_sparse3dna_backward_wrappers_refuse_what_the_kernels_do_not_take():
+    """No quiet fallback: wrong dtypes, shapes and frame sizes raise."""
+    _needs_cuda()
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(torch.float32, 16, kn=27)
+    geo = dict(fmap=(4, 4), kernel=(3, 3, 3), dilation=(1, 1, 1))
+    _, lse = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **geo)
+    ds = torch.zeros(2, 4, 16, 28, device="cuda")
+    with pytest.raises(TypeError):  # fp16 is not taken
+        knda.sparse_3dna_bwd_q(*(x.half() for x in (q, k, v, kb, vb)), th, rel,
+                               g.half(), lse, **geo)
+    with pytest.raises(ValueError):  # grad in another dtype than q
+        knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g.bfloat16(), lse, **geo)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse[:, :, :8], **geo)
+    with pytest.raises(ValueError):  # a bias for another kernel size
+        knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel[:, :9], g, lse, **geo)
+    with pytest.raises(ValueError):  # dS with the wrong number of slots
+        knda.sparse_3dna_bwd_kv(q, g, ds[..., :10], ds, **geo)
+    with pytest.raises(ValueError):  # dS in bf16
+        knda.sparse_3dna_bwd_kv(q, g, ds.bfloat16(), ds, **geo)
+    with pytest.raises(ValueError):  # a CPU tensor beside a CUDA q
+        knda.sparse_3dna_bwd_kv(q, g.cpu(), ds, ds, **geo)
+    big = torch.zeros(1, 2, 300, 8, device="cuda")
+    with pytest.raises(NotImplementedError):  # frames of the row-blocked family
+        knda.sparse_3dna_bwd_kv(big, big, torch.zeros(1, 2, 300, 28, device="cuda"),
+                                torch.zeros(1, 2, 300, 28, device="cuda"),
+                                fmap=(17, 17), kernel=(3, 3, 3), dilation=(1, 1, 1))

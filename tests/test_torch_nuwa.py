@@ -62,7 +62,7 @@ def test_forward_logits_match_jax(pair):
     video = _video()
     fwd = jax.jit(lambda p, t, v: jmodel.forward(p, text=t, video=v))
     want = np.asarray(fwd(params, jnp.asarray(TEXT), jnp.asarray(video)))
-    got = tmodel(TEXT, video).numpy()
+    got = tmodel(TEXT, video).detach().numpy()
     assert got.shape == want.shape == (2, 49, 64)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
