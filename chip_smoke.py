@@ -25,8 +25,22 @@ Phases, each of which exits non-zero on failure:
    finite losses, the exact launches of each kernel per step, ms per step,
    tokens/s, peak memory and the device's busy share; then the loss and
    every gradient of the same weights in fp32 on the GPU against the CPU;
-6. throughput: tokens/s of each serving request (CUDA events, median after
-   warm-up) and the device's busy share of a generate.
+6. sketch serving: the SparseCross2DNA kernel against its plain version
+   (fp32 and bf16; one and two context frames; fmap 16 and 4; dilations 1
+   and 2; full, ragged and single query tokens; b 1 and 2; context masks all
+   True, one frame masked and all False) and its time at the forward shape;
+   then the full-width NUWASketch of the JAX package's sketch config (dim
+   512, a reversible decoder of depth 6, 8 heads of 64, kernel (5, 3, 3) with
+   dilations (1, 2, 4), a dense sketch encoder of depth 2, cross kernel 3,
+   bf16, fmap 16 from a one-layer VQGanVAE on 32-pixel frames, 5 video and 2
+   sketch frames) from a seed answers forward (2-frame and 1-frame sketches),
+   generate (b = 1 and 4, decoded to pixels) and generate_long, with the
+   launch counts of both kernels checked; then the same weights in fp32 on
+   the GPU against the CPU plain path: sketch token ids, forward logits and
+   greedy generate_long ids;
+7. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+   (CUDA events, median after warm-up), and the device's busy share of a
+   generate of each model.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -57,6 +71,18 @@ TRAIN = dict(
     shift_video_tokens=True,
 )
 TRAIN_BATCH, TRAIN_STEPS = 2, 5
+# the JAX package's NUWASketch (scripts/bench_sketch_train.py:38-57) with the
+# frame counts of the reference README's NUWASketch example
+SKETCH_VAE = dict(dim=32, image_size=32, num_layers=1, vq_codebook_size=1024,
+                  use_vgg_and_gan=False, vq_kmeans_init=False, use_attn=False,
+                  num_resnet_blocks=0)
+SKETCH = dict(
+    dim=512, image_size=32, max_video_frames=5, sketch_max_video_frames=2,
+    sketch_enc_depth=2, sketch_enc_dim_head=64, sketch_enc_heads=8, dec_depth=6,
+    dec_dim_head=64, dec_heads=8, dec_reversible=True, sparse_3dna_kernel_size=(5, 3, 3),
+    sparse_3dna_dilation=(1, 2, 4), shift_video_tokens=True, cross_2dna_kernel_size=3,
+    cross_2dna_dilation=1,
+)
 SEED = 0
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -411,22 +437,29 @@ def serve(NUWA, knda):
             fail(f"{name}: {counts[name]} sparse_3dna_fwd launches, expected {expect}")
         print(f"{name}: {tuple(out.shape)} ok, sparse_3dna_fwd launches "
               f"{counts[name]} (expected {expect})", flush=True)
-    launches = knda.sparse_3dna_fwd.launches
+    got = launch_counts(knda)
+    launches = got["fwd"]
     if launches == 0:
         fail("the serving path launched no sparse_3dna_fwd kernel")
-    if knda.sparse_3dna_bwd_q.launches or knda.sparse_3dna_bwd_kv.launches:
-        fail("the serving path launched a backward kernel")
+    if got["bwd_q"] or got["bwd_kv"] or got["cross"]:
+        fail(f"the NUWA serving path launched another kernel: {got}")
     return model, texts, launches
 
 
 def reset_launches(knda):
-    for fn in (knda.sparse_3dna_fwd, knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv):
+    from nuwa_tpu_torch.kernels import cross as kcross
+
+    for fn in (knda.sparse_3dna_fwd, knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv,
+               kcross.sparse_cross_2dna_fwd):
         fn.launches = 0
 
 
 def launch_counts(knda):
+    from nuwa_tpu_torch.kernels import cross as kcross
+
     return {"fwd": knda.sparse_3dna_fwd.launches, "bwd_q": knda.sparse_3dna_bwd_q.launches,
-            "bwd_kv": knda.sparse_3dna_bwd_kv.launches}
+            "bwd_kv": knda.sparse_3dna_bwd_kv.launches,
+            "cross": kcross.sparse_cross_2dna_fwd.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +485,7 @@ def train(NUWA, NUWATrainer, knda):
     depth times; the text encoder and the cached sampling at step 0 launch
     none."""
     depth = TRAIN["dec_depth"]
-    expect = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth}
+    expect = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth, "cross": 0}
     model = NUWA(**TRAIN, compute_dtype="bfloat16", seed=SEED)
     trainer = NUWATrainer(
         nuwa=model, dataset=train_batch(torch.Generator().manual_seed(SEED + 9)),
@@ -624,13 +657,20 @@ def throughput(model, texts):
 
 
 def device_share(model, texts):
-    """Device busy share of one generate (b=1, one frame): kernel time from
-    torch.profiler over the wall time of the same request unprofiled."""
+    """Device busy share of one NUWA generate (b=1, one frame)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    share(lambda: model.generate(texts[1], generator=gen, num_frames=1),
+          "generate b=1, 1 frame")
+
+
+def share(call, name, wall=None):
+    """Device busy share of one request: kernel time from torch.profiler over
+    the wall time of the same request unprofiled (``wall``, measured here
+    unless given)."""
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    call = lambda: model.generate(texts[1], generator=gen, num_frames=1)  # noqa: E731
-    wall = cuda_ms(call, iters=1, reps=3, warmup=1)
+    if wall is None:
+        wall = cuda_ms(call, iters=1, reps=3, warmup=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
@@ -639,7 +679,7 @@ def device_share(model, texts):
     if busy == 0:
         print("device busy share: not measured (the profiler saw no device time)")
         return
-    print(f"generate b=1, 1 frame: {wall:.1f} ms wall, {busy:.2f} ms of kernels "
+    print(f"{name}: {wall:.1f} ms wall, {busy:.2f} ms of kernels "
           f"({100 * busy / wall:.2f}% busy, {sum(e.count for e in kernels)} "
           f"kernel launches)", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
@@ -647,11 +687,288 @@ def device_share(model, texts):
               f"{e.key[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# sketch serving: the SparseCross2DNA kernel and NUWASketch
+# ---------------------------------------------------------------------------
+
+SKETCH_FMAP = SKETCH["image_size"] // 2 ** SKETCH_VAE["num_layers"]
+SKETCH_T = SKETCH["max_video_frames"] * SKETCH_FMAP**2  # forward's video queries
+
+
+def cross_inputs(b, t, frames, fmap, dtype, gen):
+    """q (pre-scaled), k, v, null k/v and talking heads, as SparseCross2DNA
+    hands them to the kernel."""
+    h, d, lc = HEADS, DIM_HEAD, frames * fmap * fmap
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    th = (torch.rand(h, h, generator=gen, device="cuda") * 2 - 1) * (3 / h) ** 0.5
+    return (rnd(b, h, t, d, scale=d**-0.5), rnd(b, h, lc, d), rnd(b, h, lc, d),
+            rnd(b, h, 1, d), rnd(b, h, 1, d), th)
+
+
+def cross_masks(b, frames, fmap):
+    """The context masks of the check: all True; the last context frame of
+    the last batch row masked (a padded sketch frame); all False (the
+    unconditional half of a CFG batch)."""
+    hw = fmap * fmap
+    ones = torch.ones(b, frames * hw, dtype=torch.bool, device="cuda")
+    one_frame = ones.clone()
+    one_frame[-1, (frames - 1) * hw:] = False
+    return {"all True": ones, "one frame masked": one_frame, "all False": ~ones}
+
+
+def check_cross(kcross):
+    """The kernel against its plain version over fp32 and bf16, one and two
+    context frames, fmap 16 and 4, dilations 1 and 2, full, ragged and
+    single query tokens (5 query frames), b 1 and 2 and every mask. Errors
+    over each reference's max abs (at least 1): out within the dtype's
+    tolerance (bf16 rounds it to 2**-8 of the value), the fp32 lse within
+    fp32's in both runs. Returns the largest absolute error at each context
+    frame count."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst_rel, worst_abs, cases = {}, {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for frames in (1, 2):
+            for fmap in (SKETCH_FMAP, 4):
+                full = SKETCH["max_video_frames"] * fmap * fmap
+                for dil in (1, 2):
+                    for t in (full, full - fmap - 1, 1):
+                        for b in (1, 2):
+                            args = cross_inputs(b, t, frames, fmap, dtype, gen)
+                            kw = dict(fmap=fmap, kernel_size=3, dilation=dil)
+                            for mname, mask in cross_masks(b, frames, fmap).items():
+                                out, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **kw)
+                                torch.cuda.synchronize()
+                                ref, ref_lse = kcross.sparse_cross_2dna_fwd_plain(
+                                    *args, mask, **kw)
+                                if out.dtype != dtype or out.shape != ref.shape:
+                                    fail(f"cross kernel out {out.dtype} {tuple(out.shape)}")
+                                for name, a, w, tol in (("out", out, ref, TOL[dtype]),
+                                                        ("lse", lse, ref_lse,
+                                                         TOL[torch.float32])):
+                                    err = (a.float() - w.float()).abs().max().item()
+                                    rel = err / max(1.0, w.float().abs().max().item())
+                                    if not rel <= tol:
+                                        fail(f"sparse_cross_2dna_fwd {name} Fc={frames} "
+                                             f"fmap={fmap} dil={dil} t={t} b={b} {dtype} "
+                                             f"mask {mname}: error {rel} of the max abs "
+                                             f"> {tol}")
+                                    key = (dtype, name)
+                                    worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+                                    worst_abs[frames] = max(worst_abs.get(frames, 0.0), err)
+                                cases += 1
+    for (dtype, name), rel in worst_rel.items():
+        tol = TOL[dtype if name == "out" else torch.float32]
+        print(f"sparse_cross_2dna_fwd {name} vs plain, {dtype}: max error {rel:.3e} of "
+              f"the reference's max abs (tolerance {tol:.0e}, {cases // 2} cases)", flush=True)
+    return worst_abs
+
+
+def cross_bound(kcross, b, t, frames, mask, dtype):
+    """(least time, what bounds it) of the op on these inputs: q, k, v, the
+    null rows, the talking heads and the mask read once, out and lse written
+    once; operations for the valid (query, key) pairs of this mask, the null
+    column included, and the talking-heads mix of every slot."""
+    h, d, es = HEADS, DIM_HEAD, torch.finfo(dtype).bits // 8
+    lc = frames * SKETCH_FMAP**2
+    nbytes = (2 * b * h * t * d * es + b * h * t * 4 + 2 * b * h * lc * d * es
+              + 2 * b * h * d * es + h * h * 4 + b * lc)
+    pairs = h * (kcross.valid_pairs(t, mask, fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+                 + b * t)
+    mixes = b * t * (frames * 9 + 1) * 2 * h * h
+    return bound_ms(nbytes, pairs * 4 * d + mixes, dtype)
+
+
+def time_cross(kcross):
+    """The kernel at the forward shape: bf16, b = 2, 1280 video queries, 8
+    heads of 64, kernel 3, dilation 1; two context frames (Lc 512) with the
+    forward's mask (the second sketch frame of row 1 padded) and one (Lc
+    256)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    b, t, dtype = 2, SKETCH_T, torch.bfloat16
+    rows = {}
+    for frames in (2, 1):
+        args = cross_inputs(b, t, frames, SKETCH_FMAP, dtype, gen)
+        mask = torch.ones(b, frames * SKETCH_FMAP**2, dtype=torch.bool, device="cuda")
+        mask[1, SKETCH_FMAP**2:] = False  # no-op at one frame
+        kw = dict(fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+        ms = device_ms(lambda: kcross.sparse_cross_2dna_fwd(*args, mask, **kw))
+        plain = device_ms(lambda: kcross.sparse_cross_2dna_fwd_plain(*args, mask, **kw), iters=5)
+        bound, by = cross_bound(kcross, b, t, frames, mask, dtype)
+        rows[frames] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        print(f"sparse_cross_2dna_fwd bf16 b={b} t={t} Lc={frames * SKETCH_FMAP**2}: kernel "
+              f"{ms:.4f} ms (device), plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
+              f"kernel / bound {ms / bound:.1f}x", flush=True)
+    return rows
+
+
+def sketch_models(NUWASketch, VQGanVAE, device="cuda", dtype="bfloat16", seed=SEED, **kw):
+    vae = VQGanVAE(**SKETCH_VAE, device=device, seed=seed + 20)
+    return NUWASketch(vae=vae, sketch_vae=vae, **dict(SKETCH, **kw), compute_dtype=dtype,
+                      device=device, seed=seed)
+
+
+def sketch_request(b, frames, gen):
+    """Pixels in [0, 1] made from a seed: b sketches of ``frames`` frames
+    (one frame as (b, c, h, w)) and b videos of max_video_frames."""
+    size = SKETCH["image_size"]
+    sketch = torch.rand(b, frames, 3, size, size, generator=gen)
+    video = torch.rand(b, SKETCH["max_video_frames"], 3, size, size, generator=gen)
+    return (sketch[:, 0] if frames == 1 else sketch), video
+
+
+def serve_sketch(NUWASketch, VQGanVAE, knda):
+    """NUWASketch serving at full width, bf16: each request with the counts
+    set to 0 just before it and read just after. Per decoder layer, a forward
+    and every generate_long prefill launch the cross kernel once and the
+    Sparse3DNA forward once; cached steps gather in plain PyTorch."""
+    model = sketch_models(NUWASketch, VQGanVAE)
+    short = sketch_models(NUWASketch, VQGanVAE, max_video_frames=2)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    sketch2, video = sketch_request(2, 2, gen)
+    sketch1, _ = sketch_request(2, 1, gen)
+    mask2 = torch.tensor([[True, True], [True, False]])  # row 1's second frame is padding
+    req4 = sketch_request(4, 2, gen)[0]
+    mask4 = torch.tensor([[True, True]] * 3 + [[True, False]])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    depth, tpf, size = SKETCH["dec_depth"], SKETCH_FMAP**2, SKETCH["image_size"]
+    logits = (2, SKETCH_T + 1, SKETCH_VAE["vq_codebook_size"])
+    requests = {
+        "forward b=2, 2-frame sketch": (
+            torch.no_grad()(lambda: model(sketch2, video, sketch_mask=mask2)), logits,
+            {"fwd": depth, "cross": depth}, 2),
+        "forward b=2, 1-frame sketch": (
+            torch.no_grad()(lambda: model(sketch1, video)), logits,
+            {"fwd": depth, "cross": depth}, 1),
+        "generate b=1, 1 frame, pixels": (
+            lambda: model.generate(sketch1[:1], generator=g, num_frames=1),
+            (1, 1, 3, size, size), {"fwd": 0, "cross": 0}, 1),
+        "generate b=4, 1 frame, pixels": (
+            lambda: model.generate(req4, sketch_mask=mask4, generator=g, num_frames=1),
+            (4, 1, 3, size, size), {"fwd": 0, "cross": 0}, 2),
+        "generate_long b=1, 3 frames on a 2-frame window, pixels": (
+            lambda: short.generate_long(sketch2[:1], generator=g, num_frames=3),
+            (1, 3, 3, size, size), {"fwd": depth, "cross": depth}, 2),
+    }
+    cross = {1: 0, 2: 0}  # cross kernel launches by context frames
+    fwd = 0
+    for name, (call, shape, expect, frames) in requests.items():
+        reset_launches(knda)
+        out = call()
+        torch.cuda.synchronize()
+        got = launch_counts(knda)
+        if tuple(out.shape) != shape or not torch.isfinite(out).all():
+            fail(f"{name}: {tuple(out.shape)} not finite or not {shape}")
+        want = {"fwd": expect["fwd"], "bwd_q": 0, "bwd_kv": 0, "cross": expect["cross"]}
+        if got != want:
+            fail(f"{name}: launches {got}, expected {want}")
+        cross[frames] += got["cross"]
+        fwd += got["fwd"]
+        print(f"{name}: {tuple(out.shape)} finite, launches sparse_cross_2dna_fwd "
+              f"{got['cross']}, sparse_3dna_fwd {got['fwd']} (as expected)", flush=True)
+    return model, short, (sketch1, sketch2, mask2, req4, mask4), cross, fwd
+
+
+def sketch_top2_gap(model, sketch, ids, p, cond_scale):
+    """Top-2 logit gap of the (CPU) model at the first differing position p
+    of a sliding-window rollout."""
+    tpf, maxf = model.tokens_per_frame, model.max_video_frames
+    start = max(p // tpf - (maxf - 1), 0) * tpf
+    with torch.no_grad():
+        ctx, cmask = model._sketch_context(sketch, None, True)
+        row = model._decode_logits(ids[:, start:p].repeat(2, 1), ctx, cmask)[:, p - start]
+    logits = row[1:] + (row[:1] - row[1:]) * cond_scale
+    top = logits.topk(2, dim=-1).values[0]
+    return (top[0] - top[1]).item()
+
+
+def sketch_against_cpu(NUWASketch, VQGanVAE):
+    """Same weights in fp32: GPU (kernels) vs CPU (plain path): sketch and
+    video token ids of the VAE encode, forward logits, greedy generate_long
+    ids."""
+    gen = torch.Generator().manual_seed(SEED + 16)
+    sketch, video = sketch_request(1, 2, gen)
+    mask = torch.tensor([[True, False]])
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None, seed=SEED + 17)
+        start = time.perf_counter()
+        with torch.no_grad():
+            ids = (model.sketch_vae.get_video_indices(sketch).cpu(),
+                   model.vae.get_video_indices(video).cpu())
+            logits = model(sketch, video, sketch_mask=mask).cpu()
+        out[device] = (ids, logits)
+        print(f"fp32 sketch encode and forward on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    (ids_gpu, lg_gpu), (ids_cpu, lg_cpu) = out["cuda"], out["cpu"]
+    for name, a, b in zip(("sketch", "video"), ids_gpu, ids_cpu):
+        same = int((a == b).sum())
+        print(f"fp32 {name} token ids (VAE encode) GPU vs CPU: {same} of {b.numel()} equal",
+              flush=True)
+        if same != b.numel():
+            fail(f"{name} token ids differ between GPU and CPU")
+    err = (lg_gpu - lg_cpu).abs().max().item()
+    print(f"sketch forward fp32 logits GPU vs CPU: max abs err {err:.3e} "
+          f"(tolerance {LOGITS_ATOL:.0e})", flush=True)
+    if not err <= LOGITS_ATOL:
+        fail("sketch forward logits differ between GPU and CPU")
+    thres = 1 - 0.5 / SKETCH_VAE["vq_codebook_size"]  # top-k keeps k = 1: greedy
+    ids = {}
+    for device in ("cuda", "cpu"):
+        model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None,
+                              seed=SEED + 17, max_video_frames=2)
+        start = time.perf_counter()
+        ids[device] = model.generate_long(sketch, num_frames=3, filter_thres=thres,
+                                          decode_video=False).cpu()
+        print(f"fp32 greedy sketch generate_long on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    diff = (ids["cuda"] != ids["cpu"]).nonzero()
+    if len(diff) == 0:
+        print(f"greedy sketch generate_long fp32 ids GPU vs CPU: all {ids['cpu'].numel()} "
+              f"equal", flush=True)
+        return
+    p = diff[0, 1].item()
+    gap = sketch_top2_gap(model, sketch, ids["cpu"], p, 2.0)
+    print(f"greedy sketch generate_long ids differ first at position {p}; CPU top-2 "
+          f"logit gap there {gap:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
+    if not gap < TIE_GAP:
+        fail("greedy sketch generate_long ids differ between GPU and CPU")
+
+
+def sketch_throughput(model, short, inputs):
+    """tokens/s of each sketch request, median of 3 (the serving phase ran
+    each once at these shapes, so no further warm-up), and the device's busy
+    share of the b = 1 generate."""
+    sketch1, sketch2, mask2, req4, mask4 = inputs
+    _, video = sketch_request(2, 2, torch.Generator().manual_seed(SEED + 18))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    tpf = SKETCH_FMAP**2
+    walls = {}
+    for name, tokens, call in (
+        ("sketch forward b=2 (scoring)", 2 * SKETCH_T,
+         torch.no_grad()(lambda: model(sketch2, video, sketch_mask=mask2))),
+        ("sketch generate b=1, 1 frame", tpf,
+         lambda: model.generate(sketch1[:1], generator=g, num_frames=1)),
+        ("sketch generate b=4, 1 frame", 4 * tpf,
+         lambda: model.generate(req4, sketch_mask=mask4, generator=g, num_frames=1)),
+        ("sketch generate_long b=1, 3 frames", 3 * tpf,
+         lambda: short.generate_long(sketch2[:1], generator=g, num_frames=3)),
+    ):
+        walls[name] = ms = cuda_ms(call, iters=1, reps=3, warmup=0)
+        print(f"{name}: {ms:.1f} ms per request, {tokens / (ms / 1e3):.1f} tokens/s",
+              flush=True)
+    name = "sketch generate b=1, 1 frame"
+    share(lambda: model.generate(sketch1[:1], generator=g, num_frames=1), name, walls[name])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
-    from nuwa_tpu_torch import NUWA
+    from nuwa_tpu_torch import NUWA, NUWASketch, VQGanVAE
     from nuwa_tpu_torch.kernels import build
+    from nuwa_tpu_torch.kernels import cross as kcross
     from nuwa_tpu_torch.kernels import nda as knda
     from nuwa_tpu_torch.train import NUWATrainer
 
@@ -675,22 +992,37 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    def phase(name):  # seconds since the build started
+        print(f"[{time.perf_counter() - t0:.1f} s] {name} done", flush=True)
+
     fwd_err = check_nda(knda)
     errs = check_bwd(knda)
     check_autograd(knda)
     time_nda(knda)
     train_rows = time_train_kernels(knda)
+    cross_err = check_cross(kcross)
+    cross_rows = time_cross(kcross)
+    phase("kernel checks and times")
     model, texts, serve_launches = serve(NUWA, knda)
     check_against_cpu(NUWA)
+    phase("NUWA serving")
     train_launches, _ = train(NUWA, NUWATrainer, knda)
     train_against_cpu(NUWA)
+    phase("NUWA training")
+    sketch, short, inputs, cross_launches, sketch_fwd = serve_sketch(NUWASketch, VQGanVAE, knda)
+    sketch_against_cpu(NUWASketch, VQGanVAE)
+    phase("NUWASketch serving")
     throughput(model, texts)
     device_share(model, texts)
+    sketch_throughput(sketch, short, inputs)
+    phase("throughput")
 
-    # launches: the serving run's and the training run's; times at the
-    # training shape, dilation 2; no single PyTorch call computes the
-    # talking-heads attention or its backward, so library_ms is null
-    serve_counts = {"fwd": serve_launches, "bwd_q": 0, "bwd_kv": 0}
+    # launches: the NUWA serving run's, the training run's and the sketch
+    # serving run's; Sparse3DNA times at the training shape, dilation 2, the
+    # cross kernel's at the sketch forward shape; no single PyTorch call
+    # computes the talking-heads attention or its backward, so library_ms is
+    # null
+    serve_counts = {"fwd": serve_launches + sketch_fwd, "bwd_q": 0, "bwd_kv": 0}
     entries = []
     for name, source, line, err in (
         ("fwd", "sparse3dna_fwd.cu", 239, max(fwd_err, errs["fwd"])),
@@ -708,6 +1040,18 @@ def main():
         })
         if "backward_bound_ms" in row:  # the bound of B2 and B3 together
             entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
+    # one CUDA kernel replaces both fused TPU kernels: at two context frames
+    # (_xfused_kernel) and at one (_xfused1_kernel)
+    for frames, line in ((2, 2731), (1, 2810)):
+        row = cross_rows[frames]
+        entries.append({
+            "name": "sparse_cross_2dna_fwd", "context_frames": frames, "route": "cuda",
+            "source": "nuwa_tpu_torch/kernels/csrc/sparse_cross2dna_fwd.cu",
+            "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
+            "launches": cross_launches[frames], "max_abs_err": cross_err[frames],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

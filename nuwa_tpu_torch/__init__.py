@@ -4,6 +4,7 @@ It imports torch and numpy, never JAX or ``nuwa_tpu``. Module names follow
 the JAX package's, so each module's counterpart is easy to find. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
-from .models import NUWA
+from .models import NUWA, NUWASketch
+from .vqgan_vae import VQGanVAE
 
-__all__ = ["NUWA"]
+__all__ = ["NUWA", "NUWASketch", "VQGanVAE"]

@@ -1,10 +1,14 @@
-"""Leaf layers: Dense, Embedding, LayerNorm, StableLayerNorm.
+"""Leaf layers: Dense, Embedding, LayerNorm, StableLayerNorm, and the
+codec's convolution layers (Conv2d, GroupNorm, LayerNormChan, leaky_relu,
+the bilinear upsample).
 
 Counterpart of ``nuwa_tpu/core/layers.py``. Parameters keep the JAX
 package's names and layouts (``Dense.w`` is ``(din, dout)``), so
-``nuwa_tpu_torch.convert`` loads a JAX params pytree by path. Parameters are
-fp32; matmuls run in the activations' dtype, norms in fp32 — as in the JAX
-package.
+``nuwa_tpu_torch.convert`` loads a JAX params pytree by path, with one
+exception: the JAX package's convolutions are NHWC with HWIO kernels, while
+the port computes in NCHW and keeps ``Conv2d.w`` as OIHW (``convert``
+transposes it). Parameters are fp32; matmuls and convolutions run in the
+activations' dtype, norms in fp32 — as in the JAX package.
 
 Every module that owns parameters has ``reset_parameters(generator)``;
 ``init_weights_`` runs them all from one seeded CPU generator, so a model
@@ -34,11 +38,13 @@ def kaiming_uniform_(param, generator, fan_in):
     uniform_(param, generator, math.sqrt(1.0 / fan_in) * math.sqrt(3.0))
 
 
-def init_weights_(model: nn.Module, seed: int) -> nn.Module:
-    """Random weights for every parameter of ``model`` from ``seed``."""
+def init_weights_(model: nn.Module, seed: int, skip=()) -> nn.Module:
+    """Random weights for every parameter of ``model`` from ``seed``, except
+    in the submodules ``skip`` (which keep the weights they have)."""
     gen = torch.Generator().manual_seed(seed)
+    kept = {id(m) for sub in skip for m in sub.modules()}
     for m in model.modules():
-        if hasattr(m, "reset_parameters"):
+        if id(m) not in kept and hasattr(m, "reset_parameters"):
             m.reset_parameters(gen)
     return model
 
@@ -111,3 +117,98 @@ class StableLayerNorm(nn.Module):
     def forward(self, x):
         amax = x.detach().abs().amax(dim=-1, keepdim=True)
         return self.norm(x / amax.clamp_min(1e-6))
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW maps: each channel group over H, W and its
+    channels, biased variance, in fp32."""
+
+    def __init__(self, dim, groups=16, eps=1e-5):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.g = nn.Parameter(torch.empty(dim))
+        self.b = nn.Parameter(torch.empty(dim))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        self.g.fill_(1.0)
+        self.b.zero_()
+
+    def forward(self, x):
+        out = F.group_norm(x.float(), self.groups, self.g, self.b, self.eps)
+        return out.to(x.dtype)
+
+
+class LayerNormChan(nn.Module):
+    """LayerNorm over the channels of an NCHW map only (biased variance)."""
+
+    def __init__(self, dim, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.empty(dim))
+        self.b = nn.Parameter(torch.empty(dim))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator):
+        self.g.fill_(1.0)
+        self.b.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        var = xf.var(dim=1, unbiased=False, keepdim=True)
+        out = (xf - mean) * torch.rsqrt(var + self.eps)
+        out = out * self.g[:, None, None] + self.b[:, None, None]
+        return out.to(x.dtype)
+
+
+def _same_padding(size, k, stride):
+    """(low, high) padding of XLA's "SAME" for one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Module):
+    """2D convolution over NCHW inputs with an OIHW kernel. ``padding`` is
+    XLA's "SAME" or ((top, bottom), (left, right)), as in the JAX package."""
+
+    def __init__(self, cin, cout, kernel_size, stride=(1, 1), padding="SAME",
+                 use_bias=True):
+        super().__init__()
+        self.cin, self.kernel_size, self.stride = cin, tuple(kernel_size), tuple(stride)
+        self.padding = padding
+        self.w = nn.Parameter(torch.empty(cout, cin, *self.kernel_size))
+        self.b = nn.Parameter(torch.empty(cout)) if use_bias else None
+
+    def reset_parameters(self, generator):
+        fan_in = self.cin * self.kernel_size[0] * self.kernel_size[1]
+        kaiming_uniform_(self.w, generator, fan_in)
+        if self.b is not None:
+            uniform_(self.b, generator, 1.0 / math.sqrt(fan_in))
+
+    def _pads(self, x):
+        if self.padding == "SAME":
+            return tuple(_same_padding(n, k, s) for n, k, s in
+                         zip(x.shape[2:], self.kernel_size, self.stride))
+        return tuple(tuple(p) for p in self.padding)
+
+    def forward(self, x):
+        (top, bottom), (left, right) = self._pads(x)
+        padding = (top, left)
+        if top != bottom or left != right:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = (0, 0)
+        b = self.b.to(x.dtype) if self.b is not None else None
+        return F.conv2d(x, self.w.to(x.dtype), b, self.stride, padding)
+
+
+def leaky_relu(x, negative_slope=0.1):
+    """The JAX package's slope, 0.1 (torch's default is 0.01)."""
+    return F.leaky_relu(x, negative_slope)
+
+
+def upsample_bilinear(x, scale=2):
+    """NCHW bilinear upsample with half-pixel centres, clamped at the
+    borders: ``jax.image.resize(method="bilinear")`` when upsampling."""
+    return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)

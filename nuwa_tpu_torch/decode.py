@@ -6,6 +6,10 @@ what one incremental step needs:
   * Sparse3DNA: a (b, h, T, dh) k/v buffer plus the bos k/v slot; a new
     token attends its neighbour-table row (at most Kn entries) plus bos;
   * dense cross-attention: the context k/v, projected once per rollout;
+  * SparseCross2DNA: the same, plus the context mask and the raw context,
+    so that ``prefill`` can run the module's full forward; a new video token
+    attends the F·Kn context rows of its spatial window (the bos token the
+    whole context), in plain PyTorch;
   * token shift: a (b, T, dim) buffer of the layer's inputs, so the shifted
     channels can be read from positions p - W and p - 1.
 
@@ -13,13 +17,14 @@ Positions are Python ints (PyTorch runs eagerly, so nothing is traced) and
 the caches are updated in place, which keeps one buffer per layer instead
 of a new one per step. ``prefill`` runs a whole (b, n, dim) block of inputs
 through the module's full forward — on the card, through the Sparse3DNA
-kernel — and leaves the caches as n single steps would.
+kernel and SparseCross2DNA through the cross kernel — and leaves the caches
+as n single steps would.
 """
 from __future__ import annotations
 
 import torch
 
-from .nda import Sparse3DNA, build_nda_indices
+from .nda import Sparse3DNA, SparseCross2DNA, build_nda_indices
 from .ops.attention import Attention
 from .ops.feedforward import FeedForward
 from .ops.shift import _torch_chunk_sizes, shift_video_tokens
@@ -75,6 +80,54 @@ class _CrossAttnStep:
         q = mod.to_q(x).reshape(b, n, mod.heads, mod.dim_head).transpose(1, 2)
         out = self._attend(cache, q).transpose(1, 2).reshape(b, n, mod.inner_dim)
         return mod.to_out(out)
+
+
+class _SparseCross2DNAStep:
+    """SparseCross2DNA over context k/v computed once: a video token gathers
+    the window around its spatial position in every context frame."""
+
+    def __init__(self, mod: SparseCross2DNA):
+        self.mod = mod
+        fmap, k, dil = mod.image_size, mod.kernel_size, mod.dilation
+        idx, valid = build_nda_indices((fmap, fmap), (k, k), (dil, dil), ("centered",) * 2)
+        device = mod.to_q.w.device
+        self.sp_idx = torch.as_tensor(idx, dtype=torch.long, device=device)  # (HW, Kn)
+        self.sp_valid = torch.as_tensor(valid, device=device)
+
+    def init_cache(self, context, context_mask):
+        cache = _CrossAttnStep(self.mod).init_cache(context, context_mask)
+        cache["ctx_raw"] = context
+        return cache
+
+    def __call__(self, cache, x_i, pos):
+        mod = self.mod
+        h, dh = mod.heads, mod.dim_head
+        b = x_i.shape[0]
+        q = mod.to_q(x_i).reshape(b, h, dh) * dh**-0.5
+        null_k = mod.null_k.to(q.dtype)[None, :, 0].expand(b, h, dh)
+        null_v = mod.null_v.to(q.dtype)[None, :, 0].expand(b, h, dh)
+        sim_null = torch.einsum("bhd,bhd->bh", q, null_k)[..., None]
+        if pos == 0:  # bos: the whole context, no talking heads
+            keys, vals, ok = cache["ck"], cache["cv"], cache["cmask"]
+        else:
+            tpf = mod.image_size**2
+            frames = cache["ck"].shape[2] // tpf
+            s = (pos - 1) % tpf
+            offsets = torch.arange(frames, device=q.device) * tpf
+            flat = (offsets[:, None] + self.sp_idx[s][None]).reshape(-1)  # (F * Kn,)
+            keys, vals = cache["ck"][:, :, flat], cache["cv"][:, :, flat]
+            ok = cache["cmask"][:, flat] & self.sp_valid[s].repeat(frames)[None]
+        sim = torch.einsum("bhd,bhjd->bhj", q, keys)
+        sim = masked_fill(sim, ~ok[:, None, :], max_neg_value(sim.dtype))
+        attn = stable_softmax(torch.cat([sim_null, sim], dim=-1))
+        if pos > 0:
+            attn = _th_mix(attn, mod.talking_heads)
+        vals = torch.cat([null_v[:, :, None], vals], dim=2)
+        out = torch.einsum("bhj,bhjd->bhd", attn.to(vals.dtype), vals)
+        return mod.to_out(out.reshape(b, h * dh))
+
+    def prefill(self, cache, x):
+        return self.mod(x, context=cache["ctx_raw"], context_mask=cache["cmask"])
 
 
 class _Sparse3DNAStep:
@@ -230,6 +283,8 @@ class TransformerDecoder:
             wrapper, inner = inner, inner.inner
         if isinstance(inner, Sparse3DNA):
             step = _Sparse3DNAStep(inner, self.total_in - 1)
+        elif isinstance(inner, SparseCross2DNA):
+            step = _SparseCross2DNAStep(inner)
         elif isinstance(inner, Attention):  # dense attention decodes as cross
             step = _CrossAttnStep(inner)
         elif isinstance(inner, FeedForward):
@@ -251,7 +306,7 @@ class TransformerDecoder:
                 inner = inner.inner
             if isinstance(inner, _Sparse3DNAStep):
                 c.update(inner.init_cache(b, dtype))
-            elif isinstance(inner, _CrossAttnStep):
+            elif isinstance(inner, (_CrossAttnStep, _SparseCross2DNAStep)):
                 c.update(inner.init_cache(context, context_mask))
             caches.append(c)
         return caches

@@ -147,6 +147,7 @@ def _library(name):
         "sparse3dna_fwd": (9, 12),
         "sparse3dna_bwd_q": (16, 12),
         "sparse3dna_bwd_kv": (6, 12),
+        "sparse_cross2dna_fwd": (9, 8),
     }[name]
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")

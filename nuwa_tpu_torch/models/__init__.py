@@ -1,3 +1,4 @@
 from .nuwa import NUWA
+from .nuwa_sketch import NUWASketch
 
-__all__ = ["NUWA"]
+__all__ = ["NUWA", "NUWASketch"]

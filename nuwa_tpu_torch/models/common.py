@@ -3,7 +3,8 @@ frame decoder. Counterpart of ``nuwa_tpu/models/common.py``; a Python loop
 over positions takes the place of ``lax.scan``.
 
 Classifier-free guidance runs cond and uncond as one 2x batch whose caches
-were built with the context mask ``[mask; zeros]``.
+were built with the context mask ``[mask; zeros]``. The frame decoder takes
+any model with NUWA's attribute names (``NUWA``, ``NUWASketch``).
 """
 from __future__ import annotations
 

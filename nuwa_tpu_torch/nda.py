@@ -1,10 +1,19 @@
-"""Sparse3DNA — 3D nearby attention over a (frames, height, width) grid.
+"""Sparse3DNA — 3D nearby attention over a (frames, height, width) grid —
+and SparseCross2DNA, the video decoder's cross-attention to sketch frames.
 
 Counterpart of ``Sparse3DNA`` in ``nuwa_tpu/nda.py`` in causal mode, the
-video decoder's (the centered mode belongs to the sketch encoder, a later
-slice). The attention itself is ``kernels.nda.sparse_3dna``, differentiable:
-the Hopper kernels (forward, query-side and key-side backward) on CUDA
-tensors, their plain gather versions on CPU tensors.
+video decoder's (the centered mode belongs to the sketch encoder's
+``sketch_enc_use_sparse_3dna``, which the port does not take yet). The
+attention itself is ``kernels.nda.sparse_3dna``, differentiable: the Hopper
+kernels (forward, query-side and key-side backward) on CUDA tensors, their
+plain gather versions on CPU tensors.
+
+``SparseCross2DNA`` is the counterpart of the JAX module of that name
+without its ``backend`` and ``use_pallas`` options: its video queries go
+through ``kernels.cross.sparse_cross_2dna_fwd`` (the Hopper kernel on CUDA
+tensors, its plain gather version on CPU tensors); the bos query's
+attention to the whole context stays plain PyTorch, as it is XLA outside
+the kernel in the JAX package.
 """
 from __future__ import annotations
 
@@ -14,10 +23,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from .core.layers import Dense, kaiming_uniform_
+from .core.layers import Dense, kaiming_uniform_, normal_
+from .kernels.cross import sparse_cross_2dna_fwd
 from .kernels.nda import sparse_3dna
 from .ops.attention import merge_heads, split_heads
 from .ops.embeddings import AxialPositionalEmbedding
+from .ops.utils import max_neg_value, stable_softmax
 
 
 def _cast_tuple(val, size):
@@ -121,4 +132,59 @@ class Sparse3DNA(nn.Module):
             fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
         )
         out = torch.cat([bos_v_out, out], dim=2)
+        return self.to_out(merge_heads(out))
+
+
+class SparseCross2DNA(nn.Module):
+    """Cross-attention from video queries to a 2D spatial neighbourhood of
+    the context (sketch) tokens, plus null k/v: a query at spatial (y, x) of
+    any frame attends the centered ``kernel_size`` window around (y, x) in
+    every context frame, with talking heads; bos attends the whole context
+    (no talking heads). ``context_mask`` (b, Lc) bool leaves context tokens
+    out: padded sketch frames, and the unconditional half of a CFG batch."""
+
+    def __init__(self, dim, image_size, heads=8, dim_head=64, kernel_size=3, dilation=1):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError("kernel size must be odd")
+        self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.image_size, self.kernel_size, self.dilation = image_size, kernel_size, dilation
+        inner = heads * dim_head
+        self.inner_dim = inner
+        self.to_q = Dense(dim, inner)
+        self.to_kv = Dense(dim, inner * 2)
+        self.to_out = Dense(inner, dim)
+        self.null_k = nn.Parameter(torch.empty(heads, 1, dim_head))
+        self.null_v = nn.Parameter(torch.empty(heads, 1, dim_head))
+        self.talking_heads = nn.Parameter(torch.empty(heads, heads))
+
+    def reset_parameters(self, generator):
+        normal_(self.null_k, generator)
+        normal_(self.null_v, generator)
+        kaiming_uniform_(self.talking_heads, generator, self.heads)
+
+    def forward(self, x, *, context, context_mask=None, **_):
+        b = x.shape[0]
+        h, dh = self.heads, self.dim_head
+        if context_mask is None:
+            context_mask = torch.ones(context.shape[:2], dtype=torch.bool, device=x.device)
+        q = split_heads(self.to_q(x), h) * dh**-0.5
+        k, v = (split_heads(t, h) for t in self.to_kv(context).chunk(2, dim=-1))
+        null_k = self.null_k.to(k.dtype).expand(b, h, 1, dh)
+        null_v = self.null_v.to(v.dtype).expand(b, h, 1, dh)
+
+        # bos: full attention over [null, context]
+        k_full, v_full = torch.cat([null_k, k], dim=2), torch.cat([null_v, v], dim=2)
+        sim_bos = torch.einsum("bhd,bhjd->bhj", q[:, :, 0], k_full)
+        bos_mask = nn.functional.pad(context_mask, (1, 0), value=True)
+        sim_bos = sim_bos.masked_fill(~bos_mask[:, None], max_neg_value(sim_bos.dtype))
+        attn_bos = stable_softmax(sim_bos).to(v_full.dtype)
+        out = torch.einsum("bhj,bhjd->bhd", attn_bos, v_full)[:, :, None]
+
+        if x.shape[1] > 1:
+            out_nb, _ = sparse_cross_2dna_fwd(
+                q[:, :, 1:], k, v, null_k, null_v, self.talking_heads, context_mask,
+                fmap=self.image_size, kernel_size=self.kernel_size, dilation=self.dilation,
+            )
+            out = torch.cat([out, out_nb.to(out.dtype)], dim=2)
         return self.to_out(merge_heads(out))

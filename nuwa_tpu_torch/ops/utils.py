@@ -40,3 +40,9 @@ def stable_softmax(t, dim=-1):
     t = t.float()
     t = t - t.amax(dim=dim, keepdim=True)
     return torch.softmax(t, dim=dim)
+
+
+def batch_process(t, fn, chunks=10, dim=0):
+    """``fn`` over ``t`` in ``chunks`` pieces along ``dim`` (``torch.chunk``
+    sizes), concatenated: bounds the memory of a large VAE decode."""
+    return torch.cat([fn(piece) for piece in t.chunk(chunks, dim=dim)], dim=dim)

@@ -10,7 +10,7 @@ from __future__ import annotations
 from torch import nn
 
 from .core.layers import LayerNorm, StableLayerNorm
-from .nda import Sparse3DNA
+from .nda import Sparse3DNA, SparseCross2DNA
 from .ops.attention import Attention
 from .ops.feedforward import FeedForward
 from .ops.shift import shift_video_tokens as shift_tokens
@@ -46,6 +46,8 @@ class ShiftVideo(nn.Module):
 
 
 def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
+                      cross_2dna_attn=False, cross_2dna_image_size=None,
+                      cross_2dna_kernel_size=3, cross_2dna_dilations=(1,),
                       sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
                       sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
                       sparse_3dna_rel_pos_bias=False, shift_video_tokens=False,
@@ -54,9 +56,13 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
     depth a self block, a cross block when cross-attending (followed by its
     own "ff_cross" when ``include_cross_ff``, the reversible layout), and one
     ff. The self block is causal Sparse3DNA (the video decoder) or
-    bidirectional dense attention (the text encoder)."""
+    bidirectional dense attention (the text and sketch encoders); the cross
+    block is dense attention (to text) or SparseCross2DNA (to sketch frames,
+    dilation ``cross_2dna_dilations[depth % len]``)."""
     if sparse_3dna_attn and sparse_3dna_video_shape is None:
         raise ValueError("sparse_3dna_attn needs sparse_3dna_video_shape")
+    if cross_2dna_attn and cross_2dna_image_size is None:
+        raise ValueError("cross_2dna_attn needs cross_2dna_image_size")
     shift = sparse_3dna_attn and shift_video_tokens
     fmap = sparse_3dna_video_shape[-1] if shift else None
     entries = []
@@ -77,7 +83,15 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
             ff = ShiftVideo(ff, image_size=fmap)
         entries.append(("self", Sandwich(dim, self_attn)))
         if cross_attend:
-            cross = Attention(dim=dim, heads=heads, dim_head=dim_head)
+            if cross_2dna_attn:
+                cross = SparseCross2DNA(
+                    dim=dim, heads=heads, dim_head=dim_head,
+                    image_size=cross_2dna_image_size,
+                    kernel_size=cross_2dna_kernel_size,
+                    dilation=cross_2dna_dilations[ind % len(cross_2dna_dilations)],
+                )
+            else:
+                cross = Attention(dim=dim, heads=heads, dim_head=dim_head)
             entries.append(("cross", Sandwich(dim, cross)))
             if include_cross_ff:
                 ff_cross = FeedForward(dim=dim)
@@ -92,6 +106,8 @@ class Transformer(nn.Module):
     include_cross_ff = False  # the reversible stack's layout adds ff_cross
 
     def __init__(self, dim, depth, heads=8, dim_head=64, cross_attend=False,
+                 cross_2dna_attn=False, cross_2dna_image_size=None,
+                 cross_2dna_kernel_size=3, cross_2dna_dilations=(1,),
                  sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
                  sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
                  sparse_3dna_rel_pos_bias=False, shift_video_tokens=False):
@@ -99,6 +115,9 @@ class Transformer(nn.Module):
         self.dim = dim
         self._assemble(_build_layer_menu(
             dim, depth, heads=heads, dim_head=dim_head, cross_attend=cross_attend,
+            cross_2dna_attn=cross_2dna_attn, cross_2dna_image_size=cross_2dna_image_size,
+            cross_2dna_kernel_size=cross_2dna_kernel_size,
+            cross_2dna_dilations=tuple(cross_2dna_dilations),
             sparse_3dna_attn=sparse_3dna_attn,
             sparse_3dna_kernel_size=sparse_3dna_kernel_size,
             sparse_3dna_video_shape=sparse_3dna_video_shape,

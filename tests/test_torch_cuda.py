@@ -10,6 +10,7 @@ at the full serving and training shapes.
 import pytest
 import torch
 
+from nuwa_tpu_torch.kernels import cross as kcross
 from nuwa_tpu_torch.kernels import nda as knda
 
 
@@ -131,3 +132,72 @@ def test_sparse3dna_backward_wrappers_refuse_what_the_kernels_do_not_take():
         knda.sparse_3dna_bwd_kv(big, big, torch.zeros(1, 2, 300, 28, device="cuda"),
                                 torch.zeros(1, 2, 300, 28, device="cuda"),
                                 fmap=(17, 17), kernel=(3, 3, 3), dilation=(1, 1, 1))
+
+
+def _cross_inputs(dtype, b, t, frames, fmap, h=4, d=32, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    lc = frames * fmap * fmap
+    q = (rnd(b, h, t, d) * d**-0.5).to(dtype)  # pre-scaled, as SparseCross2DNA passes it
+    k, v = rnd(b, h, lc, d).to(dtype), rnd(b, h, lc, d).to(dtype)
+    nk, nv = rnd(b, h, 1, d).to(dtype), rnd(b, h, 1, d).to(dtype)
+    return q, k, v, nk, nv, rnd(h, h)
+
+
+def _cross_masks(b, frames, fmap):
+    """None, all True, the last context frame masked in the last batch row
+    (a padded sketch frame), all False (the unconditional half of CFG)."""
+    hw = fmap * fmap
+    ones = torch.ones(b, frames * hw, dtype=torch.bool, device="cuda")
+    padded = ones.clone()
+    padded[-1, (frames - 1) * hw:] = False
+    return {"none": None, "all": ones, "padded": padded, "empty": ~ones}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("frames,fmap,dilation", [(1, 4, 1), (2, 4, 2), (3, 5, 1), (2, 16, 2)])
+@pytest.mark.parametrize("t_frames", [2.0, 1.5, 0])
+def test_sparse_cross2dna_kernel_matches_plain(dtype, tol, frames, fmap, dilation, t_frames):
+    """4 heads of 32, one to three context frames, fmap 4, 5 and 16, full,
+    ragged and single query tokens, b = 2, every form of context mask: out
+    within ``tol`` of the plain version (one bf16 ulp near 1 is 7.8e-3), the
+    fp32 lse within 1e-5."""
+    _needs_cuda()
+    hw = fmap * fmap
+    t = max(int(t_frames * hw), 1)
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, t, frames, fmap)
+    geo = dict(fmap=fmap, kernel_size=3, dilation=dilation)
+    for name, mask in _cross_masks(2, frames, fmap).items():
+        out, lse = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo)
+        ref, ref_lse = kcross.sparse_cross_2dna_fwd_plain(q, k, v, nk, nv, th, mask, **geo)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max().item() <= tol, name
+        assert (lse - ref_lse).abs().max().item() <= 1e-5, name
+        assert torch.isfinite(lse).all()
+
+
+@pytest.mark.cuda
+def test_sparse_cross2dna_wrapper_refuses_what_the_kernel_does_not_take():
+    """No quiet fallback: gradients (the training slice's), fp16, a partial
+    context frame and a mask of another shape raise."""
+    _needs_cuda()
+    q, k, v, nk, nv, th = _cross_inputs(torch.float32, 1, 16, 2, 4)
+    geo = dict(fmap=4, kernel_size=3, dilation=1)
+    with pytest.raises(NotImplementedError, match="training"):
+        kcross.sparse_cross_2dna_fwd(q.requires_grad_(), k, v, nk, nv, th, **geo)
+    q = q.detach()
+    with torch.no_grad():  # under no_grad a parameter that requires grad is fine
+        kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th.requires_grad_(), **geo)
+    th = th.detach()
+    with pytest.raises(TypeError):
+        kcross.sparse_cross_2dna_fwd(*(x.half() for x in (q, k, v, nk, nv)), th, **geo)
+    with pytest.raises(ValueError):
+        kcross.sparse_cross_2dna_fwd(q, k[:, :, :20], v[:, :, :20], nk, nv, th, **geo)
+    with pytest.raises(ValueError):
+        kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th,
+                                     torch.ones(1, 16, dtype=torch.bool, device="cuda"), **geo)
