@@ -8,12 +8,18 @@ Phases, each of which exits non-zero on failure:
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every CUDA kernel of the port, from the sources in this checkout;
 3. kernels: each kernel against its plain PyTorch version, fp32 and bf16,
-   with the tolerance printed beside the error: the forward at the serving
-   shapes; the forward, the query-side and the key-side backward at the
-   training shapes and around them; the autograd function against autograd
-   of the plain forward. Then each kernel's time, the plain version's time
-   and the bound (the least time the card could take: bytes over 3.35 TB/s
-   or operations over the type's peak);
+   with the tolerance printed beside the error: the Sparse3DNA forward at
+   the serving shapes; the forward, the query-side and the key-side
+   backward at the training shapes and around them, in causal and in
+   centered mode; the autograd function against autograd of the plain
+   forward. Then each kernel's time, the plain version's time and the bound
+   (the least time the card could take: bytes over 3.35 TB/s or operations
+   over the type's peak); then the SparseCross2DNA forward and its
+   backward's two kernels (fp32 and bf16; one to three context frames,
+   fmap 16 and 4, dilations 1 and 2, full, ragged and single query tokens,
+   b 1 and 2, context masks all True, one frame masked and all False), the
+   cross autograd function, and their times at the forward and training
+   shapes;
 4. serving: the full-width NUWA of bench.py's decode config (dim 512, fmap 8,
    4 frames, depth 6, bf16, CFG 2.0) from a seed answers generate (b = 1 and
    8), generate_long (8 frames) and forward, with the kernel launch counts
@@ -25,11 +31,7 @@ Phases, each of which exits non-zero on failure:
    finite losses, the exact launches of each kernel per step, ms per step,
    tokens/s, peak memory and the device's busy share; then the loss and
    every gradient of the same weights in fp32 on the GPU against the CPU;
-6. sketch serving: the SparseCross2DNA kernel against its plain version
-   (fp32 and bf16; one and two context frames; fmap 16 and 4; dilations 1
-   and 2; full, ragged and single query tokens; b 1 and 2; context masks all
-   True, one frame masked and all False) and its time at the forward shape;
-   then the full-width NUWASketch of the JAX package's sketch config (dim
+6. sketch serving: the full-width NUWASketch of the JAX package's sketch config (dim
    512, a reversible decoder of depth 6, 8 heads of 64, kernel (5, 3, 3) with
    dilations (1, 2, 4), a dense sketch encoder of depth 2, cross kernel 3,
    bf16, fmap 16 from a one-layer VQGanVAE on 32-pixel frames, 5 video and 2
@@ -38,13 +40,25 @@ Phases, each of which exits non-zero on failure:
    launch counts of both kernels checked; then the same weights in fp32 on
    the GPU against the CPU plain path: sketch token ids, forward logits and
    greedy generate_long ids;
-7. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+7. sketch training: two full-width NUWASketch models from a seed, bf16, 4
+   AdamW steps each on one seeded batch with condition dropout: (a) the JAX
+   package's sketch training config (scripts/bench_sketch_train.py: 10
+   video frames and 1 sketch frame, a dense sketch encoder of depth 2, the
+   reversible decoder of depth 6), (b) the same widths with BASELINE.json
+   config 4's sketch side (a separate 5-channel sketch VAE, a centered
+   Sparse3DNA encoder of depth 2, 2 sketch frames, the second padded in one
+   row): falling finite losses, the exact launches of every kernel per step
+   (centered ones apart), step ms, video tokens/s, peak memory and the
+   device's busy share; then model (b)'s loss and every gradient in fp32 on
+   the GPU against the CPU;
+8. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, median after warm-up), and the device's busy share of a
    generate of each model.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import itertools
 import json
 import math
 import statistics
@@ -256,9 +270,10 @@ ROUNDED = ("out", "dq", "dk_bos", "dv_bos", "dk", "dv")
 
 def check_bwd(knda):
     """The forward, query-side and key-side kernels against their plain
-    versions: HW 64 and 256, kernel 3 and (5, 3, 3), dilations 1, 2 and 4,
-    rel-pos bias on and off, full frames, a ragged last frame and t = 1,
-    b 1 and 2. Errors are normalised by each reference's max abs (at least
+    versions, in causal and in centered mode: HW 64 and 256, kernel 3 and
+    (5, 3, 3), dilations 1, 2 and 4, rel-pos bias on and off, full frames, a
+    ragged last frame (whose phantom token the centered windows reach) and
+    t = 1, b 1 and 2. Errors are normalised by each reference's max abs (at least
     1): the backward's outputs span two orders of magnitude (dS near 0, the
     sums over all queries in the hundreds), its sums over queries run in
     atomics' order, and in bf16 dq, dk and dv round to 8 bits of mantissa,
@@ -268,54 +283,53 @@ def check_bwd(knda):
     kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     worst_rel, worst_abs, cases = {}, {}, 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for fmap, frames in BWD_GRIDS:
-            full = frames * fmap[0] * fmap[1]
-            for kernel in ((3, 3, 3), (5, 3, 3)):
-                for dil in (1, 2, 4):
-                    for bias in (False, True):
-                        for t in (full, full - 1, 1):
-                            for b in (1, 2):
-                                args, g = nda_inputs(b, t, dtype, bias, gen, kernel)
-                                kw = dict(fmap=fmap, kernel=kernel, dilation=(dil,) * 3)
-                                out, lse = knda.sparse_3dna_fwd(*args, **kw)
-                                ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **kw)
-                                got = knda.sparse_3dna_bwd_q(*args, g, ref_lse, **kw)
-                                want = knda.sparse_3dna_bwd_q_plain(*args, g, ref_lse, **kw)
-                                got += knda.sparse_3dna_bwd_kv(args[0], g, *want[1:3], **kw)
-                                want += knda.sparse_3dna_bwd_kv_plain(args[0], g, *want[1:3], **kw)
-                                torch.cuda.synchronize()
-                                pairs = [("fwd", "out", out, ref), ("fwd", "lse", lse, ref_lse)]
-                                pairs += [("bwd_kv" if n in ("dk", "dv") else "bwd_q", n, a, w)
-                                          for n, a, w in zip(BWD_NAMES, got, want)]
-                                for kname, name, a, w in pairs:
-                                    if w is None:
-                                        if a is not None:
-                                            fail(f"{name}: None expected without a bias")
-                                        continue
-                                    if a.dtype != w.dtype or a.shape != w.shape:
-                                        fail(f"{name}: {a.dtype} {tuple(a.shape)} != "
-                                             f"{w.dtype} {tuple(w.shape)}")
-                                    err = (a.float() - w.float()).abs().max().item()
-                                    rel = err / max(1.0, w.float().abs().max().item())
-                                    tol = TOL[dtype if name in ROUNDED else torch.float32]
-                                    if not rel <= tol:
-                                        fail(f"{name} fmap={fmap} kernel={kernel} dil={dil} "
-                                             f"bias={bias} t={t} b={b} {dtype}: error {rel} "
-                                             f"of the max abs > {tol}")
-                                    key = (kname, dtype, name in ROUNDED)
-                                    worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
-                                    worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
-                                cases += 1
+    for causal, dtype, (fmap, frames), kernel, dil, bias, t_off, b in itertools.product(
+            (True, False), (torch.float32, torch.bfloat16), BWD_GRIDS,
+            ((3, 3, 3), (5, 3, 3)), (1, 2, 4), (False, True), (0, 1, None), (1, 2)):
+        full = frames * fmap[0] * fmap[1]
+        t = 1 if t_off is None else full - t_off
+        args, g = nda_inputs(b, t, dtype, bias, gen, kernel)
+        kw = dict(fmap=fmap, kernel=kernel, dilation=(dil,) * 3,
+                  causal=causal)
+        out, lse = knda.sparse_3dna_fwd(*args, **kw)
+        ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **kw)
+        got = knda.sparse_3dna_bwd_q(*args, g, ref_lse, **kw)
+        want = knda.sparse_3dna_bwd_q_plain(*args, g, ref_lse, **kw)
+        got += knda.sparse_3dna_bwd_kv(args[0], g, *want[1:3], **kw)
+        want += knda.sparse_3dna_bwd_kv_plain(args[0], g, *want[1:3], **kw)
+        torch.cuda.synchronize()
+        pairs = [("fwd", "out", out, ref), ("fwd", "lse", lse, ref_lse)]
+        pairs += [("bwd_kv" if n in ("dk", "dv") else "bwd_q", n, a, w)
+                  for n, a, w in zip(BWD_NAMES, got, want)]
+        for kname, name, a, w in pairs:
+            if w is None:
+                if a is not None:
+                    fail(f"{name}: None expected without a bias")
+                continue
+            if a.dtype != w.dtype or a.shape != w.shape:
+                fail(f"{name}: {a.dtype} {tuple(a.shape)} != "
+                     f"{w.dtype} {tuple(w.shape)}")
+            err = (a.float() - w.float()).abs().max().item()
+            rel = err / max(1.0, w.float().abs().max().item())
+            tol = TOL[dtype if name in ROUNDED else torch.float32]
+            if not rel <= tol:
+                fail(f"{name} fmap={fmap} kernel={kernel} dil={dil} "
+                     f"bias={bias} t={t} b={b} {dtype} causal={causal}: "
+                     f"error {rel} of the max abs > {tol}")
+            key = (causal, kname, dtype, name in ROUNDED)
+            worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+            worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
+        cases += 1
     print("backward checks: errors over each reference's max abs (at least 1), since "
           "the outputs span orders of magnitude, sums over queries run in atomics' "
           "order, and bf16 outputs round to 2**-8 of the value", flush=True)
-    for (kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
+    for (causal, kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
         tol = TOL[dtype if rounded else torch.float32]
         which = f"outputs in {dtype}" if rounded else "fp32 outputs"
-        print(f"sparse_3dna_{kname} vs plain, {dtype} inputs, {which}: max error "
+        mode = "causal" if causal else "centered"
+        print(f"sparse_3dna_{kname} vs plain, {mode}, {dtype} inputs, {which}: max error "
               f"{rel:.3e} of the reference's max abs (tolerance {tol:.0e}, "
-              f"{cases // 2} cases)", flush=True)
+              f"{cases // 4} cases)", flush=True)
     return worst_abs
 
 
@@ -441,25 +455,46 @@ def serve(NUWA, knda):
     launches = got["fwd"]
     if launches == 0:
         fail("the serving path launched no sparse_3dna_fwd kernel")
-    if got["bwd_q"] or got["bwd_kv"] or got["cross"]:
+    if got != expect_launches(fwd=launches):
         fail(f"the NUWA serving path launched another kernel: {got}")
     return model, texts, launches
 
 
-def reset_launches(knda):
+KERNELS = ("fwd", "bwd_q", "bwd_kv", "cross", "cross_bwd_q", "cross_bwd_kv")
+CENTERED = ("fwd", "bwd_q", "bwd_kv")  # the Sparse3DNA wrappers also count centered launches
+
+
+def kernel_wrappers(knda):
+    """{short name: wrapper} of every kernel of the port."""
     from nuwa_tpu_torch.kernels import cross as kcross
 
-    for fn in (knda.sparse_3dna_fwd, knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv,
-               kcross.sparse_cross_2dna_fwd):
+    return dict(zip(KERNELS, (
+        knda.sparse_3dna_fwd, knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv,
+        kcross.sparse_cross_2dna_fwd, kcross.sparse_cross_2dna_bwd_q,
+        kcross.sparse_cross_2dna_bwd_kv)))
+
+
+def reset_launches(knda):
+    for name, fn in kernel_wrappers(knda).items():
         fn.launches = 0
+        if name in CENTERED:
+            fn.centered_launches = 0
 
 
 def launch_counts(knda):
-    from nuwa_tpu_torch.kernels import cross as kcross
+    """Each wrapper's launches since the reset, and the Sparse3DNA wrappers'
+    centered ones as "<name>_centered"."""
+    fns = kernel_wrappers(knda)
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts.update({f"{name}_centered": fns[name].centered_launches for name in CENTERED})
+    return counts
 
-    return {"fwd": knda.sparse_3dna_fwd.launches, "bwd_q": knda.sparse_3dna_bwd_q.launches,
-            "bwd_kv": knda.sparse_3dna_bwd_kv.launches,
-            "cross": kcross.sparse_cross_2dna_fwd.launches}
+
+def expect_launches(**nonzero):
+    """The launch counts of a run that launches the named kernels that many
+    times and no other."""
+    keys = (*KERNELS, *(f"{name}_centered" for name in CENTERED))
+    return {key: nonzero.get(key, 0) for key in keys}
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +520,7 @@ def train(NUWA, NUWATrainer, knda):
     depth times; the text encoder and the cached sampling at step 0 launch
     none."""
     depth = TRAIN["dec_depth"]
-    expect = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth, "cross": 0}
+    expect = expect_launches(fwd=2 * depth, bwd_q=depth, bwd_kv=depth)
     model = NUWA(**TRAIN, compute_dtype="bfloat16", seed=SEED)
     trainer = NUWATrainer(
         nuwa=model, dataset=train_batch(torch.Generator().manual_seed(SEED + 9)),
@@ -861,7 +896,7 @@ def serve_sketch(NUWASketch, VQGanVAE, knda):
         got = launch_counts(knda)
         if tuple(out.shape) != shape or not torch.isfinite(out).all():
             fail(f"{name}: {tuple(out.shape)} not finite or not {shape}")
-        want = {"fwd": expect["fwd"], "bwd_q": 0, "bwd_kv": 0, "cross": expect["cross"]}
+        want = expect_launches(**expect)
         if got != want:
             fail(f"{name}: launches {got}, expected {want}")
         cross[frames] += got["cross"]
@@ -963,6 +998,327 @@ def sketch_throughput(model, short, inputs):
     share(lambda: model.generate(sketch1[:1], generator=g, num_frames=1), name, walls[name])
 
 
+# ---------------------------------------------------------------------------
+# sketch training: the cross backward, centered Sparse3DNA and NUWASketch
+# ---------------------------------------------------------------------------
+
+# the JAX package's NUWASketch training config (scripts/bench_sketch_train.py:38-57)
+SKETCH_TRAIN = dict(
+    dim=512, image_size=32, max_video_frames=10, sketch_max_video_frames=1,
+    sketch_enc_depth=2, sketch_enc_dim_head=64, sketch_enc_heads=8, dec_depth=6,
+    dec_dim_head=64, dec_heads=8, dec_reversible=True, sparse_3dna_kernel_size=(5, 3, 3),
+    sparse_3dna_dilation=(1, 2, 4), shift_video_tokens=True, cross_2dna_kernel_size=3,
+    cross_2dna_dilation=1,
+)
+# the same widths with BASELINE.json config 4's sketch side: a separate
+# 5-channel sketch VAE, a centered Sparse3DNA sketch encoder, two sketch frames
+SKETCH_TRAIN_VARIANTS = {
+    "a": dict(SKETCH_TRAIN),
+    "b": dict(SKETCH_TRAIN, sketch_max_video_frames=2, sketch_enc_use_sparse_3dna=True),
+}
+SKETCH_TRAIN_BATCH, SKETCH_TRAIN_STEPS = 2, 4
+SKETCH_TRAIN_T = SKETCH_TRAIN["max_video_frames"] * SKETCH_FMAP**2 - 1  # bos first
+CROSS_BWD_NAMES = ("dq", "ds", "mix", "dnull_k", "dnull_v", "dth", "dk", "dv")
+
+
+def check_cross_bwd(kcross):
+    """The query-side and key-side cross backward against their plain
+    versions over fp32 and bf16, one to three context frames, fmap 16 and 4,
+    dilations 1 and 2, full, ragged and single query tokens (5 query
+    frames), b 1 and 2 and every mask. Each backward takes the lse of its own
+    forward, as the autograd function gives it: a row whose context is all
+    masked has P = 1 on the null column, and its dS there, P * dP * (1 - P),
+    is 0 only if P is exactly 1, which an lse from the other path's sums
+    would leave to rounding (about 1e-5 of dq in fp32). Errors over each
+    reference's max abs (at least 1): dq, dk and dv within the dtype's
+    tolerance (bf16 rounds them to 2**-8 of the value), the fp32 outputs
+    (dS, mix, the null and talking-heads cotangents) within fp32's in both
+    runs; sums over queries run in atomics' order. Returns the largest
+    absolute error of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    worst_rel, worst_abs, cases = {}, {}, 0
+    for dtype, frames, fmap, dil, t_off, b in itertools.product(
+            (torch.float32, torch.bfloat16), (1, 2, 3), (SKETCH_FMAP, 4), (1, 2),
+            (0, None, -1), (1, 2)):
+        full = SKETCH["max_video_frames"] * fmap * fmap
+        t = {0: full, None: full - fmap - 1, -1: 1}[t_off]
+        args = cross_inputs(b, t, frames, fmap, dtype, gen)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+        kw = dict(fmap=fmap, kernel_size=3, dilation=dil)
+        for mname, mask in cross_masks(b, frames, fmap).items():
+            _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **kw)
+            _, ref_lse = kcross.sparse_cross_2dna_fwd_plain(*args, mask, **kw)
+            got = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw)
+            want = kcross.sparse_cross_2dna_bwd_q_plain(*args, mask, g, ref_lse, **kw)
+            got += kcross.sparse_cross_2dna_bwd_kv(args[0], g, *want[1:3], **kw)
+            want += kcross.sparse_cross_2dna_bwd_kv_plain(args[0], g, *want[1:3], **kw)
+            torch.cuda.synchronize()
+            for name, a, w in zip(CROSS_BWD_NAMES, got, want):
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    fail(f"cross {name}: {a.dtype} {tuple(a.shape)} != {w.dtype} "
+                         f"{tuple(w.shape)}")
+                err = (a.float() - w.float()).abs().max().item()
+                rel = err / max(1.0, w.float().abs().max().item())
+                rounded = name in ("dq", "dk", "dv")
+                tol = TOL[dtype if rounded else torch.float32]
+                if not rel <= tol:
+                    fail(f"sparse_cross_2dna backward {name} Fc={frames} fmap={fmap} "
+                         f"dil={dil} t={t} b={b} {dtype} mask {mname}: error {rel} of the "
+                         f"max abs > {tol}")
+                kname = "bwd_kv" if name in ("dk", "dv") else "bwd_q"
+                key = (kname, dtype, rounded)
+                worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+                worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
+            cases += 1
+    for (kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
+        tol = TOL[dtype if rounded else torch.float32]
+        which = f"outputs in {dtype}" if rounded else "fp32 outputs"
+        print(f"sparse_cross_2dna_{kname} vs plain, {dtype} inputs, {which}: max error "
+              f"{rel:.3e} of the reference's max abs (tolerance {tol:.0e}, "
+              f"{cases // 2} cases)", flush=True)
+    return worst_abs
+
+
+def check_cross_autograd(kcross):
+    """The cross autograd function (kernels forward and backward) against
+    torch.autograd of the plain forward, fp32, at the training shape of
+    model (b) (t = 2559, two context frames, the second masked in row 1):
+    every input's gradient within 1e-5 of its max abs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    t = SKETCH_TRAIN_T
+    args = [x.requires_grad_() for x in cross_inputs(2, t, 2, SKETCH_FMAP, torch.float32, gen)]
+    mask = cross_masks(2, 2, SKETCH_FMAP)["one frame masked"]
+    g = torch.randn(args[0].shape, generator=gen, device="cuda")
+    kw = dict(fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+    out, _ = kcross.sparse_cross_2dna_fwd_plain(*args, mask, **kw)
+    want = torch.autograd.grad(out, args, g)
+    got = torch.autograd.grad(kcross.sparse_cross_2dna(*args, mask, **kw), args, g)
+    worst = 0.0
+    for name, a, w in zip(("q", "k", "v", "null_k", "null_v", "talking_heads"), got, want):
+        rel = (a - w).abs().max().item() / max(1.0, w.abs().max().item())
+        if not rel <= 1e-5:
+            fail(f"sparse_cross_2dna autograd: d{name} error {rel} of the max abs > 1e-5")
+        worst = max(worst, rel)
+    print(f"sparse_cross_2dna autograd function vs autograd of the plain forward, fp32, "
+          f"b=2 t={t} Lc=512: max error {worst:.3e} of the max abs (tolerance 1e-5)",
+          flush=True)
+
+
+def cross_bwd_bounds(kcross, b, t, frames, mask, dtype):
+    """{kernel: (least time, what bounds it)} of the cross backward on these
+    inputs: each input read once, each output written once; operations for
+    the valid (query, key) pairs of this mask, the null column included.
+    "bwd" is the whole backward as a function (q, g, k, v, the null rows,
+    lse, the talking heads and the mask in; dq, dk, dv, the null and
+    talking-heads cotangents out), with no dS or mix between its kernels."""
+    h, d, es = HEADS, DIM_HEAD, torch.finfo(dtype).bits // 8
+    lc, kn = frames * SKETCH_FMAP**2, frames * 9
+    row, ctx, null = b * h * t * d * es, b * h * lc * d * es, b * h * d * es
+    lse, th, cmask = b * h * t * 4, h * h * 4, b * lc
+    sums = 2 * b * h * d * 4 + th  # dnull_k, dnull_v, dth in fp32
+    slots = 2 * b * h * t * (kn + 1) * 4  # dS and mix, fp32
+    pairs = h * (kcross.valid_pairs(t, mask, fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+                 + b * t)
+    mixes = b * t * (kn + 1) * 2 * h * h
+    # scores, dA and dq, the null sums, the mixes of dP and P and the dth sum
+    ops_q = pairs * 6 * d + b * t * h * 4 * d + 3 * mixes
+    ops_kv = (pairs - b * h * t) * 4 * d  # dK and dV over the window slots
+    return {
+        "bwd_q": bound_ms(2 * row + 2 * ctx + 2 * null + lse + th + cmask + row + slots + sums,
+                          ops_q, dtype),
+        "bwd_kv": bound_ms(2 * row + slots + 2 * ctx, ops_kv, dtype),
+        "bwd": bound_ms(2 * row + 2 * ctx + 2 * null + lse + th + cmask + row + 2 * ctx + sums,
+                        ops_q + ops_kv, dtype),
+    }
+
+
+def time_cross_bwd(kcross):
+    """The cross forward and the two backward kernels at the training shape:
+    bf16, b = 2, t = 2559 video queries, 8 heads of 64, kernel 3, dilation
+    1; one context frame (Lc 256, model (a)) and two with the second masked
+    in row 1 (Lc 512, model (b))."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    b, t, dtype = SKETCH_TRAIN_BATCH, SKETCH_TRAIN_T, torch.bfloat16
+    rows = {}
+    for frames in (1, 2):
+        args = cross_inputs(b, t, frames, SKETCH_FMAP, dtype, gen)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+        mask = torch.ones(b, frames * SKETCH_FMAP**2, dtype=torch.bool, device="cuda")
+        mask[1, SKETCH_FMAP**2:] = False  # no-op at one frame
+        kw = dict(fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+        _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **kw)
+        _, ds, mix, *_ = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw)
+        bounds = cross_bwd_bounds(kcross, b, t, frames, mask, dtype)
+        fwd_ms = device_ms(lambda: kcross.sparse_cross_2dna_fwd(*args, mask, **kw))
+        bound, by = cross_bound(kcross, b, t, frames, mask, dtype)
+        print(f"sparse_cross_2dna_fwd bf16 b={b} t={t} Lc={frames * SKETCH_FMAP**2}: kernel "
+              f"{fwd_ms:.4f} ms (device), bound {bound:.5f} ms ({by}), kernel / bound "
+              f"{fwd_ms / bound:.1f}x", flush=True)
+        for name, kernel, plain in (
+            ("bwd_q", lambda: kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw),
+             lambda: kcross.sparse_cross_2dna_bwd_q_plain(*args, mask, g, lse, **kw)),
+            ("bwd_kv", lambda: kcross.sparse_cross_2dna_bwd_kv(args[0], g, ds, mix, **kw),
+             lambda: kcross.sparse_cross_2dna_bwd_kv_plain(args[0], g, ds, mix, **kw)),
+        ):
+            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
+            bound, by = bounds[name]
+            rows[name, frames] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                      backward_bound_ms=bounds["bwd"][0])
+            print(f"sparse_cross_2dna_{name} bf16 b={b} t={t} Lc={frames * SKETCH_FMAP**2}: "
+                  f"kernel {ms:.4f} ms (device), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+                  f"({by}), kernel / bound {ms / bound:.1f}x", flush=True)
+        both = rows["bwd_q", frames]["ms"] + rows["bwd_kv", frames]["ms"]
+        bound, by = bounds["bwd"]
+        print(f"sparse_cross_2dna backward (bwd_q + bwd_kv) bf16 Lc={frames * SKETCH_FMAP**2}: "
+              f"{both:.4f} ms, bound of the whole backward {bound:.5f} ms ({by}), kernels / "
+              f"bound {both / bound:.1f}x", flush=True)
+    return rows
+
+
+def sketch_train_model(NUWASketch, VQGanVAE, variant, device="cuda", dtype="bfloat16",
+                       seed=SEED):
+    vae = VQGanVAE(**SKETCH_VAE, device=device, seed=seed + 20)
+    sketch_vae = (VQGanVAE(**SKETCH_VAE, channels=5, device=device, seed=seed + 21)
+                  if variant == "b" else vae)
+    return NUWASketch(vae=vae, sketch_vae=sketch_vae, **SKETCH_TRAIN_VARIANTS[variant],
+                      compute_dtype=dtype, device=device, seed=seed)
+
+
+def sketch_train_batch(variant, gen):
+    """One batch made from a seed: sketches (model (a): one 3-channel frame;
+    (b): two 5-channel frames, the second padded in row 1), videos of all
+    frames, and the sketch mask."""
+    cfg, size = SKETCH_TRAIN_VARIANTS[variant], SKETCH_TRAIN["image_size"]
+    frames, channels = (2, 5) if variant == "b" else (1, 3)
+    sketch = torch.rand(SKETCH_TRAIN_BATCH, frames, channels, size, size, generator=gen)
+    video = torch.rand(SKETCH_TRAIN_BATCH, cfg["max_video_frames"], 3, size, size,
+                       generator=gen)
+    mask = torch.tensor([[True, True], [True, False]]) if variant == "b" else None
+    return sketch, video, mask
+
+
+def train_sketch(NUWASketch, VQGanVAE, knda):
+    """NUWASketch training at full width, bf16, both variants: forward with
+    the loss (condition dropout 0.2, drawn from a seeded generator), the
+    backward, global-norm clipping at 0.5 and an AdamW step, SKETCH_TRAIN_STEPS
+    times on one seeded batch, the counts set to 0 before each step and read
+    after it. Per step the reversible decoder launches the cross forward and
+    B1 2 x depth times (the forward, then each couple's recompute in the
+    backward) and each backward kernel depth times; model (b)'s centered
+    encoder adds one centered B1, B2 and B3 per layer."""
+    from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
+
+    depth, enc = SKETCH_TRAIN["dec_depth"], SKETCH_TRAIN["sketch_enc_depth"]
+    total = {frames: expect_launches() for frames in (1, 2)}  # by context frames
+    for variant in ("a", "b"):
+        c = enc if variant == "b" else 0
+        expect = expect_launches(
+            fwd=2 * depth + c, bwd_q=depth + c, bwd_kv=depth + c, cross=2 * depth,
+            cross_bwd_q=depth, cross_bwd_kv=depth, fwd_centered=c, bwd_q_centered=c,
+            bwd_kv_centered=c)
+        model = sketch_train_model(NUWASketch, VQGanVAE, variant)
+        params = [p for p in model.parameters() if p.requires_grad]
+        opt = get_optimizer(params, lr=3e-4, wd=0.01)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+        sketch, video, mask = sketch_train_batch(variant, torch.Generator().manual_seed(SEED + 26))
+
+        def step():
+            loss = model(sketch, video, sketch_mask=mask, return_loss=True, train=True,
+                         generator=gen)
+            loss.backward()
+            clip_by_global_norm_(params, 0.5)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return loss.detach()
+
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(SKETCH_TRAIN_STEPS):
+            reset_launches(knda)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(loss.item())
+            got = launch_counts(knda)
+            if got != expect:
+                fail(f"sketch train ({variant}) step {i}: launches {got}, expected {expect}")
+            frames = 2 if variant == "b" else 1
+            total[frames] = {k: total[frames][k] + got[k] for k in got}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(map(math.isfinite, losses)):
+            fail(f"sketch train ({variant}) losses not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"sketch train ({variant}) loss did not fall: {losses}")
+        ms = statistics.median(times[1:])
+        tokens = SKETCH_TRAIN_BATCH * SKETCH_TRAIN["max_video_frames"] * SKETCH_FMAP**2
+        shown = {k: v for k, v in expect.items() if v}
+        print(f"sketch train ({variant}): losses {', '.join(f'{x:.4f}' for x in losses)} "
+              f"(finite, falling); launches per step {shown} (as expected, every step)",
+              flush=True)
+        print(f"sketch train step ({variant}, b={SKETCH_TRAIN_BATCH}, {tokens} video tokens): "
+              f"{ms:.1f} ms median of steps 1-{SKETCH_TRAIN_STEPS - 1} (step 0: "
+              f"{times[0]:.1f} ms), {tokens / (ms / 1e3):.0f} video tokens/s, peak memory "
+              f"{peak:.2f} GiB", flush=True)
+        share(step, f"sketch train step ({variant})", wall=ms)
+        del model, opt, params
+        torch.cuda.empty_cache()
+    return total
+
+
+def sketch_train_against_cpu(NUWASketch, VQGanVAE):
+    """Model (b)'s weights in fp32, one batch with a fixed condition-dropout
+    mask (row 0 unconditional: its context all masked; row 1 with its
+    second sketch frame padded): the GPU path (kernels) against the CPU
+    plain path, the loss and every parameter's gradient, reported by group
+    (the sketch encoder, the cross layers, their null key/value and the
+    talking-heads matrices)."""
+    sketch, video, mask = sketch_train_batch("b", torch.Generator().manual_seed(SEED + 27))
+    uncond = torch.tensor([True, False])
+    grads = []
+    for device in ("cuda", "cpu"):
+        model = sketch_train_model(NUWASketch, VQGanVAE, "b", device=device, dtype=None,
+                                   seed=SEED + 28)
+        start = time.perf_counter()
+        loss = model(sketch, video, sketch_mask=mask, return_loss=True, train=True,
+                     uncond=uncond)
+        loss.backward()
+        grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                    if p.requires_grad}))
+        print(f"fp32 sketch train forward and backward on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    cross = [n for n, m in model.named_modules() if type(m).__name__ == "SparseCross2DNA"]
+    groups = {
+        "sketch encoder": lambda n: n.startswith("sketch_transformer."),
+        "cross layers": lambda n: any(n.startswith(c + ".") for c in cross),
+        "null key/value": lambda n: n.endswith((".null_k", ".null_v")),
+        "talking heads": lambda n: n.endswith(".talking_heads"),
+        "all": lambda n: True,
+    }
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
+    worst = {}
+    for name, ref in g_cpu.items():
+        rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        for group, member in groups.items():
+            if member(name) and rel >= worst.get(group, (-1.0, None))[0]:
+                worst[group] = (rel, name)
+    print(f"fp32 sketch train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
+          f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, each within {GRAD_REL:.0e} of its max "
+          f"abs:", flush=True)
+    if set(worst) != set(groups):
+        fail(f"sketch train gradients: groups {sorted(set(groups) - set(worst))} are empty")
+    for group in groups:
+        rel, name = worst[group]
+        print(f"  {group}: largest error {rel:.3e} of the max abs at {name}", flush=True)
+    if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
+        fail("the sketch training loss differs between GPU and CPU")
+    if not worst["all"][0] <= GRAD_REL:
+        fail("sketch training gradients differ between GPU and CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1002,6 +1358,9 @@ def main():
     train_rows = time_train_kernels(knda)
     cross_err = check_cross(kcross)
     cross_rows = time_cross(kcross)
+    cross_bwd_err = check_cross_bwd(kcross)
+    check_cross_autograd(kcross)
+    cross_bwd_rows = time_cross_bwd(kcross)
     phase("kernel checks and times")
     model, texts, serve_launches = serve(NUWA, knda)
     check_against_cpu(NUWA)
@@ -1012,17 +1371,23 @@ def main():
     sketch, short, inputs, cross_launches, sketch_fwd = serve_sketch(NUWASketch, VQGanVAE, knda)
     sketch_against_cpu(NUWASketch, VQGanVAE)
     phase("NUWASketch serving")
+    sketch_train_launches = train_sketch(NUWASketch, VQGanVAE, knda)
+    sketch_train_against_cpu(NUWASketch, VQGanVAE)
+    phase("NUWASketch training")
     throughput(model, texts)
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
     phase("throughput")
 
-    # launches: the NUWA serving run's, the training run's and the sketch
-    # serving run's; Sparse3DNA times at the training shape, dilation 2, the
-    # cross kernel's at the sketch forward shape; no single PyTorch call
-    # computes the talking-heads attention or its backward, so library_ms is
-    # null
+    # launches: the NUWA serving run's, the training run's, the sketch
+    # serving run's and the sketch training runs'; Sparse3DNA times at the
+    # training shape, dilation 2, the cross forward's at the sketch forward
+    # shape, the cross backward's at the sketch training shape; no single
+    # PyTorch call computes the talking-heads attention or its backward, so
+    # library_ms is null
     serve_counts = {"fwd": serve_launches + sketch_fwd, "bwd_q": 0, "bwd_kv": 0}
+    sketch_train_total = {k: sketch_train_launches[1][k] + sketch_train_launches[2][k]
+                          for k in sketch_train_launches[1]}
     entries = []
     for name, source, line, err in (
         ("fwd", "sparse3dna_fwd.cu", 239, max(fwd_err, errs["fwd"])),
@@ -1034,9 +1399,12 @@ def main():
             "name": f"sparse_3dna_{name}", "route": "cuda",
             "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
-            "launches": serve_counts[name] + train_launches[name], "max_abs_err": err,
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "launches": serve_counts[name] + train_launches[name] + sketch_train_total[name],
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            # causal windows (the video decoder), centered ones (the sketch encoder)
+            "modes": "causal and centered",
+            "centered_launches": sketch_train_total[f"{name}_centered"],
         })
         if "backward_bound_ms" in row:  # the bound of B2 and B3 together
             entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
@@ -1048,9 +1416,26 @@ def main():
             "name": "sparse_cross_2dna_fwd", "context_frames": frames, "route": "cuda",
             "source": "nuwa_tpu_torch/kernels/csrc/sparse_cross2dna_fwd.cu",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
-            "launches": cross_launches[frames], "max_abs_err": cross_err[frames],
+            "launches": cross_launches[frames] + sketch_train_launches[frames]["cross"],
+            "max_abs_err": cross_err[frames],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
+        })
+    # two CUDA kernels replace the fused cross backward; times at Lc 256
+    # (model (a), one context frame), and at Lc 512 (model (b)) beside them
+    for name, source in (("bwd_q", "sparse_cross2dna_bwd_q.cu"),
+                         ("bwd_kv", "sparse_cross2dna_bwd_kv.cu")):
+        row, row2 = cross_bwd_rows[name, 1], cross_bwd_rows[name, 2]
+        entries.append({
+            "name": f"sparse_cross_2dna_{name}", "route": "cuda",
+            "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
+            "replaces": "nuwa_tpu/kernels/nda_pallas.py:2879",
+            "launches": sketch_train_total[f"cross_{name}"],
+            "max_abs_err": cross_bwd_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "context_frames": 1, "backward_bound_ms": row["backward_bound_ms"],
+            "at_context_frames_2": {k: row2[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "backward_bound_ms")},
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

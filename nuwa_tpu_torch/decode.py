@@ -132,6 +132,8 @@ class _SparseCross2DNAStep:
 
 class _Sparse3DNAStep:
     def __init__(self, mod: Sparse3DNA, total_video: int):
+        if not mod.causal:
+            raise ValueError("token-by-token decoding needs causal Sparse3DNA")
         self.mod = mod
         self.total = total_video
         _, fh, fw = mod.video_shape

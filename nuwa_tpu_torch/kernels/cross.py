@@ -1,13 +1,24 @@
-"""SparseCross2DNA attention: the Hopper kernel's wrapper and its plain
-version.
+"""SparseCross2DNA attention: the Hopper kernels' wrappers, their plain
+versions and the autograd function that joins them.
 
-``sparse_cross_2dna_fwd`` (``csrc/sparse_cross2dna_fwd.cu``) replaces the
-fused cross forward of ``nuwa_tpu/kernels/nda_pallas.py``: ``_xfused_kernel``
-(two or more context frames) and ``_xfused1_kernel`` (one), both launched by
-``_xfused_fwd_call``, and the per-frame fallback ``_cross_core_op`` that the
-JAX package takes when the fused kernels' score cache does not fit VMEM. The
-Hopper kernel reads each query's neighbours directly at any context length,
-so one kernel covers all three.
+Three kernels replace the cross kernels of ``nuwa_tpu/kernels/nda_pallas.py``:
+
+* ``sparse_cross_2dna_fwd`` (``csrc/sparse_cross2dna_fwd.cu``): the forward,
+  out and the per-row logsumexp; replaces ``_xfused_kernel`` (two or more
+  context frames) and ``_xfused1_kernel`` (one), both launched by
+  ``_xfused_fwd_call``;
+* ``sparse_cross_2dna_bwd_q`` (``csrc/sparse_cross2dna_bwd_q.cu``): the
+  query-side backward, dq, the null-key/value and talking-heads cotangents,
+  and the sparse dS and mixed probabilities;
+* ``sparse_cross_2dna_bwd_kv`` (``csrc/sparse_cross2dna_bwd_kv.cu``): the
+  key-side backward, dk and dv gathered from dS and the mixed probabilities.
+  With the query side it replaces the fused backward ``_xfused_bwd_kernel``
+  (launched by ``_xfused_bwd_call``).
+
+They also take the place of the per-frame fallback ``_cross_core_op`` (and
+its backward), which the JAX package takes when the fused kernels' score
+cache does not fit VMEM: the Hopper kernels read each query's window
+directly at any context length.
 
 Every video query at spatial position (y, x) of any frame attends the null
 key/value and the centered kernel neighbourhood around (y, x) in every
@@ -16,12 +27,13 @@ talking-heads matrix mixes the normalised probabilities across heads (null
 column included) before they weight the values. The bos query's full-context
 attention stays in plain PyTorch in the module (``nuwa_tpu_torch.nda``).
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it runs ``sparse_cross_2dna_fwd_plain``, the gather math of the JAX
-package's ``SparseCross2DNA`` in fp32. The gradient belongs to the next
-slice (NUWASketch training, with the fused cross backward): on a CUDA tensor
-that requires grad the wrapper raises rather than fall back to autograd of
-the plain version.
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs its ``*_plain`` version, the gather math of the JAX package's
+``SparseCross2DNA`` in fp32 (the backward's written out with gathers and
+``index_add_``, not autograd of the plain forward). ``sparse_cross_2dna`` is
+the differentiable op: a ``torch.autograd.Function`` whose forward is
+``sparse_cross_2dna_fwd`` and whose backward runs the query side and then
+the key side, as ``_xfused_core_op`` does with its two Pallas kernels.
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ import functools
 
 import torch
 
-from .nda import _DTYPES, _launch
+from .nda import _DTYPES, _launch, _gathered
 
 
 @functools.lru_cache(maxsize=64)
@@ -60,29 +72,42 @@ def valid_pairs(t, cmask, *, fmap, kernel_size, dilation) -> int:
     return int(per_position[:, s].sum())
 
 
+def _slots(q, fmap, kernel_size, dilation, lc, cmask):
+    """Each query's context token ids (t, Fc * k * k), frame-major, and
+    whether each may be attended ((b or 1), t, Fc * k * k): in the frame and
+    allowed by ``cmask``."""
+    t = q.shape[2]
+    tokens, valid = _context_table(fmap, kernel_size, dilation, lc // (fmap * fmap),
+                                   str(q.device))
+    s = torch.arange(t, device=q.device) % (fmap * fmap)  # each query's spatial position
+    ok = valid[s][None]
+    if cmask is not None:
+        ok = ok & cmask[:, tokens[s]]
+    return tokens[s], ok
+
+
+def _scores(q, k, null_k, tokens, ok):
+    """(b, h, t, Fc * k * k + 1) fp32 scores of each query's slots, the null
+    key in slot 0, -inf where a slot may not be attended; and the gathered
+    keys. The forward and the backward score with this one expression, so a
+    row whose context is all masked gets lse equal to its null score and
+    P = exp(0) = 1 exactly there, and dS = 0, as the kernels give it."""
+    keys = _gathered(k, tokens, null_k)
+    sim = torch.einsum("bhid,bhijd->bhij", q.float(), keys)
+    slot_ok = torch.cat([ok.new_ones(ok.shape[:-1] + (1,)), ok], dim=-1)
+    return sim.masked_fill(~slot_ok[:, None], float("-inf")), keys
+
+
 def sparse_cross_2dna_fwd_plain(q, k, v, null_k, null_v, talking_heads, cmask=None,
                                 *, fmap, kernel_size, dilation):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
     results as ``sparse_cross_2dna_fwd``."""
-    b, h, t, d = q.shape
-    hw = fmap * fmap
-    tokens, valid = _context_table(
-        fmap, kernel_size, dilation, k.shape[2] // hw, str(q.device)
-    )
-    s = torch.arange(t, device=q.device) % hw  # each query's spatial position
-    ok = valid[s][None]
-    if cmask is not None:
-        ok = ok & cmask[:, tokens[s]]
-    qf = q.float()
-    sim = torch.einsum("bhid,bhijd->bhij", qf, k.float()[:, :, tokens[s]])
-    sim = sim.masked_fill(~ok[:, None], float("-inf"))
-    sim_null = torch.einsum("bhid,bhd->bhi", qf, null_k.float()[:, :, 0])
-    sim = torch.cat([sim_null[..., None], sim], dim=-1)
+    tokens, ok = _slots(q, fmap, kernel_size, dilation, k.shape[2], cmask)
+    sim, _ = _scores(q, k, null_k, tokens, ok)
     lse = torch.logsumexp(sim, dim=-1)
     attn = torch.softmax(sim, dim=-1)
     attn = torch.einsum("bhij,gh->bgij", attn, talking_heads.float())
-    out = attn[..., :1] * null_v.float()
-    out = out + torch.einsum("bhij,bhijd->bhid", attn[..., 1:], v.float()[:, :, tokens[s]])
+    out = torch.einsum("bhij,bhijd->bhid", attn, _gathered(v, tokens, null_v))
     return out.to(q.dtype), lse
 
 
@@ -104,20 +129,39 @@ def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
             q, k, v, null_k, null_v, talking_heads, cmask,
             fmap=fmap, kernel_size=kernel_size, dilation=dilation,
         )
+    th, mask = _check_cuda("sparse_cross_2dna_fwd", q, k, v, null_k, null_v, talking_heads,
+                           cmask, fmap=fmap, kernel_size=kernel_size)
+    b, h, t, d = q.shape
+    lc = k.shape[2]
+    ins = [x.contiguous() for x in (q, k, v, null_k, null_v)]
+    out = torch.empty_like(ins[0])
+    lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
+    if t == 0:
+        return out, lse
+    _launch("sparse_cross2dna_fwd", q.dtype,
+            [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), out.data_ptr(),
+             lse.data_ptr()],
+            [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
+    sparse_cross_2dna_fwd.launches += 1
+    return out, lse
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
+
+
+def _check_cuda(name, q, k, v, null_k, null_v, talking_heads, cmask, *, fmap, kernel_size,
+                more=()):
+    """Raise on anything the kernels do not take; ``more``: (name, tensor,
+    shape, dtype) to check beside the forward's arguments. Returns the
+    talking-heads matrix as contiguous fp32 and the mask as contiguous
+    bytes (or None)."""
     if q.device.type != "cuda":
-        raise ValueError(f"sparse_cross_2dna_fwd runs on cuda or cpu, not {q.device}")
-    if torch.is_grad_enabled() and any(
-        x.requires_grad for x in (q, k, v, null_k, null_v, talking_heads)
-    ):
-        raise NotImplementedError(
-            "sparse_cross_2dna_fwd has no backward on the card yet: the fused "
-            "cross backward comes with the NUWASketch training slice; run "
-            "serving under torch.no_grad()"
-        )
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     b, h, t, d = q.shape
     lc, hw = k.shape[2], fmap * fmap
     if q.dtype not in _DTYPES:
-        raise TypeError(f"sparse_cross_2dna_fwd takes float32 or bfloat16, not {q.dtype}")
+        raise TypeError(f"{name} takes float32 or bfloat16, not {q.dtype}")
     if not (1 <= h <= 32 and 1 <= d <= 256):
         raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
     if lc == 0 or lc % hw or kernel_size % 2 == 0:
@@ -127,29 +171,196 @@ def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
     for arg, x, shape, dtype in (
         ("k", k, ctx, q.dtype), ("v", v, ctx, q.dtype),
         ("null_k", null_k, null, q.dtype), ("null_v", null_v, null, q.dtype),
-        ("cmask", cmask, (b, lc), torch.bool),
+        ("cmask", cmask, (b, lc), torch.bool), *more,
     ):
         if x is None:
             continue
         if tuple(x.shape) != shape or x.dtype != dtype or x.device != q.device:
-            raise ValueError(f"sparse_cross_2dna_fwd: {arg} must be {shape} {dtype} on "
+            raise ValueError(f"{name}: {arg} must be {shape} {dtype} on "
                              f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
     th = talking_heads.to(device=q.device, dtype=torch.float32).contiguous()
     if tuple(th.shape) != (h, h):
         raise ValueError(f"talking_heads: expected {(h, h)}, got {tuple(th.shape)}")
+    return th, cmask.contiguous() if cmask is not None else None
+
+
+def sparse_cross_2dna_bwd_q_plain(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
+                                  *, fmap, kernel_size, dilation):
+    """Plain PyTorch version of the query-side backward kernel (fp32 math);
+    same arguments and results as ``sparse_cross_2dna_bwd_q``."""
+    tokens, ok = _slots(q, fmap, kernel_size, dilation, k.shape[2], cmask)
+    qf, gf, th = q.float(), grad.float(), talking_heads.float()
+    sim, keys = _scores(q, k, null_k, tokens, ok)
+    vals = _gathered(v, tokens, null_v)
+    p = torch.exp(sim - lse[..., None])
+    da = torch.einsum("bhid,bhijd->bhij", gf, vals)
+    dp = torch.einsum("bgij,gh->bhij", da, th)  # through the talking-heads mix
+    mix = torch.einsum("bhij,gh->bgij", p, th)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))  # through the softmax
+    dq = torch.einsum("bhij,bhijd->bhid", ds, keys)
+    dth = torch.einsum("bgij,bhij->gh", da, p)
+    dnull_k = torch.einsum("bhi,bhid->bhd", ds[..., 0], qf)[:, :, None]
+    dnull_v = torch.einsum("bhi,bhid->bhd", mix[..., 0], gf)[:, :, None]
+    return dq.to(q.dtype), ds, mix, dnull_k, dnull_v, dth
+
+
+def sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel_size, dilation):
+    """Plain PyTorch version of the key-side backward kernel (fp32 math);
+    same arguments and results as ``sparse_cross_2dna_bwd_kv``."""
+    b, h, t, d = q.shape
+    frames = (ds.shape[-1] - 1) // kernel_size**2
+    lc = frames * fmap * fmap
+    tokens, ok = _slots(q, fmap, kernel_size, dilation, lc, None)
+    flat = tokens.reshape(-1)
+    out = []
+    for w, x in ((ds, q), (mix, grad)):
+        w = w[..., 1:].masked_fill(~ok, 0.0)
+        terms = (w[..., None] * x.float()[:, :, :, None, :]).reshape(b, h, -1, d)
+        out.append(terms.new_zeros(b, h, lc, d).index_add_(2, flat, terms))
+    return out[0].to(q.dtype), out[1].to(q.dtype)
+
+
+def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
+                            *, fmap, kernel_size, dilation):
+    """Query side of the SparseCross2DNA backward.
+
+    Takes the forward's arguments, its output cotangent ``grad`` (b, h, t, d,
+    q's dtype) and its ``lse``. Returns dq (q's dtype), dS and the mixed
+    probabilities mix (both (b, h, t, Fc * k * k + 1) fp32, slot 0 being the
+    null key, a masked or out-of-frame slot 0 in both), dnull_k and dnull_v
+    (b, h, 1, d) fp32, one sum per batch row, and dth (h, h) fp32.
+    """
+    if q.device.type == "cpu":
+        return sparse_cross_2dna_bwd_q_plain(
+            q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
+            fmap=fmap, kernel_size=kernel_size, dilation=dilation,
+        )
+    b, h, t, d = q.shape
+    lc = k.shape[2]
+    th, mask = _check_cuda(
+        "sparse_cross_2dna_bwd_q", q, k, v, null_k, null_v, talking_heads, cmask,
+        fmap=fmap, kernel_size=kernel_size,
+        more=[("grad", grad, (b, h, t, d), q.dtype), ("lse", lse, (b, h, t), torch.float32)],
+    )
+    slots = lc // (fmap * fmap) * kernel_size**2 + 1
     ins = [x.contiguous() for x in (q, k, v, null_k, null_v)]
-    mask = cmask.contiguous() if cmask is not None else None
-    out = torch.empty_like(ins[0])
-    lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
-    if t == 0:
-        return out, lse
-    _launch("sparse_cross2dna_fwd", q.dtype,
-            [*(x.data_ptr() for x in ins), th.data_ptr(),
-             mask.data_ptr() if mask is not None else None, out.data_ptr(), lse.data_ptr()],
-            [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
-    sparse_cross_2dna_fwd.launches += 1
-    return out, lse
+    grad, lse = grad.contiguous(), lse.contiguous()
+    dq = torch.empty_like(ins[0])
+    ds = torch.empty(b, h, t, slots, device=q.device, dtype=torch.float32)
+    mix = torch.empty_like(ds)
+    # sums over queries: the kernel adds its blocks' shares into these
+    dnull_k = torch.zeros(b, h, 1, d, device=q.device, dtype=torch.float32)
+    dnull_v = torch.zeros_like(dnull_k)
+    dth = torch.zeros(h, h, device=q.device, dtype=torch.float32)
+    if t > 0:
+        _launch("sparse_cross2dna_bwd_q", q.dtype,
+                [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), grad.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
+                 dnull_k.data_ptr(), dnull_v.data_ptr(), dth.data_ptr()],
+                [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
+        sparse_cross_2dna_bwd_q.launches += 1
+    return dq, ds, mix, dnull_k, dnull_v, dth
 
 
-# kernel launches since the count was last reset
+def sparse_cross_2dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel_size, dilation):
+    """Key side of the SparseCross2DNA backward: dk and dv (b, h, Lc, d,
+    q's dtype) from q, the output cotangent ``grad`` and the ``ds`` and
+    ``mix`` that ``sparse_cross_2dna_bwd_q`` returned (Lc follows from their
+    slots)."""
+    if q.device.type == "cpu":
+        return sparse_cross_2dna_bwd_kv_plain(
+            q, grad, ds, mix, fmap=fmap, kernel_size=kernel_size, dilation=dilation
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"sparse_cross_2dna_bwd_kv runs on cuda or cpu, not {q.device}")
+    b, h, t, d = q.shape
+    kk = kernel_size**2
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"sparse_cross_2dna_bwd_kv takes float32 or bfloat16, not {q.dtype}")
+    if ds.ndim != 4 or (ds.shape[-1] - 1) % kk or ds.shape[-1] == 1:
+        raise ValueError(f"ds: expected (b, h, t, Fc * {kk} + 1), got {tuple(ds.shape)}")
+    slots = tuple(ds.shape)
+    for arg, x, shape, dtype in (
+        ("grad", grad, (b, h, t, d), q.dtype),
+        ("ds", ds, (b, h, t, slots[-1]), torch.float32),
+        ("mix", mix, (b, h, t, slots[-1]), torch.float32),
+    ):
+        if tuple(x.shape) != shape or x.dtype != dtype or x.device != q.device:
+            raise ValueError(f"sparse_cross_2dna_bwd_kv: {arg} must be {shape} {dtype} on "
+                             f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if not (1 <= h <= 32 and 1 <= d <= 256):
+        raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
+    lc = (slots[-1] - 1) // kk * fmap * fmap
+    ins = [x.contiguous() for x in (q, grad, ds, mix)]
+    dk = q.new_zeros(b, h, lc, d)
+    dv = torch.zeros_like(dk)
+    if t > 0:
+        _launch("sparse_cross2dna_bwd_kv", q.dtype,
+                [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
+                [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
+        sparse_cross_2dna_bwd_kv.launches += 1
+    return dk, dv
+
+
+# kernel launches since each count was last reset
 sparse_cross_2dna_fwd.launches = 0
+sparse_cross_2dna_bwd_q.launches = 0
+sparse_cross_2dna_bwd_kv.launches = 0
+
+
+def sparse_cross_2dna_bwd(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
+                          *, fmap, kernel_size, dilation):
+    """The whole SparseCross2DNA backward: the query side, then the key side.
+    Returns dq, dk, dv (q's dtype), dnull_k, dnull_v ((b, h, 1, d), one sum
+    per batch row) and dth (h, h), the last three in fp32."""
+    geo = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation)
+    dq, ds, mix, dnull_k, dnull_v, dth = sparse_cross_2dna_bwd_q(
+        q, k, v, null_k, null_v, talking_heads, cmask, grad, lse, **geo
+    )
+    dk, dv = sparse_cross_2dna_bwd_kv(q, grad, ds, mix, **geo)
+    return dq, dk, dv, dnull_k, dnull_v, dth
+
+
+def sparse_cross_2dna_bwd_plain(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
+                                *, fmap, kernel_size, dilation):
+    """``sparse_cross_2dna_bwd`` from the plain versions of its two kernels."""
+    geo = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation)
+    dq, ds, mix, dnull_k, dnull_v, dth = sparse_cross_2dna_bwd_q_plain(
+        q, k, v, null_k, null_v, talking_heads, cmask, grad, lse, **geo
+    )
+    dk, dv = sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, **geo)
+    return dq, dk, dv, dnull_k, dnull_v, dth
+
+
+class SparseCross2DNAFunction(torch.autograd.Function):
+    """Differentiable SparseCross2DNA: the forward kernel saves only ``lse``
+    beside its inputs; the backward recomputes the probabilities query-side
+    and gathers dk and dv key-side. The null key/value gradients come back
+    per batch row, and autograd sums them through the ``expand`` that made
+    the (b, h, 1, d) null rows from the parameters."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, null_k, null_v, talking_heads, cmask, geometry):
+        out, lse = sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask,
+                                         **geometry)
+        ctx.save_for_backward(q, k, v, null_k, null_v, talking_heads, cmask, lse)
+        ctx.geometry = geometry
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, null_k, null_v, th, cmask, lse = ctx.saved_tensors
+        dq, dk, dv, dnull_k, dnull_v, dth = sparse_cross_2dna_bwd(
+            q, k, v, null_k, null_v, th, cmask, grad.to(q.dtype), lse, **ctx.geometry
+        )
+        return (dq, dk, dv, dnull_k.to(null_k.dtype), dnull_v.to(null_v.dtype),
+                dth.to(th.dtype), None, None)
+
+
+def sparse_cross_2dna(q, k, v, null_k, null_v, talking_heads, cmask=None,
+                      *, fmap, kernel_size, dilation):
+    """``sparse_cross_2dna_fwd``'s output, differentiable in every tensor
+    argument but the mask."""
+    geometry = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation)
+    return SparseCross2DNAFunction.apply(q, k, v, null_k, null_v, talking_heads, cmask,
+                                         geometry)

@@ -1,4 +1,5 @@
-// Sparse3DNA backward, key side (causal, no dropout) for Hopper, sm_90a.
+// Sparse3DNA backward, key side (causal or centered, no dropout) for Hopper,
+// sm_90a.
 //
 // Replaces the TPU kernel `_bwd_kv_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_bwd_kv_call`, its pl.pallas_call). For every key token
@@ -15,11 +16,13 @@
 // to read back than to recompute.
 //
 // The inverse neighbourhood: slot (a, b, c), row-major over (kf, kh, kw),
-// has the causal offset ((a-(kf-1))*df, (b-(kh-1))*dh, (c-(kw-1))*dw), so
-// key (f, y, x) is read through that slot by the query
-// (f + (kf-1-a)*df, y + (kh-1-b)*dh, x + (kw-1-c)*dw). The pair exists when
-// that query lies inside the frame on each axis (checked per axis: a flat
-// index would wrap across rows) and before the sequence end t.
+// has the offset ((a-cf)*df, (b-ch)*dh, (c-cw)*dw), with c_ = k_-1 on each
+// axis when causal and (k_-1)/2 when centered, so key (f, y, x) is read
+// through that slot by the query (f - (a-cf)*df, y - (b-ch)*dh,
+// x - (c-cw)*dw): the window reflected. The pair exists when that query lies
+// inside the grid on each axis (checked per axis: a flat index would wrap
+// across rows) and before the sequence end t; the key, below t, is then a
+// valid neighbour of it.
 //
 // What bounds it on the card: memory. Per key and head it does 4 * Kn * d
 // operations, while the bytes the function must move are one row each of q,
@@ -52,6 +55,7 @@ struct Geometry {
   int fh, fw;      // frame height and width
   int kf, kh, kw;  // kernel size per axis
   int df, dh, dw;  // dilation per axis
+  int causal;      // 1: causal windows, 0: centered
 };
 
 // grid (t, b), block 32 * heads: warp w handles head w of one key token.
@@ -70,13 +74,17 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_kv_kernel(
 
   const int hw = g.fh * g.fw;
   const int f = key / hw, y = (key % hw) / g.fw, xx = key % g.fw;
+  const int cf = g.causal ? g.kf - 1 : (g.kf - 1) / 2;
+  const int ch = g.causal ? g.kh - 1 : (g.kh - 1) / 2;
+  const int cw = g.causal ? g.kw - 1 : (g.kw - 1) / 2;
   for (int j = threadIdx.x; j < kn; j += blockDim.x) {
     const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-    const int qf = f + (g.kf - 1 - a) * g.df;
-    const int qy = y + (g.kh - 1 - r / g.kw) * g.dh;
-    const int qx = xx + (g.kw - 1 - r % g.kw) * g.dw;
+    const int qf = f - (a - cf) * g.df;
+    const int qy = y - (r / g.kw - ch) * g.dh;
+    const int qx = xx - (r % g.kw - cw) * g.dw;
     const int tok = (qf * g.fh + qy) * g.fw + qx;
-    s_q[j] = (qy < g.fh && qx < g.fw && tok < g.t) ? tok : -1;
+    const bool in_grid = qf >= 0 && qy >= 0 && qy < g.fh && qx >= 0 && qx < g.fw;
+    s_q[j] = (in_grid && tok < g.t) ? tok : -1;
   }
   __syncthreads();
 
@@ -135,13 +143,14 @@ int launch(const void* q, const void* gout, const float* ds, const float* mix, v
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, gout, dk, dv
-// (b, heads, t, d); ds, mix (b, heads, t, kn + 1) fp32, slot 0 being bos.
+// (b, heads, t, d); ds, mix (b, heads, t, kn + 1) fp32, slot 0 being bos;
+// causal 1 for causal windows, 0 for centered.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_bwd_kv(int dtype, const void* q, const void* gout, const float* ds,
                            const float* mix, void* dk, void* dv, int b, int heads, int t, int d,
                            int fh, int fw, int kf, int kh, int kw, int df, int dh, int dw,
-                           void* stream) {
-  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw};
+                           int causal, void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);
   if (dtype == 1) return launch<__nv_bfloat16>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);

@@ -1,10 +1,12 @@
-// Sparse3DNA backward, query side (causal, no dropout) for Hopper, sm_90a.
+// Sparse3DNA backward, query side (causal or centered, no dropout) for
+// Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_bwd_q_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_bwd_q_call`, its pl.pallas_call). Given the forward's
 // inputs, its per-row logsumexp `lse` and the output cotangent `g`, it
 // recomputes for every query the probabilities P over bos and its Kn dilated
-// causal neighbours, and forms, per head a and slot j:
+// neighbours (the forward's causal or centered windows, sparse3dna_fwd.cu),
+// and forms, per head a and slot j:
 //
 //   dA[a, j] = g[a] . v_j[a]                 (cotangent of the mixed probs)
 //   dP[b, j] = sum_a th[a, b] * dA[a, j]     (through the talking-heads mix)
@@ -68,7 +70,23 @@ struct Geometry {
   int fh, fw;      // frame height and width
   int kf, kh, kw;  // kernel size per axis
   int df, dh, dw;  // dilation per axis
+  int causal;      // 1: causal windows, 0: centered
 };
+
+// The forward kernel's neighbour (sparse3dna_fwd.cu): the token id through
+// window slot j, or -1 outside the grid or at or past t.
+__device__ __forceinline__ int neighbour(const Geometry& g, int f, int y, int x, int j) {
+  const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
+  const int cf = g.causal ? g.kf - 1 : (g.kf - 1) / 2;
+  const int ch = g.causal ? g.kh - 1 : (g.kh - 1) / 2;
+  const int cw = g.causal ? g.kw - 1 : (g.kw - 1) / 2;
+  const int nf = f + (a - cf) * g.df;
+  const int ny = y + (r / g.kw - ch) * g.dh;
+  const int nx = x + (r % g.kw - cw) * g.dw;
+  if (nf < 0 || ny < 0 || ny >= g.fh || nx < 0 || nx >= g.fw) return -1;
+  const int tok = (nf * g.fh + ny) * g.fw + nx;
+  return tok < g.t ? tok : -1;
+}
 
 template <typename T>
 __device__ __forceinline__ float row_dot(const float (&x)[kMaxR], const T* row, int lane,
@@ -131,16 +149,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
     if (i >= g.t) break;  // uniform across the block
     __syncthreads();      // the previous query is done with s_nb, s_p, s_da
     const int f = i / hw, y = (i % hw) / g.fw, xx = i % g.fw;
-    for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-      // as the forward kernel: slot j enumerates (a, b, c) row-major with
-      // causal offsets -(K-1)*dil ... 0, so only lower bounds can fail
-      const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-      const int nf = f + (a - (g.kf - 1)) * g.df;
-      const int ny = y + (r / g.kw - (g.kh - 1)) * g.dh;
-      const int nx = xx + (r % g.kw - (g.kw - 1)) * g.dw;
-      const int tok = (nf * g.fh + ny) * g.fw + nx;
-      s_nb[j] = (nf >= 0 && ny >= 0 && nx >= 0 && tok < g.t) ? tok : -1;
-    }
+    for (int j = threadIdx.x; j < kn; j += blockDim.x) s_nb[j] = neighbour(g, f, y, xx, j);
     __syncthreads();
 
     const size_t qoff = (row * g.t + i) * d;
@@ -292,14 +301,16 @@ extern "C" {
 // bias (heads, kn) fp32 or null; lse (b, heads, t) fp32; ds, mix
 // (b, heads, t, kn + 1) fp32; dkbos, dvbos (b, heads, d), dth (heads, heads)
 // and dbias (heads, kn, or null) fp32 and zeroed by the caller: the kernel
-// adds into them. Returns the cudaError_t of the launch (0 on success).
+// adds into them; causal 1 for causal windows, 0 for centered. Returns the
+// cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
                           const void* kbos, const void* vbos, const float* th,
                           const float* bias, const void* gout, const float* lse, void* dq,
                           float* ds, float* mix, float* dkbos, float* dvbos, float* dth,
                           float* dbias, int b, int heads, int t, int d, int fh, int fw,
-                          int kf, int kh, int kw, int df, int dh, int dw, void* stream) {
-  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw};
+                          int kf, int kh, int kw, int df, int dh, int dw, int causal,
+                          void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, dkbos, dvbos,

@@ -1,12 +1,16 @@
-// Sparse3DNA forward (causal, no dropout) for Hopper, sm_90a.
+// Sparse3DNA forward (causal or centered, no dropout) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_fwd_call`, its pl.pallas_call, and the lane-packed
 // `_packed_core_op` at fmap 8). It computes the same function: every video
-// query attends its Kf*Kh*Kw dilated causal neighbours plus the bos
-// key/value, with an optional per-head relative-position bias; the softmax
-// is fp32; the normalised probabilities are mixed across heads by the
-// talking-heads matrix (bos column included) before they weight the values.
+// query attends its Kf*Kh*Kw dilated neighbours plus the bos key/value
+// (causal windows for the video decoder, centered ones for the sketch
+// encoder; a neighbour counts when it lies in the grid and before the
+// sequence end t, so the phantom tokens of a ragged last frame, which
+// centered windows reach, are masked), with an optional per-head
+// relative-position bias; the softmax is fp32; the normalised probabilities
+// are mixed across heads by the talking-heads matrix (bos column included)
+// before they weight the values.
 // It writes `out` (in the inputs' type) and the per-row logsumexp `lse`
 // (fp32), the residual a flash-style backward consumes.
 //
@@ -64,7 +68,25 @@ struct Geometry {
   int fh, fw;      // frame height and width
   int kf, kh, kw;  // kernel size per axis
   int df, dh, dw;  // dilation per axis
+  int causal;      // 1: causal windows, 0: centered
 };
+
+// Token id of the neighbour of (f, y, x) through window slot j, or -1 where
+// it lies outside the grid or at or past t. Slot j enumerates (a, b, c)
+// row-major; the offset on an axis of kernel k and dilation d is
+// (a - (k-1))*d when causal and (a - (k-1)/2)*d when centered.
+__device__ __forceinline__ int neighbour(const Geometry& g, int f, int y, int x, int j) {
+  const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
+  const int cf = g.causal ? g.kf - 1 : (g.kf - 1) / 2;
+  const int ch = g.causal ? g.kh - 1 : (g.kh - 1) / 2;
+  const int cw = g.causal ? g.kw - 1 : (g.kw - 1) / 2;
+  const int nf = f + (a - cf) * g.df;
+  const int ny = y + (r / g.kw - ch) * g.dh;
+  const int nx = x + (r % g.kw - cw) * g.dw;
+  if (nf < 0 || ny < 0 || ny >= g.fh || nx < 0 || nx >= g.fw) return -1;
+  const int tok = (nf * g.fh + ny) * g.fw + nx;
+  return tok < g.t ? tok : -1;
+}
 
 // grid (t, b), block 32 * heads: warp w handles head w of one query token.
 template <typename T>
@@ -89,16 +111,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_fwd_kernel(
   for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) s_th[x] = th[x];
   const int hw = g.fh * g.fw;
   const int f = i / hw, y = (i % hw) / g.fw, xx = i % g.fw;
-  for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-    // window position j enumerates (a, b, c) row-major; causal offsets
-    // run -(K-1)*dil ... 0 on every axis, so only the lower bounds can fail
-    const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-    const int nf = f + (a - (g.kf - 1)) * g.df;
-    const int ny = y + (r / g.kw - (g.kh - 1)) * g.dh;
-    const int nx = xx + (r % g.kw - (g.kw - 1)) * g.dw;
-    const int tok = (nf * g.fh + ny) * g.fw + nx;
-    s_nb[j] = (nf >= 0 && ny >= 0 && nx >= 0 && tok < g.t) ? tok : -1;
-  }
+  for (int j = threadIdx.x; j < kn; j += blockDim.x) s_nb[j] = neighbour(g, f, y, xx, j);
   __syncthreads();
 
   const int h = warp;
@@ -225,14 +238,15 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, k, v, out
 // (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
-// bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32.
+// bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32; causal 1 for
+// causal windows, 0 for centered.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* kbos, const void* vbos, const float* th,
                         const float* bias, void* out, float* lse, int b,
                         int heads, int t, int d, int fh, int fw, int kf, int kh,
-                        int kw, int df, int dh, int dw, void* stream) {
-  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw};
+                        int kw, int df, int dh, int dw, int causal, void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, s);

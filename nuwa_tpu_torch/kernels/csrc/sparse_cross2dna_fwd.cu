@@ -136,10 +136,13 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_fwd_kernel(
 #pragma unroll
     for (int r = 0; r < kMaxR; ++r) {
       const int e = lane + 32 * r;
-      if (e < d) acc += qr[r] * to_f(kr[e]);
+      if (e < d) acc = fmaf(qr[r], to_f(kr[e]), acc);
     }
     acc = warp_sum(acc);
-    if (lane == 0) p[0] = acc;  // the null column is never masked
+    // the null column is never masked; the backward kernel recomputes this
+    // score with the same fmaf chain and shuffle order, so a row whose
+    // context is all masked gets P = exp(score - lse) = 1 exactly there
+    if (lane == 0) p[0] = acc;
   }
   for (int j = 0; j < kn; ++j) {
     const int tok = s_nb[j];  // uniform across the warp
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_fwd_kernel(
 #pragma unroll
       for (int r = 0; r < kMaxR; ++r) {
         const int e = lane + 32 * r;
-        if (e < d) acc += qr[r] * to_f(kr[e]);
+        if (e < d) acc = fmaf(qr[r], to_f(kr[e]), acc);
       }
       sc = warp_sum(acc);
     }

@@ -2,7 +2,8 @@
 and the autograd function that joins them.
 
 Three kernels, each replacing a TPU kernel of ``nuwa_tpu/kernels/nda_pallas.py``
-in causal mode without dropout:
+without dropout, in both of its modes: causal windows (the video decoder)
+and centered ones (the sketch encoder):
 
 * ``sparse_3dna_fwd`` (``csrc/sparse3dna_fwd.cu``): the forward, out and the
   per-row logsumexp; replaces ``_kernel`` (launched by ``_fwd_call``);
@@ -18,7 +19,10 @@ it runs its ``*_plain`` version, the same function written with gathers and
 ``index_add_`` (the ``_nda_attend`` math of ``nuwa_tpu/nda.py``). The plain
 versions use the copied neighbour table (``nuwa_tpu_torch.nda.build_nda_indices``);
 the kernels compute neighbours from coordinates, so comparing the two on the
-card checks one against the other. ``sparse_3dna`` is the differentiable op:
+card checks one against the other. Either way a neighbour at or past the
+sequence end t is masked: centered windows reach the phantom tokens of a
+ragged last frame, which the JAX package pads and masks the same way.
+``sparse_3dna`` is the differentiable op:
 a ``torch.autograd.Function`` whose forward is ``sparse_3dna_fwd`` and whose
 backward runs ``sparse_3dna_bwd_q`` and then ``sparse_3dna_bwd_kv``.
 
@@ -40,14 +44,15 @@ MAX_TOKENS_PER_FRAME = 256  # frames above this are the row-blocked family's
 
 
 @functools.lru_cache(maxsize=64)
-def _neighbour_table(t, fmap, kernel, dilation, device):
-    """(t, Kn) causal neighbour token ids and validity, phantom tokens
-    masked."""
+def _neighbour_table(t, fmap, kernel, dilation, causal, device):
+    """(t, Kn) neighbour token ids (causal or centered windows) and their
+    validity, phantom tokens masked."""
     from ..nda import build_nda_indices
 
     fh, fw = fmap
     frames = -(-t // (fh * fw))
-    idx, valid = build_nda_indices((frames, fh, fw), kernel, dilation, ("causal",) * 3)
+    mode = "causal" if causal else "centered"
+    idx, valid = build_nda_indices((frames, fh, fw), kernel, dilation, (mode,) * 3)
     idx, valid = idx[:t], valid[:t] & (idx[:t] < t)
     return (
         torch.as_tensor(idx, dtype=torch.long, device=device).clamp(max=t - 1),
@@ -56,18 +61,19 @@ def _neighbour_table(t, fmap, kernel, dilation, device):
 
 
 def valid_neighbours(t, fmap, kernel, dilation) -> int:
-    """How many (query, neighbour) pairs of a t-token sequence are valid."""
-    _, valid = _neighbour_table(t, tuple(fmap), tuple(kernel), tuple(dilation), "cpu")
+    """How many (query, causal neighbour) pairs of a t-token sequence are
+    valid."""
+    _, valid = _neighbour_table(t, tuple(fmap), tuple(kernel), tuple(dilation), True, "cpu")
     return int(valid.sum())
 
 
 def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                          *, fmap, kernel, dilation):
+                          *, fmap, kernel, dilation, causal=True):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
     results as ``sparse_3dna_fwd``."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), str(q.device)
+        t, tuple(fmap), tuple(kernel), tuple(dilation), causal, str(q.device)
     )
     qf = q.float()
     sim = torch.einsum("bhid,bhijd->bhij", qf, k.float()[:, :, idx])
@@ -93,12 +99,12 @@ def _gathered(x, idx, bos):
 
 
 def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                            *, fmap, kernel, dilation):
+                            *, fmap, kernel, dilation, causal=True):
     """Plain PyTorch version of the query-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_q``."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), str(q.device)
+        t, tuple(fmap), tuple(kernel), tuple(dilation), causal, str(q.device)
     )
     qf, gf, th = q.float(), grad.float(), talking_heads.float()
     keys, vals = _gathered(k, idx, k_bos), _gathered(v, idx, v_bos)
@@ -121,12 +127,12 @@ def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad
             dth, dbias)
 
 
-def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation):
+def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, causal=True):
     """Plain PyTorch version of the key-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_kv``."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), str(q.device)
+        t, tuple(fmap), tuple(kernel), tuple(dilation), causal, str(q.device)
     )
     kn = idx.shape[1]
     flat = idx.reshape(-1)
@@ -144,10 +150,12 @@ def _library(name):
     an int dtype, pointers, then ints (b, heads, t, d and the geometry), then
     the stream."""
     pointers, ints = {
-        "sparse3dna_fwd": (9, 12),
-        "sparse3dna_bwd_q": (16, 12),
-        "sparse3dna_bwd_kv": (6, 12),
+        "sparse3dna_fwd": (9, 13),
+        "sparse3dna_bwd_q": (16, 13),
+        "sparse3dna_bwd_kv": (6, 13),
         "sparse_cross2dna_fwd": (9, 8),
+        "sparse_cross2dna_bwd_q": (15, 8),
+        "sparse_cross2dna_bwd_kv": (6, 8),
     }[name]
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")
@@ -211,10 +219,18 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
+def _count(fn, causal):
+    """One launch of ``fn``'s kernel: its count, and its count of centered
+    launches."""
+    fn.launches += 1
+    fn.centered_launches += not causal
+
+
 def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                    *, fmap, kernel, dilation):
-    """Sparse3DNA attention of t video queries over their dilated causal
-    neighbourhoods plus bos.
+                    *, fmap, kernel, dilation, causal=True):
+    """Sparse3DNA attention of t video queries over their dilated
+    neighbourhoods (causal windows, or centered ones with ``causal=False``)
+    plus bos.
 
     q (pre-scaled by dim_head**-0.5), k, v: (b, h, t, d); k_bos, v_bos:
     (b, h, 1, d); talking_heads: (h, h); rel_bias: (h, kf*kh*kw) or None;
@@ -224,7 +240,7 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     if q.device.type == "cpu":
         return sparse_3dna_fwd_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias,
-            fmap=fmap, kernel=kernel, dilation=dilation,
+            fmap=fmap, kernel=kernel, dilation=dilation, causal=causal,
         )
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
@@ -241,13 +257,13 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     _launch("sparse3dna_fwd", q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), out.data_ptr(),
              lse.data_ptr()],
-            [b, h, t, d, *fmap, *kernel, *dilation], q.device)
-    sparse_3dna_fwd.launches += 1
+            [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
+    _count(sparse_3dna_fwd, causal)
     return out, lse
 
 
 def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                      *, fmap, kernel, dilation):
+                      *, fmap, kernel, dilation, causal=True):
     """Query side of the Sparse3DNA backward.
 
     Takes the forward's arguments, its output cotangent ``grad`` (b, h, t, d,
@@ -259,7 +275,7 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     if q.device.type == "cpu":
         return sparse_3dna_bwd_q_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-            fmap=fmap, kernel=kernel, dilation=dilation,
+            fmap=fmap, kernel=kernel, dilation=dilation, causal=causal,
         )
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
@@ -285,18 +301,18 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  dk_bos.data_ptr(), dv_bos.data_ptr(), dth.data_ptr(), _ptr(dbias)],
-                [b, h, t, d, *fmap, *kernel, *dilation], q.device)
-        sparse_3dna_bwd_q.launches += 1
+                [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
+        _count(sparse_3dna_bwd_q, causal)
     return dq, ds, mix, dk_bos.to(k_bos.dtype), dv_bos.to(v_bos.dtype), dth, dbias
 
 
-def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation):
+def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, causal=True):
     """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
     from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
     ``sparse_3dna_bwd_q`` returned."""
     if q.device.type == "cpu":
         return sparse_3dna_bwd_kv_plain(
-            q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation
+            q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation, causal=causal
         )
     b, h, t, d = q.shape
     slots = (b, h, t, kernel[0] * kernel[1] * kernel[2] + 1)
@@ -310,15 +326,15 @@ def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation):
     if t > 0:
         _launch("sparse3dna_bwd_kv", q.dtype,
                 [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation], q.device)
-        sparse_3dna_bwd_kv.launches += 1
+                [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
+        _count(sparse_3dna_bwd_kv, causal)
     return dk, dv
 
 
-# kernel launches since each count was last reset
-sparse_3dna_fwd.launches = 0
-sparse_3dna_bwd_q.launches = 0
-sparse_3dna_bwd_kv.launches = 0
+# kernel launches since each count was last reset, and how many of them ran
+# centered windows
+for _fn in (sparse_3dna_fwd, sparse_3dna_bwd_q, sparse_3dna_bwd_kv):
+    _fn.launches = _fn.centered_launches = 0
 
 
 class Sparse3DNAFunction(torch.autograd.Function):
@@ -349,7 +365,8 @@ class Sparse3DNAFunction(torch.autograd.Function):
 
 
 def sparse_3dna(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                *, fmap, kernel, dilation):
+                *, fmap, kernel, dilation, causal=True):
     """``sparse_3dna_fwd``'s output, differentiable in every tensor argument."""
-    geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation))
+    geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation),
+                    causal=bool(causal))
     return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry)

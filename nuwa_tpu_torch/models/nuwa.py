@@ -62,7 +62,7 @@ class NUWA(nn.Module):
             self.video_pos_emb = AxialPositionalEmbedding(dim, shape=video_shape)
             self.video_transformer = (ReversibleTransformer if dec_reversible else Transformer)(
                 dim=dim, depth=dec_depth, heads=dec_heads, dim_head=dec_dim_head,
-                cross_attend=True,
+                causal=True, cross_attend=True,
                 shift_video_tokens=shift_video_tokens,
                 sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape,
                 sparse_3dna_kernel_size=sparse_3dna_kernel_size,

@@ -1,19 +1,22 @@
 """NUWASketch — sketch frames to video, autoregressive over video tokens.
 
-Counterpart of ``nuwa_tpu/models/nuwa_sketch.py`` for serving: a sketch VAE
-tokenizes the sketch frames, a dense transformer encodes them, and the
-causal video decoder (Sparse3DNA self-attention, plain or reversible)
-attends them through SparseCross2DNA; the video VAE turns video pixels into
-tokens for scoring and sampled tokens into pixels. Frame-level sketch masks
+Counterpart of ``nuwa_tpu/models/nuwa_sketch.py`` for serving and training:
+a sketch VAE tokenizes the sketch frames, a transformer encodes them (dense
+attention, or with ``sketch_enc_use_sparse_3dna`` centered Sparse3DNA with
+the token shift on the sketch grid), and the causal video decoder
+(Sparse3DNA self-attention, plain or reversible) attends them through
+SparseCross2DNA; the video VAE turns video pixels into tokens for scoring
+and sampled tokens into pixels. Frame-level sketch masks
 become token masks, and condition dropout acts on the token mask the decoder
 sees (the JAX package's fix of the reference). Entry points: ``forward``
 (logits, or the loss), cached ``generate`` and sliding-window
-``generate_long``, with classifier-free guidance. The model lives on one
+``generate_long``, with classifier-free guidance. Training is ``forward``
+with ``return_loss=True, train=True`` and ``loss.backward()``, through the
+kernels' backward on the card, with the AdamW of ``train.get_optimizer``,
+as the JAX package trains it (no trainer class). The model lives on one
 device, ``cuda`` unless the caller names another.
 
-Not taken: ``method="full"``, the parallel meshes, and
-``sketch_enc_use_sparse_3dna`` (the centered Sparse3DNA in the sketch
-encoder, a mode of the Sparse3DNA kernel the port does not have yet).
+Not taken: ``method="full"``, the parallel meshes, and attention dropout.
 """
 from __future__ import annotations
 
@@ -48,10 +51,6 @@ class NUWASketch(nn.Module):
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
                  compute_dtype=None, device=None, seed=0):
         super().__init__()
-        if sketch_enc_use_sparse_3dna:
-            raise NotImplementedError(
-                "sketch_enc_use_sparse_3dna (the centered Sparse3DNA kernel) is not ported yet"
-            )
         device = resolve_device(device)
         fmap = image_size // 2**vae.num_layers
         if image_size // 2**sketch_vae.num_layers != fmap:
@@ -71,27 +70,31 @@ class NUWASketch(nn.Module):
         self.max_video_tokens = max_video_frames * self.tokens_per_frame
         self.dtype = getattr(torch, compute_dtype) if compute_dtype else None
         video_shape = (max_video_frames, fmap, fmap)
+        sparse_3dna = dict(
+            shift_video_tokens=shift_video_tokens,
+            sparse_3dna_kernel_size=sparse_3dna_kernel_size,
+            sparse_3dna_dilations=_dilations(sparse_3dna_dilation),
+        )
 
         with torch.device(device):
             self.sketch_embedding = Embedding(sketch_vae.codebook_size, dim, embed_gradient_frac)
             self.sketch_pos_emb = AxialPositionalEmbedding(
                 dim, shape=(sketch_max_video_frames, fmap, fmap))
+            # non-causal: centered Sparse3DNA over the sketch grid, or dense
             self.sketch_transformer = (ReversibleTransformer if enc_reversible else Transformer)(
                 dim=dim, depth=sketch_enc_depth, heads=sketch_enc_heads,
-                dim_head=sketch_enc_dim_head,
+                dim_head=sketch_enc_dim_head, sparse_3dna_attn=sketch_enc_use_sparse_3dna,
+                sparse_3dna_video_shape=(sketch_max_video_frames, fmap, fmap), **sparse_3dna,
             )
             self.video_bos = nn.Parameter(torch.empty(dim))
             self.image_embedding = Embedding(vae.codebook_size, dim, embed_gradient_frac)
             self.video_pos_emb = AxialPositionalEmbedding(dim, shape=video_shape)
             self.video_transformer = (ReversibleTransformer if dec_reversible else Transformer)(
                 dim=dim, depth=dec_depth, heads=dec_heads, dim_head=dec_dim_head,
-                cross_attend=True, cross_2dna_attn=True, cross_2dna_image_size=fmap,
-                cross_2dna_kernel_size=cross_2dna_kernel_size,
+                causal=True, cross_attend=True, cross_2dna_attn=True,
+                cross_2dna_image_size=fmap, cross_2dna_kernel_size=cross_2dna_kernel_size,
                 cross_2dna_dilations=_dilations(cross_2dna_dilation),
-                shift_video_tokens=shift_video_tokens,
-                sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape,
-                sparse_3dna_kernel_size=sparse_3dna_kernel_size,
-                sparse_3dna_dilations=_dilations(sparse_3dna_dilation),
+                sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape, **sparse_3dna,
             )
             self.to_logits = nn.Parameter(torch.empty(dim, vae.codebook_size))
         init_weights_(self, seed, skip=(self.vae, self.sketch_vae))
@@ -165,9 +168,7 @@ class NUWASketch(nn.Module):
         each token from the ones before it. ``train`` scales the embeddings'
         gradients and applies condition dropout to the sketch tokens' mask:
         each sample's sketch is masked out with ``cond_dropout_prob``, drawn
-        from ``generator``, or where ``uncond`` (b,) bool says so. On the
-        card the cross kernel has no backward yet: call it under
-        ``torch.no_grad()`` there."""
+        from ``generator``, or where ``uncond`` (b,) bool says so."""
         video = self._pixels(video)
         if video.shape[1] != self.max_video_frames:
             raise ValueError(f"video needs all {self.max_video_frames} frames")

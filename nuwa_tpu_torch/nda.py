@@ -1,19 +1,19 @@
 """Sparse3DNA — 3D nearby attention over a (frames, height, width) grid —
 and SparseCross2DNA, the video decoder's cross-attention to sketch frames.
 
-Counterpart of ``Sparse3DNA`` in ``nuwa_tpu/nda.py`` in causal mode, the
-video decoder's (the centered mode belongs to the sketch encoder's
-``sketch_enc_use_sparse_3dna``, which the port does not take yet). The
-attention itself is ``kernels.nda.sparse_3dna``, differentiable: the Hopper
-kernels (forward, query-side and key-side backward) on CUDA tensors, their
-plain gather versions on CPU tensors.
+Counterpart of ``Sparse3DNA`` in ``nuwa_tpu/nda.py`` in both of its modes:
+causal (the video decoder) and centered (the sketch encoder's
+``sketch_enc_use_sparse_3dna``). The attention itself is
+``kernels.nda.sparse_3dna``, differentiable: the Hopper kernels (forward,
+query-side and key-side backward) on CUDA tensors, their plain gather
+versions on CPU tensors.
 
 ``SparseCross2DNA`` is the counterpart of the JAX module of that name
 without its ``backend`` and ``use_pallas`` options: its video queries go
-through ``kernels.cross.sparse_cross_2dna_fwd`` (the Hopper kernel on CUDA
-tensors, its plain gather version on CPU tensors); the bos query's
-attention to the whole context stays plain PyTorch, as it is XLA outside
-the kernel in the JAX package.
+through ``kernels.cross.sparse_cross_2dna``, differentiable (the Hopper
+kernels on CUDA tensors, their plain gather versions on CPU tensors); the
+bos query's attention to the whole context stays plain PyTorch, as it is
+XLA outside the kernel in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from .core.layers import Dense, kaiming_uniform_, normal_
-from .kernels.cross import sparse_cross_2dna_fwd
+from .kernels.cross import sparse_cross_2dna
 from .kernels.nda import sparse_3dna
 from .ops.attention import merge_heads, split_heads
 from .ops.embeddings import AxialPositionalEmbedding
@@ -83,14 +83,19 @@ def build_nda_indices(
 
 
 class Sparse3DNA(nn.Module):
-    """Causal 3D nearby attention with bos out of band: every video query
-    also attends the bos key/value, and bos adopts its own value. Keys in a
-    ragged last frame past the sequence end are masked."""
+    """3D nearby attention with bos out of band: every video query attends
+    its causal (``causal=True``) or centered dilated window and the bos
+    key/value, and bos adopts its own value. Token 0 of the input is the
+    bos, whatever it holds (in the sketch encoder, the first sketch token).
+    Keys at or past the sequence end, which centered windows reach in a
+    ragged last frame, are masked. A token mask is not taken: every token is
+    attended, as in the JAX module."""
 
     def __init__(self, dim, video_shape, kernel_size=3, dilation=1, heads=8,
-                 dim_head=64, rel_pos_bias=False):
+                 dim_head=64, causal=False, rel_pos_bias=False):
         super().__init__()
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.causal = causal
         self.video_shape = tuple(video_shape)
         self.kernel = _cast_tuple(kernel_size, 3)
         if not all(n % 2 == 1 for n in self.kernel):
@@ -130,6 +135,7 @@ class Sparse3DNA(nn.Module):
         out = sparse_3dna(
             q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
             fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
+            causal=self.causal,
         )
         out = torch.cat([bos_v_out, out], dim=2)
         return self.to_out(merge_heads(out))
@@ -182,7 +188,7 @@ class SparseCross2DNA(nn.Module):
         out = torch.einsum("bhj,bhjd->bhd", attn_bos, v_full)[:, :, None]
 
         if x.shape[1] > 1:
-            out_nb, _ = sparse_cross_2dna_fwd(
+            out_nb = sparse_cross_2dna(
                 q[:, :, 1:], k, v, null_k, null_v, self.talking_heads, context_mask,
                 fmap=self.image_size, kernel_size=self.kernel_size, dilation=self.dilation,
             )

@@ -4,8 +4,9 @@ does it.
 
 Counterpart of ``nuwa_tpu/train/optimizer.py``. ``torch.optim`` applies the
 update (the JAX package leaves it to XLA; no kernel of its own is involved).
-The JAX package's frozen-subtree mask has nothing to mask here: the port
-has no embedded VAE yet.
+The JAX package's frozen-subtree mask is ``requires_grad`` here:
+``get_optimizer`` leaves out the parameters that do not require grad, such
+as NUWASketch's frozen VAEs.
 """
 from __future__ import annotations
 

@@ -45,7 +45,7 @@ class ShiftVideo(nn.Module):
         return self.inner(shift_tokens(x, self.image_size), **kw)
 
 
-def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
+def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_attend=False,
                       cross_2dna_attn=False, cross_2dna_image_size=None,
                       cross_2dna_kernel_size=3, cross_2dna_dilations=(1,),
                       sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
@@ -55,21 +55,24 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
     """(kind, Sandwich) entries in the order of the JAX package's menu: per
     depth a self block, a cross block when cross-attending (followed by its
     own "ff_cross" when ``include_cross_ff``, the reversible layout), and one
-    ff. The self block is causal Sparse3DNA (the video decoder) or
-    bidirectional dense attention (the text and sketch encoders); the cross
-    block is dense attention (to text) or SparseCross2DNA (to sketch frames,
-    dilation ``cross_2dna_dilations[depth % len]``)."""
+    ff. The self block is Sparse3DNA, causal (the video decoder) or centered
+    (the sketch encoder), or bidirectional dense attention (the text and
+    sketch encoders); the cross block is dense attention (to text) or
+    SparseCross2DNA (to sketch frames, dilation
+    ``cross_2dna_dilations[depth % len]``)."""
     if sparse_3dna_attn and sparse_3dna_video_shape is None:
         raise ValueError("sparse_3dna_attn needs sparse_3dna_video_shape")
     if cross_2dna_attn and cross_2dna_image_size is None:
         raise ValueError("cross_2dna_attn needs cross_2dna_image_size")
+    if causal and not sparse_3dna_attn:
+        raise NotImplementedError("causal dense self-attention is not ported")
     shift = sparse_3dna_attn and shift_video_tokens
     fmap = sparse_3dna_video_shape[-1] if shift else None
     entries = []
     for ind in range(depth):
         if sparse_3dna_attn:
             self_attn = Sparse3DNA(
-                dim=dim, heads=heads, dim_head=dim_head,
+                dim=dim, heads=heads, dim_head=dim_head, causal=causal,
                 kernel_size=sparse_3dna_kernel_size,
                 dilation=sparse_3dna_dilations[ind % len(sparse_3dna_dilations)],
                 video_shape=sparse_3dna_video_shape,
@@ -105,7 +108,7 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, cross_attend=False,
 class Transformer(nn.Module):
     include_cross_ff = False  # the reversible stack's layout adds ff_cross
 
-    def __init__(self, dim, depth, heads=8, dim_head=64, cross_attend=False,
+    def __init__(self, dim, depth, heads=8, dim_head=64, causal=False, cross_attend=False,
                  cross_2dna_attn=False, cross_2dna_image_size=None,
                  cross_2dna_kernel_size=3, cross_2dna_dilations=(1,),
                  sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
@@ -114,7 +117,8 @@ class Transformer(nn.Module):
         super().__init__()
         self.dim = dim
         self._assemble(_build_layer_menu(
-            dim, depth, heads=heads, dim_head=dim_head, cross_attend=cross_attend,
+            dim, depth, heads=heads, dim_head=dim_head, causal=causal,
+            cross_attend=cross_attend,
             cross_2dna_attn=cross_2dna_attn, cross_2dna_image_size=cross_2dna_image_size,
             cross_2dna_kernel_size=cross_2dna_kernel_size,
             cross_2dna_dilations=tuple(cross_2dna_dilations),

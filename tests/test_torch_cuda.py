@@ -183,17 +183,16 @@ def test_sparse_cross2dna_kernel_matches_plain(dtype, tol, frames, fmap, dilatio
 
 @pytest.mark.cuda
 def test_sparse_cross2dna_wrapper_refuses_what_the_kernel_does_not_take():
-    """No quiet fallback: gradients (the training slice's), fp16, a partial
-    context frame and a mask of another shape raise."""
+    """No quiet fallback: fp16, a partial context frame and a mask of another
+    shape raise; a tensor that requires grad launches the kernel (the
+    backward has kernels of its own) and never the plain version."""
     _needs_cuda()
     q, k, v, nk, nv, th = _cross_inputs(torch.float32, 1, 16, 2, 4)
     geo = dict(fmap=4, kernel_size=3, dilation=1)
-    with pytest.raises(NotImplementedError, match="training"):
-        kcross.sparse_cross_2dna_fwd(q.requires_grad_(), k, v, nk, nv, th, **geo)
+    before = kcross.sparse_cross_2dna_fwd.launches
+    kcross.sparse_cross_2dna_fwd(q.requires_grad_(), k, v, nk, nv, th, **geo)
+    assert kcross.sparse_cross_2dna_fwd.launches == before + 1
     q = q.detach()
-    with torch.no_grad():  # under no_grad a parameter that requires grad is fine
-        kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th.requires_grad_(), **geo)
-    th = th.detach()
     with pytest.raises(TypeError):
         kcross.sparse_cross_2dna_fwd(*(x.half() for x in (q, k, v, nk, nv)), th, **geo)
     with pytest.raises(ValueError):
@@ -201,3 +200,96 @@ def test_sparse_cross2dna_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th,
                                      torch.ones(1, 16, dtype=torch.bool, device="cuda"), **geo)
+
+
+def _rel_err(a, b):
+    return (a.float() - b.float()).abs().max().item() / max(1.0, b.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("frames,fmap,dilation", [(1, 4, 1), (2, 4, 2), (3, 5, 1), (2, 16, 2)])
+@pytest.mark.parametrize("t_frames", [2.0, 1.5, 0])
+def test_sparse_cross2dna_backward_kernels_match_plain(dtype, tol, frames, fmap, dilation,
+                                                       t_frames):
+    """The query-side and key-side cross backward against their plain
+    versions, 4 heads of 32, every form of context mask, each backward
+    given the lse of its own forward (as the autograd function gives it: a
+    row whose context is all masked then has P = 1 exactly on the null
+    column and dS = 0 there, where an lse from the other path's sums leaves
+    rounding of about 1e-5 in dq). Errors relative to each reference's max
+    abs: sums run in another order (over queries in atomics' order); ``tol``
+    holds the outputs in q's dtype, 1e-5 the fp32 ones (dS, mix, the null
+    and talking-heads cotangents)."""
+    _needs_cuda()
+    hw = fmap * fmap
+    t = max(int(t_frames * hw), 1)
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, t, frames, fmap)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(dtype)
+    geo = dict(fmap=fmap, kernel_size=3, dilation=dilation)
+    names = ("dq", "ds", "mix", "dnull_k", "dnull_v", "dth", "dk", "dv")
+    for mname, mask in _cross_masks(2, frames, fmap).items():
+        _, lse = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo)
+        _, ref_lse = kcross.sparse_cross_2dna_fwd_plain(q, k, v, nk, nv, th, mask, **geo)
+        got = kcross.sparse_cross_2dna_bwd_q(q, k, v, nk, nv, th, mask, g, lse, **geo)
+        want = kcross.sparse_cross_2dna_bwd_q_plain(q, k, v, nk, nv, th, mask, g, ref_lse,
+                                                    **geo)
+        got += kcross.sparse_cross_2dna_bwd_kv(q, g, *want[1:3], **geo)
+        want += kcross.sparse_cross_2dna_bwd_kv_plain(q, g, *want[1:3], **geo)
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            err = _rel_err(a, b)
+            assert err <= (tol if b.dtype == dtype else 1e-5), f"{name} {mname}: {err}"
+
+
+@pytest.mark.cuda
+def test_sparse_cross2dna_autograd_matches_autograd_of_plain():
+    """The autograd function (kernels forward and backward) against
+    torch.autograd of the plain forward, fp32, a padded context frame in
+    row 1: every input's gradient within 1e-5 of its max abs; each kernel
+    launched once."""
+    _needs_cuda()
+    args = [x.requires_grad_() for x in _cross_inputs(torch.float32, 2, 40, 2, 4)]
+    mask = _cross_masks(2, 2, 4)["padded"]
+    g = torch.randn(2, 4, 40, 32, generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda")
+    geo = dict(fmap=4, kernel_size=3, dilation=1)
+    out, _ = kcross.sparse_cross_2dna_fwd_plain(*args, mask, **geo)
+    want = torch.autograd.grad(out, args, g)
+    fns = (kcross.sparse_cross_2dna_fwd, kcross.sparse_cross_2dna_bwd_q,
+           kcross.sparse_cross_2dna_bwd_kv)
+    before = [fn.launches for fn in fns]
+    got = torch.autograd.grad(kcross.sparse_cross_2dna(*args, mask, **geo), args, g)
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [1, 1, 1]
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t", [48, 47, 37, 1])
+def test_sparse3dna_centered_kernels_match_plain(dtype, tol, t):
+    """Centered windows, 4 heads of 32, fmap 4, kernel (3, 5, 3), dilation
+    (2, 1, 2), rel-pos bias: the forward, query-side and key-side kernels
+    against their plain versions. t = 47 and 37 leave phantom tokens in the
+    last frame, which the centered windows reach. Tolerances as in the
+    causal test."""
+    _needs_cuda()
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t)
+    geo = dict(fmap=(4, 4), kernel=(3, 5, 3), dilation=(2, 1, 2), causal=False)
+    args = (q, k, v, kb, vb, th, rel)
+    got = knda.sparse_3dna_fwd(*args, **geo)
+    want = knda.sparse_3dna_fwd_plain(*args, **geo)
+    lse = want[1]
+    got += knda.sparse_3dna_bwd_q(*args, g, lse, **geo)
+    want += knda.sparse_3dna_bwd_q_plain(*args, g, lse, **geo)
+    got += knda.sparse_3dna_bwd_kv(q, g, *want[3:5], **geo)
+    want += knda.sparse_3dna_bwd_kv_plain(q, g, *want[3:5], **geo)
+    torch.cuda.synchronize()
+    names = ("out", "lse", "dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk", "dv")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = _rel_err(a, b)
+        assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"

@@ -66,7 +66,7 @@ def _pair(fmap, kernel, dilation, bias, frames=3, seed=0):
     p = jmod.init(jax.random.PRNGKey(seed))
     # a talking-heads matrix far from the identity couples the heads
     p["talking_heads"] = jnp.asarray([[0.3, 1.2], [-0.8, 0.5]], jnp.float32)
-    tmod = load_jax_params(Sparse3DNA(**kw), jax.tree.map(np.asarray, p))
+    tmod = load_jax_params(Sparse3DNA(causal=True, **kw), jax.tree.map(np.asarray, p))
     return jmod, p, tmod
 
 

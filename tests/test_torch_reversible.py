@@ -48,7 +48,7 @@ STACK = dict(dim=16, depth=2, heads=2, dim_head=8, cross_attend=True,
 def stack():
     jmod = JReversibleTransformer(causal=True, **STACK)
     params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(0)))
-    tmod = load_jax_params(ReversibleTransformer(**STACK), params)
+    tmod = load_jax_params(ReversibleTransformer(causal=True, **STACK), params)
     n = 1 + 31  # bos and a ragged second frame
     x, ctx, w = _rnd(2, n, 16, seed=1), _rnd(2, 5, 16, seed=2), _rnd(2, n, 16, seed=3)
     cmask = np.array([[1, 1, 1, 0, 0], [0, 0, 0, 0, 0]], bool)  # row 1: uncond

@@ -24,7 +24,8 @@ import torch
 from nuwa_tpu.models import NUWASketch as JNUWASketch
 from nuwa_tpu.vqgan_vae import VQGanVAE as JVQGanVAE
 from nuwa_tpu_torch import NUWASketch, VQGanVAE
-from nuwa_tpu_torch.convert import flatten_params, load_jax_params
+from nuwa_tpu_torch.convert import _tensors, flatten_params, load_jax_params
+from nuwa_tpu_torch.core.layers import Conv2d
 
 torch.set_num_threads(1)
 VAE = dict(dim=8, image_size=8, num_layers=1, vq_codebook_size=16, vq_codebook_dim=8,
@@ -155,10 +156,47 @@ def test_generate_long_ids_match_jax(pair):
     check_generate_long_ids_match_jax(pair)
 
 
+def jax_params(jmodel, tmodel):
+    """The port's weights as the JAX model's params tree, whose shape
+    ``jax.eval_shape`` gives without compiling the JAX init."""
+    jvae, jsvae = jmodel.vae, jmodel.sketch_vae
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        key, vae_params=jvae.init(key), vae_state=jvae.init_state(key),
+        sketch_vae_params=jsvae.init(key), sketch_vae_state=jsvae.init_state(key)))
+    tensors = _tensors(tmodel)
+
+    def leaf(path, shape):
+        name = ".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+        tensor, owner, attr = tensors[name]
+        value = tensor.detach().numpy()
+        if isinstance(owner, Conv2d) and attr == "w":
+            value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        assert value.shape == shape.shape, name
+        return value.astype(shape.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@torch.no_grad()
 def test_unported_options_raise():
-    vae = VQGanVAE(**VAE, device="cpu")
-    with pytest.raises(NotImplementedError):
-        NUWASketch(vae=vae, sketch_vae=vae, **CFG, sketch_enc_use_sparse_3dna=True,
-                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        _port(CFG).generate(SKETCH, method="full")
+    """``sketch_enc_use_sparse_3dna``, the centered Sparse3DNA encoder
+    (depth 2, dilations 1 and 2, token shift on the sketch grid), gives
+    JAX's sketch embeddings and forward logits (atol 1e-4), its params tree
+    loading every leaf once. ``method="full"`` raises."""
+    cfg = dict(CFG, sketch_enc_use_sparse_3dna=True, sketch_enc_depth=2)
+    jmodel = JNUWASketch(vae=JVQGanVAE(**VAE), sketch_vae=JVQGanVAE(**VAE, channels=5), **cfg)
+    tmodel = _port(cfg)
+    params = jax_params(jmodel, tmodel)
+    load_jax_params(tmodel, params)
+    check_convert_uses_every_leaf_once((jmodel, params, tmodel))
+    run = jax.jit(lambda p, s, v, m: (jmodel.embed_sketch(p, s, m)[0],
+                                      jmodel.forward(p, sketch=s, video=v, sketch_mask=m)))
+    want_embeds, want = run(params, SKETCH, VIDEO, SKETCH_MASK)
+    np.testing.assert_allclose(tmodel.embed_sketch(SKETCH, SKETCH_MASK)[0].numpy(),
+                               np.asarray(want_embeds), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(tmodel(SKETCH, VIDEO, sketch_mask=SKETCH_MASK).numpy(),
+                               np.asarray(want), atol=1e-4, rtol=0)
+    for call in (tmodel.generate, tmodel.generate_long):
+        with pytest.raises(NotImplementedError):
+            call(SKETCH, method="full", num_frames=3)
