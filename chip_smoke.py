@@ -51,7 +51,23 @@ Phases, each of which exits non-zero on failure:
    (centered ones apart), step ms, video tokens/s, peak memory and the
    device's busy share; then model (b)'s loss and every gradient in fp32 on
    the GPU against the CPU;
-8. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+8. NUWA at 128 px: BASELINE.json config 3 at full width (dim 512, a
+   reversible decoder of depth 6, 8 heads of 64, kernel (5, 3, 3),
+   dilations (1, 2, 4), rel-pos bias, token shift, bf16, 10 frames) with
+   config 1's codec on 128-pixel frames (fmap 32, 1,024 tokens a frame,
+   past the 256 at which the JAX package turns to its row-blocked kernels),
+   captions through the port's tokenizer and seeded moving-square videos:
+   the three Sparse3DNA kernels against their plain versions at the fmap-32
+   training shape and at fmap 12, 20, 24 and 32 x 9; every backward output
+   (Sparse3DNA and cross) equal bit for bit across two calls; the kernels'
+   times at the fmap-32 training shape; forward (b = 2, scored from pixels
+   through the codec) and generate (b = 1, one frame, to pixels) with their
+   launch counts and tokens/s; the codec's ids, the logits and greedy ids
+   in fp32 on the GPU against the CPU; NUWATrainer for 4 steps with the
+   tokenizer, its step-0 sample written as a PNG and read back, the exact
+   launches a step, step ms, tokens/s, peak memory and busy share; the fp32
+   loss and every gradient on the GPU against the CPU, none for the codec;
+9. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, median after warm-up), and the device's busy share of a
    generate of each model.
 
@@ -62,9 +78,11 @@ import itertools
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -273,21 +291,32 @@ def check_bwd(knda):
     versions, in causal and in centered mode: HW 64 and 256, kernel 3 and
     (5, 3, 3), dilations 1, 2 and 4, rel-pos bias on and off, full frames, a
     ragged last frame (whose phantom token the centered windows reach) and
-    t = 1, b 1 and 2. Errors are normalised by each reference's max abs (at least
-    1): the backward's outputs span two orders of magnitude (dS near 0, the
-    sums over all queries in the hundreds), its sums over queries run in
-    atomics' order, and in bf16 dq, dk and dv round to 8 bits of mantissa,
-    a relative step of 2**-8 of the value: those are held to bf16's
-    tolerance, every fp32 output (lse, dS, mix, dth, the bias cotangent) to
-    fp32's in both runs. Returns the largest absolute error of each
-    kernel."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    worst_rel, worst_abs, cases = {}, {}, 0
+    t = 1, b 1 and 2. Returns the largest absolute error of each kernel."""
+    cases = []
     for causal, dtype, (fmap, frames), kernel, dil, bias, t_off, b in itertools.product(
             (True, False), (torch.float32, torch.bfloat16), BWD_GRIDS,
             ((3, 3, 3), (5, 3, 3)), (1, 2, 4), (False, True), (0, 1, None), (1, 2)):
         full = frames * fmap[0] * fmap[1]
         t = 1 if t_off is None else full - t_off
+        cases.append((causal, dtype, fmap, t, kernel, dil, bias, b))
+    return check_nda_cases(knda, cases, SEED + 5)
+
+
+def check_nda_cases(knda, cases, seed):
+    """Each case (causal, dtype, fmap, t, kernel, dilation, bias, b): the
+    forward, query-side and key-side kernels against their plain versions.
+    Errors are normalised by each reference's max abs (at least 1): the
+    backward's outputs span orders of magnitude (dS near 0, the sums over
+    all queries in the hundreds or thousands), its sums over queries run in
+    another order than the plain version's, and in bf16 dq, dk and dv round
+    to 8 bits of mantissa, a relative step of 2**-8 of the value: those are
+    held to bf16's tolerance, every fp32 output (lse, dS, mix, dth, the bias
+    cotangent) to fp32's in both runs. Returns the largest absolute error of
+    each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst_rel, worst_abs, count = {}, {}, {}
+    for causal, dtype, fmap, t, kernel, dil, bias, b in cases:
+        count[causal, dtype] = count.get((causal, dtype), 0) + 1
         args, g = nda_inputs(b, t, dtype, bias, gen, kernel)
         kw = dict(fmap=fmap, kernel=kernel, dilation=(dil,) * 3,
                   causal=causal)
@@ -319,9 +348,9 @@ def check_bwd(knda):
             key = (causal, kname, dtype, name in ROUNDED)
             worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
             worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
-        cases += 1
+        del args, g, out, lse, ref, ref_lse, got, want, pairs
     print("backward checks: errors over each reference's max abs (at least 1), since "
-          "the outputs span orders of magnitude, sums over queries run in atomics' "
+          "the outputs span orders of magnitude, sums over queries run in another "
           "order, and bf16 outputs round to 2**-8 of the value", flush=True)
     for (causal, kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
         tol = TOL[dtype if rounded else torch.float32]
@@ -329,7 +358,7 @@ def check_bwd(knda):
         mode = "causal" if causal else "centered"
         print(f"sparse_3dna_{kname} vs plain, {mode}, {dtype} inputs, {which}: max error "
               f"{rel:.3e} of the reference's max abs (tolerance {tol:.0e}, "
-              f"{cases // 4} cases)", flush=True)
+              f"{count[causal, dtype]} cases)", flush=True)
     return worst_abs
 
 
@@ -356,19 +385,19 @@ def check_autograd(knda):
           f"b=2 t={t}: max error {worst:.3e} of the max abs (tolerance 1e-5)", flush=True)
 
 
-def time_train_kernels(knda):
+def time_train_kernels(knda, fmap=TRAIN_FMAP, t=TRAIN_T, plain_iters=5):
     """Each kernel at the training shape: b = 2, t = 2559 (10 frames of 256
-    tokens, shifted by one), 8 heads of 64, kernel (5, 3, 3), rel-pos bias,
-    bf16, at each dilation of the stack."""
+    tokens, shifted by one; or the given fmap and t), 8 heads of 64, kernel
+    (5, 3, 3), rel-pos bias, bf16, at each dilation of the stack."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
-    b, t, dtype = TRAIN_BATCH, TRAIN_T, torch.bfloat16
+    b, dtype = TRAIN_BATCH, torch.bfloat16
     rows = []
     for dil in (1, 2, 4):
         args, g = nda_inputs(b, t, dtype, True, gen, TRAIN_KERNEL)
-        kw = dict(fmap=TRAIN_FMAP, kernel=TRAIN_KERNEL, dilation=(dil,) * 3)
+        kw = dict(fmap=fmap, kernel=TRAIN_KERNEL, dilation=(dil,) * 3)
         _, lse = knda.sparse_3dna_fwd(*args, **kw)
         _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
-        bounds = nda_bounds(knda, b, t, dil, dtype, True, TRAIN_FMAP, TRAIN_KERNEL)
+        bounds = nda_bounds(knda, b, t, dil, dtype, True, fmap, TRAIN_KERNEL)
         for name, kernel, plain in (
             ("fwd", lambda: knda.sparse_3dna_fwd(*args, **kw),
              lambda: knda.sparse_3dna_fwd_plain(*args, **kw)),
@@ -377,11 +406,11 @@ def time_train_kernels(knda):
             ("bwd_kv", lambda: knda.sparse_3dna_bwd_kv(args[0], g, ds, mix, **kw),
              lambda: knda.sparse_3dna_bwd_kv_plain(args[0], g, ds, mix, **kw)),
         ):
-            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
+            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=plain_iters)
             bound, by = bounds[name]
             rows.append(dict(name=name, dilation=dil, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by))
-            print(f"sparse_3dna_{name} bf16 b={b} t={t} kernel {TRAIN_KERNEL} "
+            print(f"sparse_3dna_{name} bf16 b={b} t={t} fmap {fmap} kernel {TRAIN_KERNEL} "
                   f"dilation={dil}: kernel {ms:.4f} ms (device), plain {plain_ms:.4f} ms, "
                   f"bound {bound:.5f} ms ({by}), kernel / bound {ms / bound:.1f}x",
                   flush=True)
@@ -576,11 +605,12 @@ def kernel_events(prof):
 
 def train_device_share(trainer):
     """Device busy share of one train step: kernel time from torch.profiler
-    over the wall time of the same step unprofiled."""
+    (device activity only: tracing the host's ops as well costs minutes on
+    the longest requests) over the wall time of the same step unprofiled."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = cuda_ms(trainer.train_step, iters=1, reps=1, warmup=0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_step()
         torch.cuda.synchronize()
     kernels = kernel_events(prof)
@@ -685,7 +715,7 @@ def throughput(model, texts):
         (f"generate_long b=1 ({nf} frames)", 1, 2 * n,
          lambda: model.generate_long(texts[1], num_frames=nf, generator=gen)),
     ):
-        ms = cuda_ms(call, iters=1, reps=3, warmup=1)
+        ms = cuda_ms(call, iters=1, reps=3, warmup=0)  # serve() ran each once
         rates[name] = tokens / (ms / 1e3)
         print(f"{name}: {ms:.1f} ms per request, {rates[name]:.1f} tokens/s", flush=True)
     return rates
@@ -699,14 +729,14 @@ def device_share(model, texts):
 
 
 def share(call, name, wall=None):
-    """Device busy share of one request: kernel time from torch.profiler over
-    the wall time of the same request unprofiled (``wall``, measured here
-    unless given)."""
+    """Device busy share of one request: kernel time from torch.profiler
+    (device activity only) over the wall time of the same request
+    unprofiled (``wall``, measured here unless given)."""
     from torch.profiler import ProfilerActivity, profile
 
     if wall is None:
         wall = cuda_ms(call, iters=1, reps=3, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call()
         torch.cuda.synchronize()
     kernels = kernel_events(prof)
@@ -1319,10 +1349,356 @@ def sketch_train_against_cpu(NUWASketch, VQGanVAE):
         fail("sketch training gradients differ between GPU and CPU")
 
 
+# ---------------------------------------------------------------------------
+# NUWA at 128 px: the row-blocked frames (HW > 256), deterministic backward
+# sums, and the model from captions and pixels
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 3 ("NUWA sparse-3DNA: 128px, 10 frames, kernel (5,3,3),
+# dilation (1,2,4), shift_video_tokens, reversible decoder") at full width,
+# with config 1's codec (2 layers: fmap 32, 1,024 tokens a frame) on 128-px
+# frames and the text encoder of FULL
+NUWA128_VAE = dict(dim=64, image_size=128, num_layers=2, vq_codebook_size=512)
+NUWA128 = dict(
+    dim=512, max_video_frames=10, text_num_tokens=49408, text_max_seq_len=32,
+    text_enc_depth=2, text_enc_heads=8, text_enc_dim_head=64, dec_depth=6, dec_heads=8,
+    dec_dim_head=64, dec_reversible=True, sparse_3dna_kernel_size=(5, 3, 3),
+    sparse_3dna_dilation=(1, 2, 4), sparse_3dna_rel_pos_bias=True, shift_video_tokens=True,
+)
+FMAP128 = NUWA128_VAE["image_size"] // 2 ** NUWA128_VAE["num_layers"]
+T128 = NUWA128["max_video_frames"] * FMAP128**2 - 1  # training's video queries: 10,239
+NUWA128_BATCH, NUWA128_STEPS = 2, 4
+SIZE128, VOCAB128 = NUWA128_VAE["image_size"], NUWA128_VAE["vq_codebook_size"]
+CAPTIONS = (
+    "a red square slides to the right across a dark field",
+    "a small blue square drifts down and to the left",
+    "a green square bounces along the bottom edge",
+    "a white square moves slowly up the frame",
+)
+NUWA128_RESULTS = "smoke_results/nuwa128"  # the trainer's PNG samples (gitignored)
+
+
+def check_rb(knda):
+    """The three Sparse3DNA kernels past HW 256, the frames the JAX package
+    gives its row-blocked kernels (or dense XLA): the fmap-32 training
+    shape (b = 2, t = 10,239, kernel (5, 3, 3), dilations 1, 2 and 4, with
+    and without the bias, causal and centered; t = F * HW - 1 leaves a
+    phantom token that centered windows reach), and fmap 12, 20, 24 and
+    (32, 9) (3 frames, whole and with a ragged last frame of half its rows),
+    fp32 and bf16. Returns the largest absolute error of each kernel."""
+    cases = []
+    for causal, dtype, dil, bias in itertools.product(
+            (True, False), (torch.float32, torch.bfloat16), (1, 2, 4), (False, True)):
+        cases.append((causal, dtype, (FMAP128, FMAP128), T128, TRAIN_KERNEL, dil, bias, 2))
+    for causal, dtype, fmap, dil, ragged in itertools.product(
+            (True, False), (torch.float32, torch.bfloat16),
+            ((12, 12), (20, 20), (24, 24), (32, 9)), (1, 2), (False, True)):
+        t = 3 * fmap[0] * fmap[1] - (fmap[0] // 2 * fmap[1] if ragged else 0)
+        cases.append((causal, dtype, fmap, t, TRAIN_KERNEL, dil, True, 2))
+    return check_nda_cases(knda, cases, SEED + 30)
+
+
+def check_determinism(knda, kcross):
+    """Every output of the two backward kernels of Sparse3DNA (at the fmap-32
+    training shape, dilation 2, with the bias, causal and centered) and of
+    the cross (the sketch training shape, two context frames, the second
+    masked in row 1) equal bit for bit across two calls on the same inputs,
+    fp32 and bf16: the sums over queries are summed per block and then in
+    one fixed order."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            args, g = nda_inputs(2, T128, dtype, True, gen, TRAIN_KERNEL)
+            kw = dict(fmap=(FMAP128, FMAP128), kernel=TRAIN_KERNEL, dilation=(2, 2, 2),
+                      causal=causal)
+            _, lse = knda.sparse_3dna_fwd(*args, **kw)
+            runs = []
+            for _ in range(2):
+                got = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
+                runs.append(got + knda.sparse_3dna_bwd_kv(args[0], g, *got[1:3], **kw))
+            torch.cuda.synchronize()
+            for name, a, b in zip(BWD_NAMES, *runs):
+                if not torch.equal(a, b):
+                    fail(f"sparse_3dna backward {name} ({dtype}, causal={causal}) differs "
+                         f"between two calls on the same inputs")
+                checked += 1
+        args = cross_inputs(2, SKETCH_TRAIN_T, 2, SKETCH_FMAP, dtype, gen)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+        mask = cross_masks(2, 2, SKETCH_FMAP)["one frame masked"]
+        kw = dict(fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+        _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **kw)
+        runs = []
+        for _ in range(2):
+            got = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw)
+            runs.append(got + kcross.sparse_cross_2dna_bwd_kv(args[0], g, *got[1:3], **kw))
+        torch.cuda.synchronize()
+        for name, a, b in zip(CROSS_BWD_NAMES, *runs):
+            if not torch.equal(a, b):
+                fail(f"sparse_cross_2dna backward {name} ({dtype}) differs between two "
+                     f"calls on the same inputs")
+            checked += 1
+    print(f"determinism: {checked} backward outputs (Sparse3DNA b=2 t={T128} fmap "
+          f"{FMAP128} causal and centered, the cross b=2 t={SKETCH_TRAIN_T} Lc=512; fp32 and "
+          f"bf16) equal bit for bit across two calls", flush=True)
+
+
+def moving_squares(b, frames, size, rng):
+    """(b, frames, 3, size, size) float32 pixels in [0, 1]: on a dark noisy
+    field, a square of a random colour and side moving at a random speed."""
+    video = rng.uniform(0.0, 0.1, (b, frames, 3, size, size)).astype(np.float32)
+    for i in range(b):
+        side = int(rng.integers(size // 8, size // 3))
+        y, x = rng.integers(0, size - side, 2)
+        vy, vx = rng.integers(-size // 16, size // 16 + 1, 2)
+        colour = rng.uniform(0.4, 1.0, 3).astype(np.float32)
+        for f in range(frames):
+            top = int(np.clip(y + vy * f, 0, size - side))
+            left = int(np.clip(x + vx * f, 0, size - side))
+            video[i, f, :, top:top + side, left:left + side] = colour[:, None, None]
+    return video
+
+
+def nuwa128_model(NUWA, VQGanVAE, device="cuda", dtype="bfloat16", seed=SEED, **kw):
+    vae = VQGanVAE(**NUWA128_VAE, device=device, seed=seed + 40)
+    return NUWA(vae=vae, **dict(NUWA128, **kw), compute_dtype=dtype, device=device, seed=seed)
+
+
+def nuwa128_text(tokenizer, b):
+    """The first b captions, tokenized by the port's tokenizer."""
+    return torch.from_numpy(tokenizer.tokenize(list(CAPTIONS[:b]), NUWA128["text_max_seq_len"],
+                                               truncate_text=True))
+
+
+def serve_128(NUWA, VQGanVAE, tokenizer, knda):
+    """Serving at 128 px, bf16, each request with the counts set to 0 just
+    before it and read just after: forward scores b = 2 pixel videos of 10
+    frames through the codec (B1 once a decoder layer); generate decodes one
+    frame at b = 1 with CFG 2.0 to pixels, 1,024 cached token steps, no
+    kernel. Each request runs three times, the first checked, and its
+    tokens/s is the median of the three."""
+    model = nuwa128_model(NUWA, VQGanVAE)
+    text = nuwa128_text(tokenizer, 2)
+    video = torch.from_numpy(moving_squares(2, NUWA128["max_video_frames"], SIZE128,
+                                            np.random.default_rng(SEED + 41)))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    depth, tpf = NUWA128["dec_depth"], FMAP128**2
+    n = NUWA128["max_video_frames"] * tpf
+    requests = {
+        "forward b=2, 10 frames of pixels": (
+            torch.no_grad()(lambda: model(text, video)), (2, n + 1, VOCAB128), depth, 2 * n),
+        "generate b=1, 1 frame, pixels": (
+            lambda: model.generate(text[:1], generator=g, num_frames=1),
+            (1, 1, 3, SIZE128, SIZE128), 0, tpf),
+    }
+    launches, rates = 0, {}
+    for name, (call, shape, expect, tokens) in requests.items():
+        times = []
+        for rep in range(3):  # the first is checked, all three timed
+            if rep == 0:
+                reset_launches(knda)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = call()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            if rep > 0:
+                continue
+            got = launch_counts(knda)
+            if tuple(out.shape) != shape or not torch.isfinite(out).all():
+                fail(f"128 px {name}: {tuple(out.shape)} not finite or not {shape}")
+            if got != expect_launches(fwd=expect):
+                fail(f"128 px {name}: launches {got}, expected sparse_3dna_fwd {expect}")
+            launches += got["fwd"]
+            print(f"128 px {name}: {tuple(out.shape)} finite, sparse_3dna_fwd launches "
+                  f"{got['fwd']} (as expected)", flush=True)
+        ms = statistics.median(times)
+        rates[name] = tokens / (ms / 1e3)
+        print(f"128 px {name}: {ms:.1f} ms per request, {rates[name]:.1f} tokens/s "
+              f"(median of 3: {', '.join(f'{x:.1f}' for x in times)} ms)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+def nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer):
+    """Same weights in fp32 at b = 1 and 2 frames: the GPU path (kernels)
+    against the CPU plain path: the codec's token ids equal, the forward
+    logits within LOGITS_ATOL, the greedy ids of a one-frame generate equal
+    (or first apart at a tie of the CPU's top-2 logits)."""
+    text = nuwa128_text(tokenizer, 1)
+    video = torch.from_numpy(moving_squares(1, 2, SIZE128, np.random.default_rng(SEED + 43)))
+    thres = 1 - 0.5 / VOCAB128  # top-k keeps k = 1: greedy
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 44,
+                              max_video_frames=2)
+        start = time.perf_counter()
+        with torch.no_grad():
+            ids = model.vae.get_video_indices(video).cpu()
+            logits = model(text, video).cpu()
+        greedy = model.generate(text, num_frames=1, filter_thres=thres, decode_video=False)
+        out[device] = (ids, logits, greedy.cpu())
+        print(f"fp32 128 px encode, forward and greedy generate on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    (ids_gpu, lg_gpu, gr_gpu), (ids_cpu, lg_cpu, gr_cpu) = out["cuda"], out["cpu"]
+    same = int((ids_gpu == ids_cpu).sum())
+    print(f"fp32 128 px token ids (VAE encode) GPU vs CPU: {same} of {ids_cpu.numel()} equal",
+          flush=True)
+    if same != ids_cpu.numel():
+        fail("128 px token ids differ between GPU and CPU")
+    err = (lg_gpu - lg_cpu).abs().max().item()
+    print(f"128 px forward fp32 logits GPU vs CPU: max abs err {err:.3e} "
+          f"(tolerance {LOGITS_ATOL:.0e})", flush=True)
+    if not err <= LOGITS_ATOL:
+        fail("128 px forward logits differ between GPU and CPU")
+    diff = (gr_gpu != gr_cpu).nonzero()
+    if len(diff) == 0:
+        print(f"greedy 128 px generate fp32 ids GPU vs CPU: all {gr_cpu.numel()} equal",
+              flush=True)
+        return
+    p = diff[0, 1].item()
+    gap = cpu_top2_gap(model, text, gr_cpu, p, 2.0)
+    print(f"greedy 128 px generate ids differ first at position {p}; CPU top-2 logit gap "
+          f"there {gap:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
+    if not gap < TIE_GAP:
+        fail("greedy 128 px generate ids differ between GPU and CPU")
+
+
+def read_png(path):
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG of one IDAT run and no
+    scanline filter (what the port writes), every chunk's CRC checked."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + size]
+        (crc,) = struct.unpack(">I", data[pos + 8 + size:pos + 12 + size])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            fail(f"{path}: bad CRC in {kind}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + size
+    width, height, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, colour) != (8, 2) or b"IEND" not in chunks:
+        fail(f"{path}: not an 8-bit RGB PNG")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(height, -1)
+    if rows[:, 0].any():
+        fail(f"{path}: a scanline filter other than none")
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda):
+    """NUWATrainer at 128 px, bf16: NUWA128_STEPS AdamW steps at batch 2 on
+    one seeded batch of captions and pixel videos, the counts set to 0
+    before each step and read after it (the reversible decoder: B1 12, B2 6,
+    B3 6 a step; the codec and the sample at step 0 none). The step-0 sample
+    (one frame) is written as a PNG, which must decode to the logged frame
+    inside the grid's 2-pixel border."""
+    depth = NUWA128["dec_depth"]
+    expect = expect_launches(fwd=2 * depth, bwd_q=depth, bwd_kv=depth)
+    model = nuwa128_model(NUWA, VQGanVAE)
+    text = nuwa128_text(tokenizer, NUWA128_BATCH).numpy()
+    video = moving_squares(NUWA128_BATCH, NUWA128["max_video_frames"], SIZE128,
+                           np.random.default_rng(SEED + 45))
+    trainer = NUWATrainer(
+        nuwa=model, dataset=list(zip(text, video)), num_train_steps=NUWA128_STEPS, lr=3e-4,
+        wd=0.01, batch_size=NUWA128_BATCH, grad_accum_every=1, max_grad_norm=0.5,
+        cond_dropout_prob=0.2, save_results_every=1000, num_sampled_frames=1, seed=SEED,
+        results_folder=NUWA128_RESULTS, tokenizer=tokenizer,
+    )
+    if any(p.requires_grad for p in model.vae.parameters()) or any(
+            p is q for p in trainer.params for q in model.vae.parameters()):
+        fail("the codec's parameters are trained")
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, total = [], [], {k: 0 for k in expect}
+    for step in range(NUWA128_STEPS):
+        reset_launches(knda)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs = trainer.train_step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(logs["loss"])
+        got = launch_counts(knda)
+        if got != expect:
+            fail(f"128 px train step {step}: launches {got}, expected {expect}")
+        total = {k: total[k] + got[k] for k in total}
+        if step == 0:
+            sample, side = logs.get("sampled_video"), SIZE128
+            if sample is None or sample.shape != (1, 3, side, side):
+                fail(f"128 px train step 0 logged no (1, 3, {side}, {side}) sample")
+            png = read_png(f"{NUWA128_RESULTS}/0.png")
+            want = (np.clip(sample[0], 0.0, 1.0) * 255).astype(np.uint8).transpose(1, 2, 0)
+            if png.shape != (side + 4, side + 4, 3) or not np.array_equal(
+                    png[2:side + 2, 2:side + 2], want):
+                fail(f"128 px sample PNG {png.shape} does not hold the sampled frame")
+            print(f"128 px train step 0: sampled '{logs['sampled_text']}' to "
+                  f"{NUWA128_RESULTS}/0.png, a {png.shape[0]} x {png.shape[1]} x 3 PNG that "
+                  f"decodes to the {side} x {side} x 3 frame in a 2-pixel border", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(math.isfinite, losses)):
+        fail(f"128 px train losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"128 px train loss did not fall: {losses}")
+    ms = statistics.median(times[1:])  # step 0 also samples 1,024 tokens
+    tokens = NUWA128_BATCH * NUWA128["max_video_frames"] * FMAP128**2
+    shown = {k: v for k, v in expect.items() if v}
+    print(f"128 px train: losses {', '.join(f'{x:.4f}' for x in losses)} (finite, falling); "
+          f"launches per step {shown} (as expected, every step)", flush=True)
+    print(f"128 px train step (b={NUWA128_BATCH}, {tokens} video tokens): {ms:.1f} ms median "
+          f"of steps 1-{NUWA128_STEPS - 1} (step 0 with its sample: {times[0]:.1f} ms), "
+          f"{tokens / (ms / 1e3):.0f} video tokens/s, peak memory {peak:.2f} GiB", flush=True)
+    train_device_share(trainer)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return total
+
+
+def train_128_against_cpu(NUWA, VQGanVAE, tokenizer):
+    """The fp32 loss and every gradient at 2 frames and b = 1 (condition
+    dropout off), the GPU path (kernels) against the CPU plain path; the
+    codec's parameters have none."""
+    text = nuwa128_text(tokenizer, 1)
+    video = torch.from_numpy(moving_squares(1, 2, SIZE128, np.random.default_rng(SEED + 46)))
+    grads = []
+    for device in ("cuda", "cpu"):
+        model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 47,
+                              max_video_frames=2)
+        start = time.perf_counter()
+        loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False]))
+        loss.backward()
+        if any(p.grad is not None for p in model.vae.parameters()):
+            fail(f"a codec parameter has a gradient on {device}")
+        grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                    if p.requires_grad}))
+        print(f"fp32 128 px train forward and backward on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
+    worst, where = 0.0, None
+    for name, ref in g_cpu.items():
+        rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    print(f"fp32 128 px train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
+          f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, largest error {worst:.3e} of the "
+          f"gradient's max abs at {where} (tolerance {GRAD_REL:.0e}); no codec gradient",
+          flush=True)
+    if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
+        fail("the 128 px training loss differs between GPU and CPU")
+    if not worst <= GRAD_REL:
+        fail("128 px training gradients differ between GPU and CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
-    from nuwa_tpu_torch import NUWA, NUWASketch, VQGanVAE
+    from nuwa_tpu_torch import NUWA, NUWASketch, VQGanVAE, tokenizer
     from nuwa_tpu_torch.kernels import build
     from nuwa_tpu_torch.kernels import cross as kcross
     from nuwa_tpu_torch.kernels import nda as knda
@@ -1374,40 +1750,64 @@ def main():
     sketch_train_launches = train_sketch(NUWASketch, VQGanVAE, knda)
     sketch_train_against_cpu(NUWASketch, VQGanVAE)
     phase("NUWASketch training")
+    rb_errs = check_rb(knda)
+    check_determinism(knda, kcross)
+    rb_rows = time_train_kernels(knda, fmap=(FMAP128, FMAP128), t=T128, plain_iters=2)
+    phase("Sparse3DNA kernels at fmap 32 and determinism")
+    serve128_launches, _ = serve_128(NUWA, VQGanVAE, tokenizer, knda)
+    nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer)
+    phase("NUWA serving at 128 px")
+    train128_launches = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda)
+    train_128_against_cpu(NUWA, VQGanVAE, tokenizer)
+    phase("NUWA training at 128 px")
     throughput(model, texts)
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
     phase("throughput")
 
     # launches: the NUWA serving run's, the training run's, the sketch
-    # serving run's and the sketch training runs'; Sparse3DNA times at the
-    # training shape, dilation 2, the cross forward's at the sketch forward
-    # shape, the cross backward's at the sketch training shape; no single
-    # PyTorch call computes the talking-heads attention or its backward, so
-    # library_ms is null
+    # serving run's, the sketch training runs' and the 128-px runs';
+    # Sparse3DNA times at the fmap-16 training shape, dilation 2, and under
+    # "fmap_32" at the fmap-32 one, where the JAX package runs its
+    # row-blocked kernels (rows 4-6 of the table); the cross forward's at the
+    # sketch forward shape, the cross backward's at the sketch training
+    # shape; no single PyTorch call computes the talking-heads attention or
+    # its backward, so library_ms is null
     serve_counts = {"fwd": serve_launches + sketch_fwd, "bwd_q": 0, "bwd_kv": 0}
     sketch_train_total = {k: sketch_train_launches[1][k] + sketch_train_launches[2][k]
                           for k in sketch_train_launches[1]}
+    fmap32_launches = {"fwd": serve128_launches, "bwd_q": 0, "bwd_kv": 0}
     entries = []
-    for name, source, line, err in (
-        ("fwd", "sparse3dna_fwd.cu", 239, max(fwd_err, errs["fwd"])),
-        ("bwd_q", "sparse3dna_bwd_q.cu", 865, errs["bwd_q"]),
-        ("bwd_kv", "sparse3dna_bwd_kv.cu", 1029, errs["bwd_kv"]),
+    for name, source, line, rb_line, err in (
+        ("fwd", "sparse3dna_fwd.cu", 239, 403, max(fwd_err, errs["fwd"], rb_errs["fwd"])),
+        ("bwd_q", "sparse3dna_bwd_q.cu", 865, 580, max(errs["bwd_q"], rb_errs["bwd_q"])),
+        ("bwd_kv", "sparse3dna_bwd_kv.cu", 1029, 745, max(errs["bwd_kv"], rb_errs["bwd_kv"])),
     ):
         row = next(r for r in train_rows if r["name"] == name and r["dilation"] == 2)
+        rb_row = next(r for r in rb_rows if r["name"] == name and r["dilation"] == 2)
+        rb_launches = fmap32_launches[name] + train128_launches[name]
         entries.append({
             "name": f"sparse_3dna_{name}", "route": "cuda",
             "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
-            "launches": serve_counts[name] + train_launches[name] + sketch_train_total[name],
+            "launches": (serve_counts[name] + train_launches[name] + sketch_train_total[name]
+                         + rb_launches),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             # causal windows (the video decoder), centered ones (the sketch encoder)
             "modes": "causal and centered",
             "centered_launches": sketch_train_total[f"{name}_centered"],
+            # frames past 256 tokens: the row-blocked TPU kernel's shapes
+            "fmap_32": {
+                "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{rb_line}", "b": TRAIN_BATCH,
+                "t": T128, "launches": rb_launches, "max_abs_err": rb_errs[name],
+                **{k: rb_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None,
+            },
         })
         if "backward_bound_ms" in row:  # the bound of B2 and B3 together
             entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
+            entries[-1]["fmap_32"]["backward_bound_ms"] = rb_row["backward_bound_ms"]
     # one CUDA kernel replaces both fused TPU kernels: at two context frames
     # (_xfused_kernel) and at one (_xfused1_kernel)
     for frames, line in ((2, 2731), (1, 2810)):

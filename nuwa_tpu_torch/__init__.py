@@ -2,9 +2,16 @@
 
 It imports torch and numpy, never JAX or ``nuwa_tpu``. Module names follow
 the JAX package's, so each module's counterpart is easy to find. Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.
+run on ``cuda`` unless the caller passes ``device="cpu"``. The names below
+are those of the JAX package's public surface that are ported so far, and
+the default ``tokenizer`` (CLIP's vocabulary of 49,408).
 """
 from .models import NUWA, NUWASketch
+from .nda import Sparse3DNA, SparseCross2DNA
+from .ops.attention import Attention
+from .tokenizer import tokenizer
+from .train import NUWATrainer
 from .vqgan_vae import VQGanVAE
 
-__all__ = ["NUWA", "NUWASketch", "VQGanVAE"]
+__all__ = ["NUWA", "NUWASketch", "VQGanVAE", "Sparse3DNA", "SparseCross2DNA", "Attention",
+           "NUWATrainer", "tokenizer"]

@@ -8,9 +8,9 @@ couples' ``{"f", "g"}``), with these exceptions:
 * ``ShiftVideo`` wraps its inner block as a module, while the JAX tree puts
   the inner block's params in its place;
 * a ``VQGanVAE``'s tree is ``{"params": ..., "state": ...}``, the form a
-  ``NUWASketch`` tree holds under ``"vae"`` and ``"sketch_vae"``: its
-  parameters come from ``params`` and its quantizer's buffers (``vq.embed``
-  ...) from ``state["vq"]``;
+  ``NUWA`` tree holds under ``"vae"`` and a ``NUWASketch`` tree under
+  ``"vae"`` and ``"sketch_vae"``: its parameters come from ``params`` and
+  its quantizer's buffers (``vq.embed`` ...) from ``state["vq"]``;
 * ``Conv2d.w`` is OIHW in the port and HWIO in the JAX package, so it is
   transposed on the way in.
 
@@ -93,3 +93,12 @@ def load_vqgan_vae(vae: VQGanVAE, params, state) -> VQGanVAE:
     params = {k: v for k, v in params.items() if k not in ("discr", "vgg")}
     state = state if "vq" in state else {"vq": state}
     return load_jax_params(vae, {"params": params, "state": state})
+
+
+def load_nuwa_vae(nuwa, params):
+    """Load only the codec of a JAX ``NUWA`` params tree, its ``"vae"``
+    subtree (``{"params": eval params, "state": codebook state}``), into
+    ``nuwa.vae``; the rest of the model keeps its weights."""
+    if nuwa.vae is None or "vae" not in params:
+        raise ValueError("both the model and the params tree need a VAE")
+    return load_vqgan_vae(nuwa.vae, params["vae"]["params"], params["vae"]["state"])

@@ -41,7 +41,7 @@ import functools
 
 import torch
 
-from .nda import _DTYPES, _launch, _gathered
+from .nda import _DTYPES, _QUERIES_PER_BLOCK, _gathered, _launch
 
 
 @functools.lru_cache(maxsize=64)
@@ -248,17 +248,21 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
     dq = torch.empty_like(ins[0])
     ds = torch.empty(b, h, t, slots, device=q.device, dtype=torch.float32)
     mix = torch.empty_like(ds)
-    # sums over queries: the kernel adds its blocks' shares into these
-    dnull_k = torch.zeros(b, h, 1, d, device=q.device, dtype=torch.float32)
-    dnull_v = torch.zeros_like(dnull_k)
-    dth = torch.zeros(h, h, device=q.device, dtype=torch.float32)
+    # each block's sums over its queries: [dth | dnull_k | dnull_v]
+    hh, hd = h * h, h * d
+    partial = torch.empty(b, -(-t // _QUERIES_PER_BLOCK), hh + 2 * hd, device=q.device,
+                          dtype=torch.float32)
     if t > 0:
         _launch("sparse_cross2dna_bwd_q", q.dtype,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
-                 dnull_k.data_ptr(), dnull_v.data_ptr(), dth.data_ptr()],
+                 partial.data_ptr()],
                 [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
         sparse_cross_2dna_bwd_q.launches += 1
+    sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
+    dth = sums[:, :hh].sum(dim=0).view(h, h)
+    dnull_k = sums[:, hh:hh + hd].reshape(b, h, 1, d)
+    dnull_v = sums[:, hh + hd:].reshape(b, h, 1, d)
     return dq, ds, mix, dnull_k, dnull_v, dth
 
 

@@ -37,10 +37,14 @@
 // (21 MB in bf16), and they spare the key side a second pass over the scores.
 //
 // Reductions across queries: a block takes kQueriesPerBlock consecutive
-// queries and sums its share of dth, dbias, dk_bos and dv_bos in shared
-// memory and registers, then adds it to the fp32 outputs with atomicAdd
-// (which the wrapper zeroes). Atomics sum in a different order on each run,
-// so these four outputs agree with a sequential sum to rounding only.
+// queries and sums its share of dth, dk_bos, dv_bos and dbias in shared
+// memory and registers, in a fixed order, then writes it to its own slot of
+// the fp32 buffer `partial` (b, blocks along t, nsum), nsum = h*h + 2*h*d
+// (+ h*Kn with a bias). The wrapper sums the slots over the block axis in
+// one fixed-order reduction, so every output is the same, bit for bit, on
+// every run: no atomics. At the fmap-32 training shape (b = 2, t = 10,239,
+// h = 8, d = 64, Kn = 45) the buffer holds 2 x 2,560 slots of 1,448 floats,
+// about 30 MB, against about 145 MB of q, k, v, g (bf16), dS and mix.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,7 +53,7 @@
 namespace {
 
 constexpr int kMaxR = 8;              // head dim up to 32 * kMaxR = 256
-constexpr int kQueriesPerBlock = 4;   // queries whose reductions share one atomic
+constexpr int kQueriesPerBlock = 4;   // queries whose sums share one slot of `partial`
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -109,8 +113,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
     const float* __restrict__ th, const float* __restrict__ bias,
     const T* __restrict__ gout, const float* __restrict__ lse,
     T* __restrict__ dq, float* __restrict__ ds_out, float* __restrict__ mix_out,
-    float* __restrict__ dkbos, float* __restrict__ dvbos, float* __restrict__ dth,
-    float* __restrict__ dbias, int heads, int d, Geometry g) {
+    float* __restrict__ partial, int heads, int d, Geometry g) {
   extern __shared__ float smem[];
   const int kn = g.kf * g.kh * g.kw;
   const int slots = kn + 1;  // slot 0 is bos
@@ -250,27 +253,31 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
     }
   }
 
-  // ---- this block's share of the sums over all queries -----------------
+  // ---- this block's share of the sums over all queries, in its own slot:
+  // [dth (heads, heads) | dk_bos (heads, d) | dv_bos (heads, d) | dbias (heads, kn)]
+  const int hh = heads * heads, hd = heads * d;
+  const size_t nsum = hh + 2 * hd + (bias != nullptr ? heads * kn : 0);
+  float* part = partial + (static_cast<size_t>(bi) * gridDim.x + blockIdx.x) * nsum;
 #pragma unroll
   for (int r = 0; r < kMaxR; ++r) {
     const int e = lane + 32 * r;
     if (e < d) {
-      atomicAdd(dkbos + row * d + e, dkb[r]);
-      atomicAdd(dvbos + row * d + e, dvb[r]);
+      part[hh + h * d + e] = dkb[r];
+      part[hh + hd + h * d + e] = dvb[r];
     }
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) atomicAdd(dth + x, s_dth[x]);
-  if (dbias != nullptr) {
-    for (int x = threadIdx.x; x < heads * kn; x += blockDim.x) atomicAdd(dbias + x, s_dbias[x]);
+  for (int x = threadIdx.x; x < hh; x += blockDim.x) part[x] = s_dth[x];
+  if (bias != nullptr) {
+    for (int x = threadIdx.x; x < heads * kn; x += blockDim.x) part[hh + 2 * hd + x] = s_dbias[x];
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kbos, const void* vbos,
            const float* th, const float* bias, const void* gout, const float* lse, void* dq,
-           float* ds, float* mix, float* dkbos, float* dvbos, float* dth, float* dbias, int b,
-           int heads, int d, Geometry g, cudaStream_t stream) {
+           float* ds, float* mix, float* partial, int b, int heads, int d, Geometry g,
+           cudaStream_t stream) {
   const int kn = g.kf * g.kh * g.kw;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(heads) * heads +
                                        4 * static_cast<size_t>(heads) * (kn + 1) +
@@ -287,8 +294,7 @@ int launch(const void* q, const void* k, const void* v, const void* kbos, const 
   sparse3dna_bwd_q_kernel<T><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
-      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, dkbos, dvbos, dth,
-      dbias, heads, d, g);
+      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,25 +305,25 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, k, v, gout,
 // dq (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
 // bias (heads, kn) fp32 or null; lse (b, heads, t) fp32; ds, mix
-// (b, heads, t, kn + 1) fp32; dkbos, dvbos (b, heads, d), dth (heads, heads)
-// and dbias (heads, kn, or null) fp32 and zeroed by the caller: the kernel
-// adds into them; causal 1 for causal windows, 0 for centered. Returns the
-// cudaError_t of the launch (0 on success).
+// (b, heads, t, kn + 1) fp32; partial (b, ceil(t / 4), nsum) fp32 with
+// nsum = heads*heads + 2*heads*d (+ heads*kn with a bias), every slot
+// written: per block [dth | dk_bos | dv_bos | dbias] over its 4 queries, for
+// the caller to sum over the block axis; causal 1 for causal windows, 0 for
+// centered. Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
                           const void* kbos, const void* vbos, const float* th,
                           const float* bias, const void* gout, const float* lse, void* dq,
-                          float* ds, float* mix, float* dkbos, float* dvbos, float* dth,
-                          float* dbias, int b, int heads, int t, int d, int fh, int fw,
-                          int kf, int kh, int kw, int df, int dh, int dw, int causal,
-                          void* stream) {
+                          float* ds, float* mix, float* partial, int b, int heads, int t,
+                          int d, int fh, int fw, int kf, int kh, int kw, int df, int dh,
+                          int dw, int causal, void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, dkbos, dvbos,
-                         dth, dbias, b, heads, d, g, s);
+    return launch<float>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, partial, b,
+                         heads, d, g, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix,
-                                 dkbos, dvbos, dth, dbias, b, heads, d, g, s);
+                                 partial, b, heads, d, g, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -43,8 +43,12 @@
 // of q, g and dq and 2 * (Fc*k*k + 1) fp32 values of dS and A written; the
 // context's k and v rows are read by every query frame through L1/L2. The
 // sums over queries (dnull_k, dnull_v per batch row, dth) are summed per
-// block in registers and shared memory and added to the zeroed fp32 outputs
-// with atomicAdd, so they agree with a sequential sum to rounding only.
+// block in registers and shared memory, in a fixed order, and written to
+// the block's own slot of the fp32 buffer `partial` (b, blocks along t,
+// h*h + 2*h*d); the wrapper sums the slots over the block axis in one
+// fixed-order reduction, so every output is the same, bit for bit, on every
+// run: no atomics. At the sketch training shape (b = 2, t = 2,559, h = 8,
+// d = 64) the buffer holds 2 x 640 slots of 1,088 floats, 5.6 MB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +56,7 @@
 namespace {
 
 constexpr int kMaxR = 8;             // head dim up to 32 * kMaxR = 256
-constexpr int kQueriesPerBlock = 4;  // queries whose reductions share one atomic
+constexpr int kQueriesPerBlock = 4;  // queries whose sums share one slot of `partial`
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -96,8 +100,8 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
     const T* __restrict__ null_k, const T* __restrict__ null_v,
     const float* __restrict__ th, const unsigned char* __restrict__ cmask,
     const T* __restrict__ gout, const float* __restrict__ lse, T* __restrict__ dq,
-    float* __restrict__ ds_out, float* __restrict__ mix_out, float* __restrict__ dnull_k,
-    float* __restrict__ dnull_v, float* __restrict__ dth, int heads, int d, Geometry g) {
+    float* __restrict__ ds_out, float* __restrict__ mix_out, float* __restrict__ partial,
+    int heads, int d, Geometry g) {
   extern __shared__ float smem[];
   const int hw = g.fmap * g.fmap;
   const int kk = g.k * g.k;
@@ -246,24 +250,27 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
     }
   }
 
-  // ---- this block's share of the sums over queries -----------------------
+  // ---- this block's share of the sums over queries, in its own slot:
+  // [dth (heads, heads) | dnull_k (heads, d) | dnull_v (heads, d)]
+  const int hh = heads * heads, hd = heads * d;
+  float* part = partial + (static_cast<size_t>(bi) * gridDim.x + blockIdx.x) * (hh + 2 * hd);
 #pragma unroll
   for (int r = 0; r < kMaxR; ++r) {
     const int e = lane + 32 * r;
     if (e < d) {
-      atomicAdd(dnull_k + row * d + e, dnk[r]);
-      atomicAdd(dnull_v + row * d + e, dnv[r]);
+      part[hh + h * d + e] = dnk[r];
+      part[hh + hd + h * d + e] = dnv[r];
     }
   }
   __syncthreads();
-  for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) atomicAdd(dth + x, s_dth[x]);
+  for (int x = threadIdx.x; x < hh; x += blockDim.x) part[x] = s_dth[x];
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* null_k,
            const void* null_v, const float* th, const unsigned char* cmask, const void* gout,
-           const float* lse, void* dq, float* ds, float* mix, float* dnull_k, float* dnull_v,
-           float* dth, int b, int heads, int d, Geometry g, cudaStream_t stream) {
+           const float* lse, void* dq, float* ds, float* mix, float* partial, int b,
+           int heads, int d, Geometry g, cudaStream_t stream) {
   const int kn = (g.lc / (g.fmap * g.fmap)) * g.k * g.k;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(heads) * heads +
                                        4 * static_cast<size_t>(heads) * (kn + 1)) +
@@ -279,8 +286,7 @@ int launch(const void* q, const void* k, const void* v, const void* null_k,
   sparse_cross2dna_bwd_q_kernel<T><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(null_k), static_cast<const T*>(null_v), th, cmask,
-      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, dnull_k, dnull_v, dth,
-      heads, d, g);
+      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -292,25 +298,25 @@ extern "C" {
 // (b, heads, t, d); k, v (b, heads, lc, d); null_k, null_v (b, heads, 1, d);
 // th (heads, heads) fp32; cmask (b, lc) bytes, nonzero where a context token
 // may be attended, or null for all; lse (b, heads, t) fp32; ds, mix
-// (b, heads, t, lc / (fmap * fmap) * ksize * ksize + 1) fp32; dnull_k,
-// dnull_v (b, heads, d) and dth (heads, heads) fp32 and zeroed by the
-// caller: the kernel adds into them.
+// (b, heads, t, lc / (fmap * fmap) * ksize * ksize + 1) fp32; partial
+// (b, ceil(t / 4), heads*heads + 2*heads*d) fp32, every slot written: per
+// block [dth | dnull_k | dnull_v] over its 4 queries, for the caller to sum
+// over the block axis.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse_cross2dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
                                 const void* null_k, const void* null_v, const float* th,
                                 const unsigned char* cmask, const void* gout,
                                 const float* lse, void* dq, float* ds, float* mix,
-                                float* dnull_k, float* dnull_v, float* dth, int b, int heads,
-                                int t, int d, int lc, int fmap, int ksize, int dil,
-                                void* stream) {
+                                float* partial, int b, int heads, int t, int d, int lc,
+                                int fmap, int ksize, int dil, void* stream) {
   const Geometry g{t, lc, fmap, ksize, dil};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, null_k, null_v, th, cmask, gout, lse, dq, ds, mix, dnull_k,
-                         dnull_v, dth, b, heads, d, g, s);
+    return launch<float>(q, k, v, null_k, null_v, th, cmask, gout, lse, dq, ds, mix, partial,
+                         b, heads, d, g, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, null_k, null_v, th, cmask, gout, lse, dq, ds, mix,
-                                 dnull_k, dnull_v, dth, b, heads, d, g, s);
+                                 partial, b, heads, d, g, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,18 +1,36 @@
 """Sparse3DNA attention: the Hopper kernels' wrappers, their plain versions
 and the autograd function that joins them.
 
-Three kernels, each replacing a TPU kernel of ``nuwa_tpu/kernels/nda_pallas.py``
-without dropout, in both of its modes: causal windows (the video decoder)
-and centered ones (the sketch encoder):
+Three kernels, each replacing two TPU kernels of
+``nuwa_tpu/kernels/nda_pallas.py`` without dropout, in both of their modes:
+causal windows (the video decoder) and centered ones (the sketch encoder).
+The JAX package takes the whole-frame kernels for frames of up to 256
+tokens and the row-blocked ones above that (``rb_row_block``); each kernel
+here takes a frame of any size:
 
 * ``sparse_3dna_fwd`` (``csrc/sparse3dna_fwd.cu``): the forward, out and the
-  per-row logsumexp; replaces ``_kernel`` (launched by ``_fwd_call``);
+  per-row logsumexp; replaces ``_kernel`` (launched by ``_fwd_call``) and
+  the row-blocked ``_rb_kernel`` (``_rb_fwd_call``);
 * ``sparse_3dna_bwd_q`` (``csrc/sparse3dna_bwd_q.cu``): the query-side
   backward, dq, the bos, talking-heads and rel-pos bias cotangents, and the
-  sparse dS and mixed probabilities; replaces ``_bwd_q_kernel``;
+  sparse dS and mixed probabilities; replaces ``_bwd_q_kernel`` and
+  ``_rb_bwd_q_kernel``;
 * ``sparse_3dna_bwd_kv`` (``csrc/sparse3dna_bwd_kv.cu``): the key-side
   backward, dk and dv gathered from dS and the mixed probabilities; replaces
-  ``_bwd_kv_kernel``.
+  ``_bwd_kv_kernel`` and ``_rb_bwd_kv_kernel``.
+
+The row-blocked family tiles a frame into blocks of ``R`` query rows, at
+most 256 tokens (``rb_row_block``, ``_rb_geometry``), pads every frame with
+``prow`` zero rows above and ``brow`` below (``_rb_pad_frames``) and scores
+each block against a window of ``W = R + (Kh - 1) * dh`` key rows, so that
+a block's queries and keys fit VMEM as dense tiles. The Hopper kernels have
+no such tiles: one block
+per (query or key, batch row) finds each neighbour from its coordinates and
+checks each axis against the grid, so a window that reaches past a frame's
+first or last row is masked where the TPU kernel reads a padded row, and
+nothing is sized by the frame. The rel-pos bias is the same (h, Kn) table
+in both families (``_rb_bias_tensors`` builds it from the same axial tables
+as ``_axial_tables``), so ``Sparse3DNA.rel_bias`` serves every frame size.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its ``*_plain`` version, the same function written with gathers and
@@ -29,6 +47,11 @@ backward runs ``sparse_3dna_bwd_q`` and then ``sparse_3dna_bwd_kv``.
 The JAX package reaches HW = 64 (fmap 8) only by lane-packing two frames into
 a 128-lane super-frame (``packed_frames``); the kernel reads each query's
 neighbours directly, so packing has no counterpart here.
+
+The query-side kernel's sums over queries (the bos, talking-heads and bias
+cotangents) are written per block and summed here over the block axis in
+one fixed order, so every output of the backward is the same, bit for bit,
+from run to run.
 """
 from __future__ import annotations
 
@@ -40,7 +63,9 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_TOKENS_PER_FRAME = 256  # frames above this are the row-blocked family's
+_INT_MAX = 2**31 - 1  # token ids and t are 32-bit ints in the kernels
+_MAX_GRID_Y = 65535  # the batch rows are the grid's second axis
+_QUERIES_PER_BLOCK = 4  # kQueriesPerBlock of the query-side kernels
 
 
 @functools.lru_cache(maxsize=64)
@@ -151,10 +176,10 @@ def _library(name):
     the stream."""
     pointers, ints = {
         "sparse3dna_fwd": (9, 13),
-        "sparse3dna_bwd_q": (16, 13),
+        "sparse3dna_bwd_q": (13, 13),
         "sparse3dna_bwd_kv": (6, 13),
         "sparse_cross2dna_fwd": (9, 8),
-        "sparse_cross2dna_bwd_q": (15, 8),
+        "sparse_cross2dna_bwd_q": (13, 8),
         "sparse_cross2dna_bwd_kv": (6, 8),
     }[name]
     lib = build.load(name)
@@ -179,22 +204,24 @@ def _launch(name, dtype, pointers, ints, device):
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
-def _check_cuda(name, q, fmap, tensors):
+def _check_cuda(name, q, fmap, kernel, dilation, tensors):
     """Raise on anything the kernels do not take. ``tensors``: (name, tensor,
-    shape, dtype) to check beside q (b, h, t, d)."""
+    shape, dtype) to check beside q (b, h, t, d). A frame of any size is
+    taken: the kernels bound only the heads (one warp each, 32 a block),
+    the head dim (8 registers a lane) and what their 32-bit ints index,
+    t and the token ids of the windows, which reach at most one window's
+    frames past t."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     b, h, t, d = q.shape
     fh, fw = fmap
-    if fh * fw > MAX_TOKENS_PER_FRAME:
-        raise NotImplementedError(
-            f"frames of {fh * fw} > {MAX_TOKENS_PER_FRAME} tokens belong to the "
-            "row-blocked kernel, which is not ported yet"
-        )
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, not {q.dtype}")
     if not (1 <= h <= 32 and 1 <= d <= 256):
         raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
+    if b > _MAX_GRID_Y or t + kernel[0] * dilation[0] * fh * fw > _INT_MAX:
+        raise ValueError(f"{name}: b = {b} or t = {t} with frames of {fh} x {fw} is past "
+                         "what the kernels index")
     for arg, x, shape, dtype in tensors:
         if tuple(x.shape) != shape or x.dtype != dtype or x.device != q.device:
             raise ValueError(f"{name}: {arg} must be {shape} {dtype} on {q.device}, "
@@ -244,7 +271,7 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
         )
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
-    _check_cuda("sparse_3dna_fwd", q, fmap, [
+    _check_cuda("sparse_3dna_fwd", q, fmap, kernel, dilation, [
         ("k", k, full, q.dtype), ("v", v, full, q.dtype),
         ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
     ])
@@ -280,7 +307,7 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
     kn = kernel[0] * kernel[1] * kernel[2]
-    _check_cuda("sparse_3dna_bwd_q", q, fmap, [
+    _check_cuda("sparse_3dna_bwd_q", q, fmap, kernel, dilation, [
         ("k", k, full, q.dtype), ("v", v, full, q.dtype),
         ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
         ("grad", grad, full, q.dtype), ("lse", lse, (b, h, t), torch.float32),
@@ -291,18 +318,24 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     dq = torch.empty_like(ins[0])
     ds = torch.empty(b, h, t, kn + 1, device=q.device, dtype=torch.float32)
     mix = torch.empty_like(ds)
-    # sums over every query: the kernel adds its blocks' shares into these
-    dk_bos = torch.zeros(b, h, 1, d, device=q.device, dtype=torch.float32)
-    dv_bos = torch.zeros_like(dk_bos)
-    dth = torch.zeros(h, h, device=q.device, dtype=torch.float32)
-    dbias = torch.zeros(h, kn, device=q.device, dtype=torch.float32) if bias is not None else None
+    # each block's sums over its queries: [dth | dk_bos | dv_bos | dbias];
+    # 30 MB at b = 2, t = 10,239, 8 heads of 64, Kn = 45 (the fmap-32 training shape)
+    hh, hd = h * h, h * d
+    blocks = -(-t // _QUERIES_PER_BLOCK)
+    partial = torch.empty(b, blocks, hh + 2 * hd + (h * kn if bias is not None else 0),
+                          device=q.device, dtype=torch.float32)
     if t > 0:
         _launch("sparse3dna_bwd_q", q.dtype,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
-                 dk_bos.data_ptr(), dv_bos.data_ptr(), dth.data_ptr(), _ptr(dbias)],
+                 partial.data_ptr()],
                 [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
         _count(sparse_3dna_bwd_q, causal)
+    sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
+    dth = sums[:, :hh].sum(dim=0).view(h, h)
+    dk_bos = sums[:, hh:hh + hd].reshape(b, h, 1, d)
+    dv_bos = sums[:, hh + hd:hh + 2 * hd].reshape(b, h, 1, d)
+    dbias = sums[:, hh + 2 * hd:].sum(dim=0).view(h, kn) if bias is not None else None
     return dq, ds, mix, dk_bos.to(k_bos.dtype), dv_bos.to(v_bos.dtype), dth, dbias
 
 
@@ -316,7 +349,7 @@ def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, causal=True)
         )
     b, h, t, d = q.shape
     slots = (b, h, t, kernel[0] * kernel[1] * kernel[2] + 1)
-    _check_cuda("sparse_3dna_bwd_kv", q, fmap, [
+    _check_cuda("sparse_3dna_bwd_kv", q, fmap, kernel, dilation, [
         ("grad", grad, (b, h, t, d), q.dtype),
         ("ds", ds, slots, torch.float32), ("mix", mix, slots, torch.float32),
     ])

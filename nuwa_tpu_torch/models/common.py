@@ -1,5 +1,5 @@
-"""Shared sampling machinery: the cached AR rollout and the sliding-window
-frame decoder. Counterpart of ``nuwa_tpu/models/common.py``; a Python loop
+"""Shared sampling machinery: the cached AR rollout, the sliding-window
+frame decoder and the codec's decode of sampled ids. Counterpart of ``nuwa_tpu/models/common.py``; a Python loop
 over positions takes the place of ``lax.scan``.
 
 Classifier-free guidance runs cond and uncond as one 2x batch whose caches
@@ -71,3 +71,12 @@ def long_frame_decoder(model, window, ctx, cmask, pos_emb, *, generator,
         cond_scale=cond_scale, dim=model.dim, dtype=model.dtype,
         start_pos=W, init_prev=window[:, -1],
     )
+
+
+def ids_to_output(vae, indices, decode_video, decode_max_batchsize):
+    """Sampled ids (b, n), or with a ``vae`` and ``decode_video`` their
+    pixels (b, n // HW, c, h, w), decoded ``decode_max_batchsize`` chunks at
+    a time."""
+    if not decode_video or vae is None:
+        return indices
+    return vae.codebook_indices_to_video(indices, decode_chunks=decode_max_batchsize)

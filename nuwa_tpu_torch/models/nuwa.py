@@ -1,11 +1,13 @@
 """NUWA — text to video, autoregressive over video tokens.
 
-Counterpart of ``nuwa_tpu/models/nuwa.py`` without a VAE (requests and
-training batches carry token ids; the model is in raw-fmap mode): rotary
-text encoder, axial video positions, learned bos, a causal Sparse3DNA decoder
-(plain or reversible) with dense cross-attention to the text, the teacher-
-forced cross-entropy loss with condition dropout, and cached ``generate`` /
-``generate_long`` with top-k, Gumbel sampling and classifier-free guidance.
+Counterpart of ``nuwa_tpu/models/nuwa.py``: rotary text encoder, axial video
+positions, learned bos, a causal Sparse3DNA decoder (plain or reversible)
+with dense cross-attention to the text, the teacher-forced cross-entropy
+loss with condition dropout, and cached ``generate`` / ``generate_long``
+with top-k, Gumbel sampling and classifier-free guidance. With a ``vae``
+(a frozen ``VQGanVAE``) the model takes pixel videos, which the codec turns
+into tokens under no grad, and returns sampled videos as pixels; with an
+``image_size`` instead it is in raw-fmap mode, and videos are token ids.
 The model lives on one device, ``cuda`` unless the caller names another.
 """
 from __future__ import annotations
@@ -20,7 +22,8 @@ from ..ops.embeddings import AxialPositionalEmbedding, rotary_freqs
 from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
-from .common import cached_ar_rollout, long_frame_decoder
+from ..vqgan_vae import VQGanVAE
+from .common import cached_ar_rollout, ids_to_output, long_frame_decoder
 
 
 def cross_entropy(logits, targets):
@@ -29,7 +32,12 @@ def cross_entropy(logits, targets):
 
 
 class NUWA(nn.Module):
-    def __init__(self, *, dim, image_size, num_image_tokens, max_video_frames=5,
+    """Give exactly one of ``vae`` (the fmap and the vocabulary are the
+    codec's; its parameters get no gradient) and ``image_size`` (the fmap
+    side, with ``num_image_tokens``)."""
+
+    def __init__(self, *, dim, vae: VQGanVAE | None = None, image_size=None,
+                 num_image_tokens=None, max_video_frames=5,
                  text_num_tokens=49408, text_max_seq_len=256, text_enc_depth=6,
                  text_enc_dim_head=64, text_enc_heads=8, enc_reversible=False,
                  dec_depth=6, dec_dim_head=64, dec_heads=8, dec_reversible=False,
@@ -38,7 +46,16 @@ class NUWA(nn.Module):
                  sparse_3dna_rel_pos_bias=False, compute_dtype=None,
                  device=None, seed=0):
         super().__init__()
+        if (vae is None) == (image_size is None):
+            raise ValueError("either VAE or image size must be specified")
         device = resolve_device(device)
+        if vae is not None:
+            image_size, num_image_tokens = vae.fmap_size, vae.codebook_size
+            self.vae = vae.to(device).requires_grad_(False)  # frozen codec
+        elif num_image_tokens is None:
+            raise ValueError("num_image_tokens is needed without a VAE")
+        else:
+            self.vae = None
         self.dim = dim
         self.fmap = image_size
         self.max_video_frames = max_video_frames
@@ -70,7 +87,7 @@ class NUWA(nn.Module):
                 sparse_3dna_rel_pos_bias=sparse_3dna_rel_pos_bias,
             )
             self.to_logits = nn.Parameter(torch.empty(dim, num_image_tokens))
-        init_weights_(self, seed)
+        init_weights_(self, seed, skip=(self.vae,) if self.vae is not None else ())
 
     def reset_parameters(self, generator):
         normal_(self.video_bos, generator)
@@ -82,6 +99,19 @@ class NUWA(nn.Module):
 
     def _ids(self, x):
         return torch.as_tensor(x, dtype=torch.long, device=self.device)
+
+    def _frame_indices(self, video, b):
+        """(b, n) token ids of ``video``: ids as they are, or the codec's
+        tokens of pixels (b, max_video_frames, c, h, w) in [0, 1]."""
+        video = torch.as_tensor(video, device=self.device)
+        if not video.is_floating_point():
+            return video.long().reshape(b, -1)
+        if self.vae is None:
+            raise ValueError("pixel videos need a VAE; pass token ids")
+        if video.shape[1] != self.max_video_frames:
+            raise ValueError(f"video needs all {self.max_video_frames} frames")
+        with torch.no_grad():
+            return self.vae.get_video_indices(video.float()).reshape(b, -1)
 
     # ---- text encoder -----------------------------------------------------
 
@@ -120,10 +150,12 @@ class NUWA(nn.Module):
 
     def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
                 train=False, generator=None, uncond=None):
-        """Teacher-forced logits of video token ids (b, ...) given text ids,
-        or with ``return_loss`` the mean cross-entropy of predicting each
-        token from the ones before it (the input is shifted by one, so the
-        decoder sees F * HW - 1 video tokens).
+        """Teacher-forced logits of a video given text ids, or with
+        ``return_loss`` the mean cross-entropy of predicting each token from
+        the ones before it (the input is shifted by one, so the decoder sees
+        F * HW - 1 video tokens). ``video`` is token ids (b, ...) or, with a
+        VAE, pixels (b, max_video_frames, c, h, w), tokenized by the frozen
+        codec.
 
         ``train`` scales the embeddings' gradients and applies condition
         dropout: each sample's text is masked out with ``cond_dropout_prob``,
@@ -133,7 +165,7 @@ class NUWA(nn.Module):
         b = text.shape[0]
         text_mask = text != 0
         text_embeds = self.embed_text(text, text_mask, train=train)
-        frame_indices = self._ids(video).reshape(b, -1)
+        frame_indices = self._frame_indices(video, b)
         inp = frame_indices[:, :-1] if return_loss else frame_indices
         if train and uncond is None and cond_dropout_prob > 0:
             uncond = prob_mask_like((b,), cond_dropout_prob, generator=generator,
@@ -149,10 +181,12 @@ class NUWA(nn.Module):
 
     @torch.no_grad()
     def generate(self, text, *, generator=None, filter_thres=0.9, temperature=1.0,
-                 cond_scale=2.0, num_frames=None):
-        """Sample video token ids (b, num_frames * tokens_per_frame) with
-        per-layer caches, one decoder step per token (the JAX package's
-        ``method="cached"``; ids only, as ``decode_video=False``)."""
+                 cond_scale=2.0, num_frames=None, decode_max_batchsize=10,
+                 decode_video=True):
+        """Sample a video with per-layer caches, one decoder step per token
+        (the JAX package's ``method="cached"``). Returns pixels (b,
+        num_frames, c, h, w) through the VAE or, without one or without
+        ``decode_video``, token ids (b, num_frames * tokens_per_frame)."""
         num_frames = num_frames or self.max_video_frames
         if num_frames > self.max_video_frames:
             raise ValueError("num_frames > max_video_frames: use generate_long")
@@ -166,25 +200,31 @@ class NUWA(nn.Module):
         caches = dec.init_cache(
             2 * b if use_cfg else b, ctx, cmask, dtype=self.dtype or torch.float32
         )
-        return cached_ar_rollout(
+        indices = cached_ar_rollout(
             dec=dec, caches=caches, embed_table=self.image_embedding.table,
             pos_emb=self.video_pos_emb(), bos_vec=self.video_bos,
             to_logits=self.to_logits, batch=b, total=total, generator=generator,
             filter_thres=filter_thres, temperature=temperature,
             cond_scale=cond_scale, dim=self.dim, dtype=self.dtype,
         )
+        return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)
 
     @torch.no_grad()
     def generate_long(self, text, *, num_frames, generator=None, filter_thres=0.9,
-                      temperature=1.0, cond_scale=2.0):
+                      temperature=1.0, cond_scale=2.0, decode_max_batchsize=10,
+                      decode_video=True):
         """Generate ``num_frames`` > max_video_frames with a sliding frame
         window: each new frame is decoded against the last
-        max_video_frames - 1 frames, after one prefill over that window."""
+        max_video_frames - 1 frames, after one prefill over that window.
+        Returns what ``generate`` does."""
         kw = dict(generator=generator, filter_thres=filter_thres,
                   temperature=temperature, cond_scale=cond_scale)
         if num_frames <= self.max_video_frames:
-            return self.generate(text, num_frames=num_frames, **kw)
-        indices = self.generate(text, num_frames=self.max_video_frames, **kw)
+            return self.generate(text, num_frames=num_frames,
+                                 decode_max_batchsize=decode_max_batchsize,
+                                 decode_video=decode_video, **kw)
+        indices = self.generate(text, num_frames=self.max_video_frames, decode_video=False,
+                                **kw)
         text = self._ids(text)
         text_mask = text != 0
         ctx, cmask = self._cfg_context(
@@ -199,4 +239,4 @@ class NUWA(nn.Module):
                 cond_scale=cond_scale,
             )
             indices = torch.cat([indices, frame], dim=1)
-        return indices
+        return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)

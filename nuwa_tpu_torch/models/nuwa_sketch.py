@@ -32,7 +32,7 @@ from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
-from .common import cached_ar_rollout, long_frame_decoder
+from .common import cached_ar_rollout, ids_to_output, long_frame_decoder
 from .nuwa import cross_entropy
 
 
@@ -202,11 +202,6 @@ class NUWASketch(nn.Module):
             dtype=self.dtype, **sampling,
         )
 
-    def _output(self, indices, decode_video, decode_max_batchsize):
-        if not decode_video:
-            return indices
-        return self.vae.codebook_indices_to_video(indices, decode_chunks=decode_max_batchsize)
-
     @torch.no_grad()
     def generate(self, sketch, *, generator=None, sketch_mask=None, filter_thres=0.9,
                  temperature=1.0, cond_scale=2.0, num_frames=None,
@@ -226,7 +221,7 @@ class NUWASketch(nn.Module):
             ctx, cmask, b, num_frames, generator=generator, filter_thres=filter_thres,
             temperature=temperature, cond_scale=cond_scale,
         )
-        return self._output(indices, decode_video, decode_max_batchsize)
+        return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)
 
     @torch.no_grad()
     def generate_long(self, sketch, *, num_frames, generator=None, sketch_mask=None,
@@ -252,4 +247,4 @@ class NUWASketch(nn.Module):
         for _ in range(num_frames - self.max_video_frames):
             frame = long_frame_decoder(self, indices[:, -W:], ctx, cmask, pos_emb, **kw)
             indices = torch.cat([indices, frame], dim=1)
-        return self._output(indices, decode_video, decode_max_batchsize)
+        return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)

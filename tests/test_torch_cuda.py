@@ -41,15 +41,24 @@ def test_sparse3dna_kernel_matches_plain(dtype, tol, t):
 
 @pytest.mark.cuda
 def test_sparse3dna_wrapper_raises_on_unsupported_frames():
-    """Frames above 256 tokens belong to the row-blocked kernel: raise, no
-    fallback to the plain version."""
+    """A frame of any size launches the kernel (17 x 17 = 289 tokens, past
+    the 256 of the JAX package's whole-frame kernel); what the kernels do
+    not take raises, with no fallback to the plain version: more than 32
+    heads, a head dim over 256, more batch rows than the grid's second
+    axis holds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    geo = dict(fmap=(17, 17), kernel=(3, 3, 3), dilation=(1, 1, 1))
     q = torch.zeros(1, 2, 300, 8, device="cuda")
     kb = torch.zeros(1, 2, 1, 8, device="cuda")
-    with pytest.raises(NotImplementedError):
-        knda.sparse_3dna_fwd(q, q, q, kb, kb, torch.eye(2), fmap=(17, 17),
-                             kernel=(3, 3, 3), dilation=(1, 1, 1))
+    before = knda.sparse_3dna_fwd.launches
+    out, _ = knda.sparse_3dna_fwd(q, q, q, kb, kb, torch.eye(2), **geo)
+    assert knda.sparse_3dna_fwd.launches == before + 1 and out.shape == q.shape
+    for shape in ((1, 33, 4, 8), (1, 2, 4, 264), (65536, 1, 1, 1)):
+        x = torch.zeros(shape, device="cuda")
+        xb = torch.zeros(shape[0], shape[1], 1, shape[3], device="cuda")
+        with pytest.raises(ValueError):
+            knda.sparse_3dna_fwd(x, x, x, xb, xb, torch.eye(shape[1]), **geo)
 
 
 def _needs_cuda():
@@ -78,7 +87,7 @@ def test_sparse3dna_backward_kernels_match_plain(dtype, tol, t, bias):
     """4 heads of 32, fmap 4, dilation (2, 1, 2), kernel (3, 5, 3): the
     query-side and key-side kernels against their plain versions on the same
     inputs. Errors relative to each reference's max abs: sums run in another
-    order (over queries in atomics' order). ``tol`` holds the outputs in q's
+    order (over queries per block, then over blocks). ``tol`` holds the outputs in q's
     dtype (bf16 rounds them to 8 bits of mantissa); dS, mix, dth and the
     bias cotangent are fp32 in both versions, so 1e-5 holds them in both
     runs."""
@@ -106,7 +115,7 @@ def test_sparse3dna_backward_kernels_match_plain(dtype, tol, t, bias):
 
 @pytest.mark.cuda
 def test_sparse3dna_backward_wrappers_refuse_what_the_kernels_do_not_take():
-    """No quiet fallback: wrong dtypes, shapes and frame sizes raise."""
+    """No quiet fallback: wrong dtypes and shapes and too many heads raise."""
     _needs_cuda()
     q, k, v, kb, vb, th, rel, g = _bwd_inputs(torch.float32, 16, kn=27)
     geo = dict(fmap=(4, 4), kernel=(3, 3, 3), dilation=(1, 1, 1))
@@ -127,10 +136,10 @@ def test_sparse3dna_backward_wrappers_refuse_what_the_kernels_do_not_take():
         knda.sparse_3dna_bwd_kv(q, g, ds.bfloat16(), ds, **geo)
     with pytest.raises(ValueError):  # a CPU tensor beside a CUDA q
         knda.sparse_3dna_bwd_kv(q, g.cpu(), ds, ds, **geo)
-    big = torch.zeros(1, 2, 300, 8, device="cuda")
-    with pytest.raises(NotImplementedError):  # frames of the row-blocked family
-        knda.sparse_3dna_bwd_kv(big, big, torch.zeros(1, 2, 300, 28, device="cuda"),
-                                torch.zeros(1, 2, 300, 28, device="cuda"),
+    wide = torch.zeros(1, 33, 300, 8, device="cuda")
+    with pytest.raises(ValueError):  # more heads than a block's 32 warps
+        knda.sparse_3dna_bwd_kv(wide, wide, torch.zeros(1, 33, 300, 28, device="cuda"),
+                                torch.zeros(1, 33, 300, 28, device="cuda"),
                                 fmap=(17, 17), kernel=(3, 3, 3), dilation=(1, 1, 1))
 
 
@@ -218,7 +227,8 @@ def test_sparse_cross2dna_backward_kernels_match_plain(dtype, tol, frames, fmap,
     row whose context is all masked then has P = 1 exactly on the null
     column and dS = 0 there, where an lse from the other path's sums leaves
     rounding of about 1e-5 in dq). Errors relative to each reference's max
-    abs: sums run in another order (over queries in atomics' order); ``tol``
+    abs: sums run in another order (over queries per block, then over
+    blocks); ``tol``
     holds the outputs in q's dtype, 1e-5 the fp32 ones (dS, mix, the null
     and talking-heads cotangents)."""
     _needs_cuda()
@@ -293,3 +303,69 @@ def test_sparse3dna_centered_kernels_match_plain(dtype, tol, t):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         err = _rel_err(a, b)
         assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"
+
+
+# (fmap, frames): HW 1,024 (the 128-px NUWA's frames), 400 and 32 x 9 = 288,
+# all past the 256 tokens of the JAX package's whole-frame kernels
+LARGE_FRAMES = [((32, 32), 2), ((20, 20), 3), ((32, 9), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fmap,frames", LARGE_FRAMES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse3dna_kernels_match_plain_past_256_tokens(dtype, tol, fmap, frames, causal):
+    """Frames the JAX package gives its row-blocked kernels: 4 heads of 32,
+    kernel (5, 3, 3), dilation (1, 2, 2), rel-pos bias, a ragged last frame
+    (t one short of whole frames: centered windows reach its phantom token)
+    and half a frame less. The forward, query-side and key-side kernels
+    against their plain versions, tolerances as in the causal test."""
+    _needs_cuda()
+    hw = fmap[0] * fmap[1]
+    for t in (frames * hw - 1, frames * hw - hw // 2):
+        q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, seed=t)
+        geo = dict(fmap=fmap, kernel=(5, 3, 3), dilation=(1, 2, 2), causal=causal)
+        args = (q, k, v, kb, vb, th, rel)
+        got = knda.sparse_3dna_fwd(*args, **geo)
+        want = knda.sparse_3dna_fwd_plain(*args, **geo)
+        lse = want[1]
+        got += knda.sparse_3dna_bwd_q(*args, g, lse, **geo)
+        want += knda.sparse_3dna_bwd_q_plain(*args, g, lse, **geo)
+        got += knda.sparse_3dna_bwd_kv(q, g, *want[3:5], **geo)
+        want += knda.sparse_3dna_bwd_kv_plain(q, g, *want[3:5], **geo)
+        torch.cuda.synchronize()
+        names = ("out", "lse", "dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk",
+                 "dv")
+        for name, a, b in zip(names, got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            err = _rel_err(a, b)
+            assert err <= (tol if b.dtype == dtype else 1e-5), f"{name} t={t}: {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic(dtype):
+    """Every output of the Sparse3DNA and cross backward kernels, dq, dk and
+    dv and the sums over queries included, is equal bit for bit across two
+    calls on the same inputs: the sums over queries run per block, then in
+    one fixed order over the blocks."""
+    _needs_cuda()
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, 2 * 1024 - 1)
+    geo = dict(fmap=(32, 32), kernel=(5, 3, 3), dilation=(1, 2, 2))
+    _, lse = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **geo)
+    runs = []
+    for _ in range(2):
+        got = knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse, **geo)
+        runs.append(got + knda.sparse_3dna_bwd_kv(q, g, got[1], got[2], **geo))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, 5 * 16 * 16, 2, 16)
+    mask = _cross_masks(2, 2, 16)["padded"]
+    geo = dict(fmap=16, kernel_size=3, dilation=1)
+    _, lse = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo)
+    runs = []
+    for _ in range(2):
+        got = kcross.sparse_cross_2dna_bwd_q(q, k, v, nk, nv, th, mask, q, lse, **geo)
+        runs.append(got + kcross.sparse_cross_2dna_bwd_kv(q, q, got[1], got[2], **geo))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -158,12 +158,16 @@ def test_generate_long_ids_match_jax(pair):
 
 def jax_params(jmodel, tmodel):
     """The port's weights as the JAX model's params tree, whose shape
-    ``jax.eval_shape`` gives without compiling the JAX init."""
-    jvae, jsvae = jmodel.vae, jmodel.sketch_vae
+    ``jax.eval_shape`` gives without compiling the JAX init; the JAX model
+    (a NUWA or a NUWASketch) takes the params and state of each of its
+    codecs."""
     key = jax.random.PRNGKey(0)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        key, vae_params=jvae.init(key), vae_state=jvae.init_state(key),
-        sketch_vae_params=jsvae.init(key), sketch_vae_state=jsvae.init_state(key)))
+    codecs = {}
+    for name in ("vae", "sketch_vae"):
+        vae = getattr(jmodel, name, None)
+        if vae is not None:
+            codecs.update({f"{name}_params": vae.init(key), f"{name}_state": vae.init_state(key)})
+    shapes = jax.eval_shape(lambda: jmodel.init(key, **codecs))
     tensors = _tensors(tmodel)
 
     def leaf(path, shape):
