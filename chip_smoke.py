@@ -14,7 +14,9 @@ Phases, each of which exits non-zero on failure:
    centered mode; the autograd function against autograd of the plain
    forward. Then each kernel's time, the plain version's time and the bound
    (the least time the card could take: bytes over 3.35 TB/s or operations
-   over the type's peak); then the SparseCross2DNA forward and its
+   over the type's peak, for the valid pairs of each geometry), in causal
+   mode at the training shape and in centered mode at the centered sketch
+   encoder's; then the SparseCross2DNA forward and its
    backward's two kernels (fp32 and bf16; one to three context frames,
    fmap 16 and 4, dilations 1 and 2, full, ragged and single query tokens,
    b 1 and 2, context masks all True, one frame masked and all False), the
@@ -67,7 +69,24 @@ Phases, each of which exits non-zero on failure:
    tokenizer, its step-0 sample written as a PNG and read back, the exact
    launches a step, step ms, tokens/s, peak memory and busy share; the fp32
    loss and every gradient on the GPU against the CPU, none for the codec;
-9. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+9. NUWAVideoAudio serving, BASELINE config 5: the forward kernel in the audio
+   geometry of SparseCausal2DNA (a (timesteps, 1, H) grid whose window spans
+   whole timesteps) against its plain version at heights 1, 4, 5, 9 and 32,
+   kernels 7 and 5, dilations 1 and 2, ragged last timesteps, the bias on
+   and off, fp32 and bf16; the backward kernels' refusal of that geometry;
+   held against its plain version and timed at the main path's two shapes,
+   with its bound; the three Sparse3DNA kernels at the dual decoder's video
+   launches against their plain versions; the depth-64
+   flagship (dim 512, 8 heads of 64, 256-px frames through a 4-layer codec,
+   fmap 16, 4 frames, 32 audio tokens a frame at 4 a timestep, a reversible
+   decoder, bf16) scoring pixels with forward (exactly 64 video and 64
+   audio launches), peak memory and tokens/s; bench.py's depth-12 config
+   (fmap 8 through a 2-layer codec on 32-px frames, H = 1) answering cached
+   generate (4 frames to pixels, no launch) and generate_long (6 frames, 12
+   + 12 launches a prefill) with tokens/s and the busy share of generate;
+   then fp32 GPU vs CPU at the flagship's widths, depth 2, 2 frames, H = 4:
+   codec ids, video and audio logits, the loss and greedy generate ids;
+10. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, median after warm-up), and the device's busy share of a
    generate of each model.
 
@@ -199,19 +218,22 @@ def bound_ms(nbytes, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL):
+def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="causal"):
     """{kernel: (least time, what bounds it)} for the work this input needs:
     each input read once, each output written once; operations (multiply and
-    add counted apart) for the valid (query, neighbour) pairs only, bos
+    add counted apart) for the valid (query, neighbour) pairs of this
+    geometry only (causal, centered or audio: ``knda.valid_pairs``), bos
     included. "bwd" is the whole backward as a function (q, k, v, g, bos,
     lse in; dq, dk, dv, the bos and parameter cotangents out), with no dS or
-    mix between its two kernels."""
+    mix between its two kernels. ``dil``: one dilation for every axis, or
+    the per-axis triple."""
     h, d, kn = HEADS, DIM_HEAD, kernel[0] * kernel[1] * kernel[2]
     es = torch.finfo(dtype).bits // 8
     row, bos, lse = b * h * t * d * es, b * h * d * es, b * h * t * 4
     params = h * h * 4 + (h * kn * 4 if bias else 0)
     slots = 2 * b * h * t * (kn + 1) * 4  # dS and mix, fp32
-    pairs = b * h * (knda.valid_neighbours(t, fmap, kernel, (dil,) * 3) + t)
+    dilation = dil if isinstance(dil, tuple) else (dil,) * 3
+    pairs = b * h * (knda.valid_pairs(t, fmap, kernel, dilation, mode) + t)
     mixes = b * t * (kn + 1) * 2 * h * h  # one (h x h) head mix of every slot
     # scores, dA and dq, the bos sums, the mixes of dP and P and the dth sum
     ops_q = pairs * 6 * d + b * t * h * 4 * d + 3 * mixes
@@ -293,17 +315,17 @@ def check_bwd(knda):
     ragged last frame (whose phantom token the centered windows reach) and
     t = 1, b 1 and 2. Returns the largest absolute error of each kernel."""
     cases = []
-    for causal, dtype, (fmap, frames), kernel, dil, bias, t_off, b in itertools.product(
-            (True, False), (torch.float32, torch.bfloat16), BWD_GRIDS,
+    for mode, dtype, (fmap, frames), kernel, dil, bias, t_off, b in itertools.product(
+            ("causal", "centered"), (torch.float32, torch.bfloat16), BWD_GRIDS,
             ((3, 3, 3), (5, 3, 3)), (1, 2, 4), (False, True), (0, 1, None), (1, 2)):
         full = frames * fmap[0] * fmap[1]
         t = 1 if t_off is None else full - t_off
-        cases.append((causal, dtype, fmap, t, kernel, dil, bias, b))
+        cases.append((mode, dtype, fmap, t, kernel, dil, bias, b))
     return check_nda_cases(knda, cases, SEED + 5)
 
 
 def check_nda_cases(knda, cases, seed):
-    """Each case (causal, dtype, fmap, t, kernel, dilation, bias, b): the
+    """Each case (mode, dtype, fmap, t, kernel, dilation, bias, b): the
     forward, query-side and key-side kernels against their plain versions.
     Errors are normalised by each reference's max abs (at least 1): the
     backward's outputs span orders of magnitude (dS near 0, the sums over
@@ -315,11 +337,10 @@ def check_nda_cases(knda, cases, seed):
     each kernel."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst_rel, worst_abs, count = {}, {}, {}
-    for causal, dtype, fmap, t, kernel, dil, bias, b in cases:
-        count[causal, dtype] = count.get((causal, dtype), 0) + 1
+    for mode, dtype, fmap, t, kernel, dil, bias, b in cases:
+        count[mode, dtype] = count.get((mode, dtype), 0) + 1
         args, g = nda_inputs(b, t, dtype, bias, gen, kernel)
-        kw = dict(fmap=fmap, kernel=kernel, dilation=(dil,) * 3,
-                  causal=causal)
+        kw = dict(fmap=fmap, kernel=kernel, dilation=(dil,) * 3, mode=mode)
         out, lse = knda.sparse_3dna_fwd(*args, **kw)
         ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **kw)
         got = knda.sparse_3dna_bwd_q(*args, g, ref_lse, **kw)
@@ -343,22 +364,21 @@ def check_nda_cases(knda, cases, seed):
             tol = TOL[dtype if name in ROUNDED else torch.float32]
             if not rel <= tol:
                 fail(f"{name} fmap={fmap} kernel={kernel} dil={dil} "
-                     f"bias={bias} t={t} b={b} {dtype} causal={causal}: "
+                     f"bias={bias} t={t} b={b} {dtype} {mode}: "
                      f"error {rel} of the max abs > {tol}")
-            key = (causal, kname, dtype, name in ROUNDED)
+            key = (mode, kname, dtype, name in ROUNDED)
             worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
             worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
         del args, g, out, lse, ref, ref_lse, got, want, pairs
     print("backward checks: errors over each reference's max abs (at least 1), since "
           "the outputs span orders of magnitude, sums over queries run in another "
           "order, and bf16 outputs round to 2**-8 of the value", flush=True)
-    for (causal, kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
+    for (mode, kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
         tol = TOL[dtype if rounded else torch.float32]
         which = f"outputs in {dtype}" if rounded else "fp32 outputs"
-        mode = "causal" if causal else "centered"
         print(f"sparse_3dna_{kname} vs plain, {mode}, {dtype} inputs, {which}: max error "
               f"{rel:.3e} of the reference's max abs (tolerance {tol:.0e}, "
-              f"{count[causal, dtype]} cases)", flush=True)
+              f"{count[mode, dtype]} cases)", flush=True)
     return worst_abs
 
 
@@ -385,19 +405,22 @@ def check_autograd(knda):
           f"b=2 t={t}: max error {worst:.3e} of the max abs (tolerance 1e-5)", flush=True)
 
 
-def time_train_kernels(knda, fmap=TRAIN_FMAP, t=TRAIN_T, plain_iters=5):
+def time_train_kernels(knda, fmap=TRAIN_FMAP, t=TRAIN_T, plain_iters=5, mode="causal",
+                       bias=True, dilations=(1, 2, 4)):
     """Each kernel at the training shape: b = 2, t = 2559 (10 frames of 256
     tokens, shifted by one; or the given fmap and t), 8 heads of 64, kernel
-    (5, 3, 3), rel-pos bias, bf16, at each dilation of the stack."""
+    (5, 3, 3), rel-pos bias, bf16, at each dilation of the stack (or in
+    centered mode, without the bias, at the given dilations: the sketch
+    encoder's shape)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     b, dtype = TRAIN_BATCH, torch.bfloat16
     rows = []
-    for dil in (1, 2, 4):
-        args, g = nda_inputs(b, t, dtype, True, gen, TRAIN_KERNEL)
-        kw = dict(fmap=fmap, kernel=TRAIN_KERNEL, dilation=(dil,) * 3)
+    for dil in dilations:
+        args, g = nda_inputs(b, t, dtype, bias, gen, TRAIN_KERNEL)
+        kw = dict(fmap=fmap, kernel=TRAIN_KERNEL, dilation=(dil,) * 3, mode=mode)
         _, lse = knda.sparse_3dna_fwd(*args, **kw)
         _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
-        bounds = nda_bounds(knda, b, t, dil, dtype, True, fmap, TRAIN_KERNEL)
+        bounds = nda_bounds(knda, b, t, dil, dtype, bias, fmap, TRAIN_KERNEL, mode)
         for name, kernel, plain in (
             ("fwd", lambda: knda.sparse_3dna_fwd(*args, **kw),
              lambda: knda.sparse_3dna_fwd_plain(*args, **kw)),
@@ -411,7 +434,8 @@ def time_train_kernels(knda, fmap=TRAIN_FMAP, t=TRAIN_T, plain_iters=5):
             rows.append(dict(name=name, dilation=dil, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by))
             print(f"sparse_3dna_{name} bf16 b={b} t={t} fmap {fmap} kernel {TRAIN_KERNEL} "
-                  f"dilation={dil}: kernel {ms:.4f} ms (device), plain {plain_ms:.4f} ms, "
+                  f"dilation={dil} {mode}: kernel {ms:.4f} ms "
+                  f"(device), plain {plain_ms:.4f} ms, "
                   f"bound {bound:.5f} ms ({by}), kernel / bound {ms / bound:.1f}x",
                   flush=True)
         # the backward as one function: its two kernels against its own bound
@@ -490,7 +514,9 @@ def serve(NUWA, knda):
 
 
 KERNELS = ("fwd", "bwd_q", "bwd_kv", "cross", "cross_bwd_q", "cross_bwd_kv")
-CENTERED = ("fwd", "bwd_q", "bwd_kv")  # the Sparse3DNA wrappers also count centered launches
+# the Sparse3DNA wrappers also count their launches per mode, centered and
+# audio among them
+CENTERED = ("fwd", "bwd_q", "bwd_kv")
 
 
 def kernel_wrappers(knda):
@@ -504,25 +530,26 @@ def kernel_wrappers(knda):
 
 
 def reset_launches(knda):
-    for name, fn in kernel_wrappers(knda).items():
+    knda.reset_launches()
+    for fn in kernel_wrappers(knda).values():
         fn.launches = 0
-        if name in CENTERED:
-            fn.centered_launches = 0
 
 
 def launch_counts(knda):
     """Each wrapper's launches since the reset, and the Sparse3DNA wrappers'
-    centered ones as "<name>_centered"."""
+    centered ones as "<name>_centered" and audio ones as "<name>_audio"."""
     fns = kernel_wrappers(knda)
     counts = {name: fn.launches for name, fn in fns.items()}
-    counts.update({f"{name}_centered": fns[name].centered_launches for name in CENTERED})
+    counts.update({f"{name}_{mode}": fns[name].mode_launches[mode] for name in CENTERED
+                   for mode in ("centered", "audio")})
     return counts
 
 
 def expect_launches(**nonzero):
     """The launch counts of a run that launches the named kernels that many
     times and no other."""
-    keys = (*KERNELS, *(f"{name}_centered" for name in CENTERED))
+    keys = (*KERNELS, *(f"{name}_{mode}" for mode in ("centered", "audio")
+                        for name in CENTERED))
     return {key: nonzero.get(key, 0) for key in keys}
 
 
@@ -706,6 +733,8 @@ def check_against_cpu(NUWA):
 
 
 def throughput(model, texts):
+    """tokens/s of each NUWA request, the median of 3 (serve() ran each once
+    already)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     n, nf = model.max_video_tokens, 2 * model.max_video_frames
     rates = {}
@@ -715,7 +744,7 @@ def throughput(model, texts):
         (f"generate_long b=1 ({nf} frames)", 1, 2 * n,
          lambda: model.generate_long(texts[1], num_frames=nf, generator=gen)),
     ):
-        ms = cuda_ms(call, iters=1, reps=3, warmup=0)  # serve() ran each once
+        ms = cuda_ms(call, iters=1, reps=3, warmup=0)
         rates[name] = tokens / (ms / 1e3)
         print(f"{name}: {ms:.1f} ms per request, {rates[name]:.1f} tokens/s", flush=True)
     return rates
@@ -1387,14 +1416,14 @@ def check_rb(knda):
     (32, 9) (3 frames, whole and with a ragged last frame of half its rows),
     fp32 and bf16. Returns the largest absolute error of each kernel."""
     cases = []
-    for causal, dtype, dil, bias in itertools.product(
-            (True, False), (torch.float32, torch.bfloat16), (1, 2, 4), (False, True)):
-        cases.append((causal, dtype, (FMAP128, FMAP128), T128, TRAIN_KERNEL, dil, bias, 2))
-    for causal, dtype, fmap, dil, ragged in itertools.product(
-            (True, False), (torch.float32, torch.bfloat16),
+    for mode, dtype, dil, bias in itertools.product(
+            ("causal", "centered"), (torch.float32, torch.bfloat16), (1, 2, 4), (False, True)):
+        cases.append((mode, dtype, (FMAP128, FMAP128), T128, TRAIN_KERNEL, dil, bias, 2))
+    for mode, dtype, fmap, dil, ragged in itertools.product(
+            ("causal", "centered"), (torch.float32, torch.bfloat16),
             ((12, 12), (20, 20), (24, 24), (32, 9)), (1, 2), (False, True)):
         t = 3 * fmap[0] * fmap[1] - (fmap[0] // 2 * fmap[1] if ragged else 0)
-        cases.append((causal, dtype, fmap, t, TRAIN_KERNEL, dil, True, 2))
+        cases.append((mode, dtype, fmap, t, TRAIN_KERNEL, dil, True, 2))
     return check_nda_cases(knda, cases, SEED + 30)
 
 
@@ -1408,10 +1437,10 @@ def check_determinism(knda, kcross):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
     checked = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for causal in (True, False):
+        for mode in ("causal", "centered"):
             args, g = nda_inputs(2, T128, dtype, True, gen, TRAIN_KERNEL)
             kw = dict(fmap=(FMAP128, FMAP128), kernel=TRAIN_KERNEL, dilation=(2, 2, 2),
-                      causal=causal)
+                      mode=mode)
             _, lse = knda.sparse_3dna_fwd(*args, **kw)
             runs = []
             for _ in range(2):
@@ -1420,7 +1449,7 @@ def check_determinism(knda, kcross):
             torch.cuda.synchronize()
             for name, a, b in zip(BWD_NAMES, *runs):
                 if not torch.equal(a, b):
-                    fail(f"sparse_3dna backward {name} ({dtype}, causal={causal}) differs "
+                    fail(f"sparse_3dna backward {name} ({dtype}, {mode}) differs "
                          f"between two calls on the same inputs")
                 checked += 1
         args = cross_inputs(2, SKETCH_TRAIN_T, 2, SKETCH_FMAP, dtype, gen)
@@ -1695,10 +1724,342 @@ def train_128_against_cpu(NUWA, VQGanVAE, tokenizer):
         fail("128 px training gradients differ between GPU and CPU")
 
 
+
+# ---------------------------------------------------------------------------
+# NUWAVideoAudio serving (BASELINE config 5) and the audio geometry
+# ---------------------------------------------------------------------------
+
+# the flagship as scripts/bench_dual_flagship.py:50-81 writes it: 256-px
+# frames through a 4-layer codec (fmap 16), 4 frames, 32 audio tokens a frame
+# at 4 a timestep, a reversible decoder of depth 64, SparseCausal2DNA kernel 7
+DUAL_VAE = dict(dim=16, image_size=256, num_layers=4, vq_codebook_size=1024,
+                vq_codebook_dim=64, use_vgg_and_gan=False, vq_kmeans_init=False,
+                use_attn=False, num_resnet_blocks=0, resnet_groups=8)
+DUAL = dict(dim=512, image_size=256, num_audio_tokens=1024,
+            num_audio_tokens_per_video_frame=32, audio_tokens_per_timestep=4,
+            max_video_frames=4, text_num_tokens=49408, text_max_seq_len=32,
+            text_enc_depth=2, text_enc_dim_head=64, text_enc_heads=8, dec_depth=64,
+            dec_dim_head=64, dec_heads=8, dec_reversible=True, sparse_3dna_kernel_size=3,
+            sparse_3dna_dilation=(1, 2), shift_video_tokens=True, shift_audio_tokens=True,
+            cross_modality_attn_every=3)
+# bench.py:308-342's for the token-by-token requests: depth 12, fmap 8 through
+# a 2-layer codec on 32-px frames, one audio token a timestep
+DUAL12_VAE = dict(DUAL_VAE, image_size=32, num_layers=2)
+DUAL12 = dict(DUAL, image_size=32, audio_tokens_per_timestep=1, dec_depth=12)
+AUDIO_KERNEL = 7  # sparse_2dna_kernel_size, the default of both configs
+# the audio forward's shapes on the main path, (b, height, t): the depth-64
+# forward scores 4 x 32 audio tokens at H = 4; each generate_long prefill runs
+# a window of 3 x 32 audio tokens at H = 1, b = 2 under CFG
+AUDIO_SHAPES = {"forward, H=4": (1, 4, 128), "generate_long prefill, H=1": (2, 1, 96)}
+# the video Sparse3DNA launches beside them, (fmap, b, t): the depth-64 forward
+# scores 4 frames of fmap 16, each generate_long prefill a window of 3 frames
+# of fmap 8 at b = 2; kernel 3, the stack's dilations 1 and 2, the bias
+DUAL_VIDEO_SHAPES = {"forward": ((16, 16), 1, 1024), "generate_long prefill": ((8, 8), 2, 192)}
+
+
+def audio_kw(height, kernel=AUDIO_KERNEL, dil=1):
+    """The audio geometry of SparseCausal2DNA for the kernel wrappers."""
+    return dict(fmap=(1, height), kernel=(kernel, 1, height), dilation=(dil, 1, 1),
+                mode="audio")
+
+
+def fwd_against_plain(knda, args, kw, dtype, what):
+    """The forward kernel against its plain version on ``args``: errors
+    over each reference's max abs (at least 1), fp32's tolerance for lse,
+    the type's for out; fails on a miss. Returns {name: (relative error,
+    absolute error)}."""
+    out, lse = knda.sparse_3dna_fwd(*args, **kw)
+    ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, w, tol in (("out", out, ref, TOL[dtype]),
+                            ("lse", lse, ref_lse, TOL[torch.float32])):
+        if a.dtype != w.dtype or a.shape != w.shape:
+            fail(f"{what} {name}: {a.dtype} {tuple(a.shape)} != {w.dtype} {tuple(w.shape)}")
+        err = (a.float() - w.float()).abs().max().item()
+        rel = err / max(1.0, w.float().abs().max().item())
+        if not rel <= tol:
+            fail(f"sparse_3dna_fwd {what} {name}: error {rel} of the max abs > {tol}")
+        errs[name] = rel, err
+    return errs
+
+
+def check_audio(knda):
+    """The forward kernel in the audio geometry against its plain version:
+    heights 1, 4, 5, 9 and 32, kernels 7 and 5, dilations 1 and 2, 12 whole
+    timesteps or a ragged last one (half its tokens), the bias on and off,
+    fp32 and bf16, b = 2, 8 heads of 64. Errors over each reference's max abs
+    (at least 1): fp32's tolerance for every fp32 output, bf16's for out in
+    bf16. Returns the largest absolute error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    worst, worst_abs, count = {}, 0.0, 0
+    for dtype, height, kernel, dil, ragged, bias in itertools.product(
+            (torch.float32, torch.bfloat16), (1, 4, 5, 9, 32), (7, 5), (1, 2), (False, True),
+            (False, True)):
+        if ragged and height == 1:
+            continue
+        t = 12 * height - (height // 2 if ragged else 0)
+        args, _ = nda_inputs(2, t, dtype, bias, gen, (kernel, 1, height))
+        errs = fwd_against_plain(knda, args, audio_kw(height, kernel, dil), dtype,
+                                 f"audio H={height} K={kernel} dil={dil} t={t} bias={bias} "
+                                 f"{dtype}")
+        count += 1
+        for name, (rel, err) in errs.items():
+            tol = TOL[dtype if name == "out" else torch.float32]
+            key = (str(dtype), name, tol)
+            worst[key] = max(worst.get(key, 0.0), rel)
+            worst_abs = max(worst_abs, err)
+    for (dtype, name, tol), rel in sorted(worst.items()):
+        print(f"sparse_3dna_fwd audio geometry {name} vs plain, {dtype}: max error "
+              f"{rel:.3e} of the reference's max abs (tolerance {tol:.0e}; {count} cases "
+              f"over both types: H 1, 4, 5, 9, 32, K 7 and 5, dilations 1 and 2, ragged "
+              f"last timesteps, bias on and off)", flush=True)
+    return worst_abs
+
+
+def check_audio_refusal(knda):
+    """On CUDA tensors the backward kernels and the autograd function's
+    backward refuse the audio geometry (its backward comes with training)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    kw = audio_kw(4)
+    args, g = nda_inputs(1, 30, torch.float32, True, gen, kw["kernel"])
+    _, lse = knda.sparse_3dna_fwd(*args, **kw)
+    slots = torch.zeros(1, HEADS, 30, AUDIO_KERNEL * 4 + 1, device="cuda")
+    leaves = [x.detach().requires_grad_() for x in args]
+    for name, call in (
+        ("sparse_3dna_bwd_q", lambda: knda.sparse_3dna_bwd_q(*args, g, lse, **kw)),
+        ("sparse_3dna_bwd_kv", lambda: knda.sparse_3dna_bwd_kv(args[0], g, slots, slots, **kw)),
+        ("sparse_3dna backward", lambda: knda.sparse_3dna(*leaves, **kw).sum().backward()),
+    ):
+        try:
+            call()
+        except NotImplementedError as err:
+            print(f"{name} refuses the audio geometry on the card: {err}", flush=True)
+        else:
+            fail(f"{name} ran in the audio geometry on the card")
+
+
+def check_dual_video(knda):
+    """The three Sparse3DNA kernels at the dual decoder's video launches
+    (DUAL_VIDEO_SHAPES), fp32 and bf16, against their plain versions.
+    Returns the largest absolute error of each kernel."""
+    cases = [("causal", dtype, fmap, t, (3, 3, 3), dil, True, b)
+             for fmap, b, t in DUAL_VIDEO_SHAPES.values()
+             for dtype in (torch.float32, torch.bfloat16) for dil in (1, 2)]
+    return check_nda_cases(knda, cases, SEED + 53)
+
+
+def time_audio(knda):
+    """The audio forward at the main path's shapes (AUDIO_SHAPES): bf16, 8
+    heads of 64, kernel 7, dilation 1, the rel-pos bias (both configs'),
+    held against the plain version on the same inputs (out to bf16's
+    tolerance, lse to fp32's), then timed beside it and the bound of its
+    valid pairs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    rows = {}
+    for name, (b, height, t) in AUDIO_SHAPES.items():
+        kw = audio_kw(height)
+        args, _ = nda_inputs(b, t, torch.bfloat16, True, gen, kw["kernel"])
+        errs = fwd_against_plain(knda, args, kw, torch.bfloat16, f"audio ({name}) b={b} t={t}")
+        print(f"sparse_3dna_fwd audio geometry ({name}) bf16 b={b} t={t} vs plain: out "
+              f"{errs['out'][0]:.3e}, lse {errs['lse'][0]:.3e} of the max abs (tolerances "
+              f"{TOL[torch.bfloat16]:.0e}, {TOL[torch.float32]:.0e})", flush=True)
+        ms = device_ms(lambda: knda.sparse_3dna_fwd(*args, **kw))
+        plain = device_ms(lambda: knda.sparse_3dna_fwd_plain(*args, **kw), iters=5)
+        bound, by = nda_bounds(knda, b, t, kw["dilation"], torch.bfloat16, True, kw["fmap"],
+                               kw["kernel"], "audio")["fwd"]
+        rows[name] = dict(b=b, height=height, t=t, ms=ms, plain_ms=plain, bound_ms=bound,
+                          bound_by=by, max_abs_err=max(e for _, e in errs.values()))
+        print(f"sparse_3dna_fwd audio geometry ({name}) bf16 b={b} t={t} kernel "
+              f"({AUDIO_KERNEL}, 1, {height}): kernel {ms:.4f} ms (device), plain "
+              f"{plain:.4f} ms, bound {bound:.5f} ms ({by}), kernel / bound "
+              f"{ms / bound:.1f}x", flush=True)
+    return rows
+
+
+def dual_model(NUWAVideoAudio, VQGanVAE, cfg, vae_cfg, device="cuda", dtype="bfloat16",
+               seed=SEED, **kw):
+    vae = VQGanVAE(**vae_cfg, device=device, seed=seed + 60)
+    return NUWAVideoAudio(vae=vae, **dict(cfg, **kw), compute_dtype=dtype, device=device,
+                          seed=seed)
+
+
+def timed(call):
+    """(result, ms) of one call, CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = call()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_request(name, knda, call, expect, checks):
+    """Run one request with the counts set to 0 just before it and read just
+    after; ``checks``: (what, tensor, shape, upper bound of its ids or None
+    for finite values). Returns (output, ms, launch counts read)."""
+    reset_launches(knda)
+    out, ms = timed(call)
+    got = launch_counts(knda)
+    checked = checks(out)
+    for what, x, shape, high in checked:
+        if tuple(x.shape) != shape:
+            fail(f"{name}: {what} {tuple(x.shape)} != {shape}")
+        ok = torch.isfinite(x).all() if high is None else (x.min() >= 0) & (x.max() < high)
+        if not ok:
+            fail(f"{name}: {what} not finite or out of range")
+    if got != expect:
+        fail(f"{name}: launches {got}, expected {expect}")
+    print(f"{name}: {', '.join(f'{w} {tuple(x.shape)}' for w, x, _, _ in checked)} ok, "
+          f"sparse_3dna_fwd launches {got['fwd']} of which audio {got['fwd_audio']} "
+          f"(as expected)", flush=True)
+    return out, ms, got
+
+
+def serve_dual(NUWAVideoAudio, VQGanVAE, knda):
+    """BASELINE config 5, bf16, b = 1. The depth-64 flagship scores 256-px
+    pixels through the codec (forward: 64 video and 64 audio launches of the
+    forward kernel), three times, the first checked, then its busy share;
+    the depth-12 config of
+    bench.py samples 4 frames with cached generate (no launch) and 6 frames
+    with generate_long (two prefills of 12 + 12 launches), both with CFG 2.0
+    and decoded to pixels, then the device's busy share of a one-frame
+    generate. Returns the launches and the rates."""
+    gen_cpu = torch.Generator().manual_seed(SEED + 61)
+    text = request_text(1, gen_cpu)
+    model = dual_model(NUWAVideoAudio, VQGanVAE, DUAL, DUAL_VAE)
+    frames, size = DUAL["max_video_frames"], DUAL["image_size"]
+    atpf, vocab = DUAL["num_audio_tokens_per_video_frame"], DUAL["num_audio_tokens"]
+    nv, na = frames * model.tokens_per_frame, frames * atpf
+    video = torch.from_numpy(moving_squares(1, frames, size, np.random.default_rng(SEED + 62)))
+    audio = torch.randint(0, vocab, (1, na), generator=gen_cpu)
+    depth = DUAL["dec_depth"]
+    torch.cuda.reset_peak_memory_stats()
+    call = torch.no_grad()(lambda: model(text, video, audio))
+    _, first, got = check_request(
+        f"dual forward b=1, {size} px, depth {depth}", knda, call,
+        expect_launches(fwd=2 * depth, fwd_audio=depth),
+        lambda out: (("video logits", out[0], (1, nv + 1, 1024), None),
+                     ("audio logits", out[1], (1, na + 1, vocab), None)))
+    times = [first] + [timed(call)[1] for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times)
+    rates = {"forward": (nv + na) / (ms / 1e3)}
+    launches = {k: got[k] for k in ("fwd", "fwd_audio")}
+    print(f"dual forward b=1 depth {depth}: {ms:.1f} ms per request (median of "
+          f"{', '.join(f'{x:.1f}' for x in times)}), {rates['forward']:.0f} tokens/s "
+          f"({nv} video + {na} audio), peak memory {peak:.2f} GiB", flush=True)
+    share(call, f"dual forward b=1, depth {depth}", wall=ms)
+    del model, call
+    torch.cuda.empty_cache()
+
+    model = dual_model(NUWAVideoAudio, VQGanVAE, DUAL12, DUAL12_VAE)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    depth, size = DUAL12["dec_depth"], DUAL12["image_size"]
+    per_frame = model.tokens_per_frame + atpf
+    for name, frames, call, expect in (
+        ("dual generate b=1, 4 frames, pixels", 4,
+         lambda: model.generate(text, generator=g), expect_launches()),
+        # one prefill of both towers per frame past the window
+        ("dual generate_long b=1, 6 frames, pixels", 6,
+         lambda: model.generate_long(text, num_frames=6, generator=g),
+         expect_launches(fwd=2 * 2 * depth, fwd_audio=2 * depth)),
+    ):
+        _, ms, got = check_request(
+            name, knda, call, expect,
+            lambda out, f=frames: (("video", out[0], (1, f, 3, size, size), None),
+                                   ("audio ids", out[1], (1, f * atpf), vocab)))
+        rates[name] = frames * per_frame / (ms / 1e3)
+        launches = {k: launches[k] + got[k] for k in launches}
+        print(f"{name}: {ms:.1f} ms, {rates[name]:.1f} tokens/s ({frames * per_frame} "
+              f"tokens, one cached step each)", flush=True)
+    one = lambda: model.generate(text, generator=g, num_frames=1)  # noqa: E731
+    share(one, f"dual generate b=1, 1 frame ({per_frame} token steps)", wall=timed(one)[1])
+    del model
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+def dual_against_cpu(NUWAVideoAudio, VQGanVAE):
+    """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
+    cross-modality attention every 2 depths (so the depth-2 stack holds one
+    xmod block), the same weights on the GPU (kernels) and the CPU (plain
+    path): codec ids equal, video and audio logits within LOGITS_ATOL of
+    their max abs, the loss within LOSS_ATOL, and the greedy ids of cached
+    generate (CFG 2.0) equal, video and audio (or first apart at a tie of the
+    CPU's top-2 logits, by sampling order)."""
+    import nuwa_tpu_torch.models.nuwa_video_audio as va
+
+    cfg = dict(DUAL, dec_depth=2, max_video_frames=2, cross_modality_attn_every=2)
+    gen = torch.Generator().manual_seed(SEED + 64)
+    text = request_text(1, gen)
+    video = torch.from_numpy(moving_squares(1, 2, DUAL["image_size"],
+                                            np.random.default_rng(SEED + 65)))
+    audio = torch.randint(0, DUAL["num_audio_tokens"], (1, 64), generator=gen)
+    thres = 1 - 0.5 / 1024  # top-k keeps k = 1 of both vocabularies: greedy
+    runs, gaps = [], []
+    filter_ = va.top_k_filter
+
+    def recording(logits, thres):  # the CPU rollout's top-2 gap at every sample
+        top = logits.float().topk(2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).min().item())
+        return filter_(logits, thres)
+
+    for device in ("cuda", "cpu"):
+        model = dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
+                           seed=SEED + 66)
+        start = time.perf_counter()
+        with torch.no_grad():
+            ids = model.vae.get_video_indices(video).cpu()
+            logits = [x.cpu() for x in model(text, video, audio)]
+            loss = model(text, video, audio, return_loss=True).item()
+        va.top_k_filter = recording if device == "cpu" else filter_
+        try:
+            sampled = [x.cpu() for x in model.generate(text, num_frames=2, filter_thres=thres,
+                                                       decode_video=False)]
+        finally:
+            va.top_k_filter = filter_
+        runs.append((ids, logits, loss, sampled))
+        print(f"dual fp32 forward, loss and 2-frame greedy generate on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        del model
+    (ids_g, logits_g, loss_g, samp_g), (ids_c, logits_c, loss_c, samp_c) = runs
+    if not torch.equal(ids_g, ids_c):
+        fail(f"dual codec ids differ between GPU and CPU: {(ids_g != ids_c).sum().item()}")
+    for what, a, b in zip(("video", "audio"), logits_g, logits_c):
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        print(f"dual fp32 {what} logits GPU vs CPU: max error {rel:.3e} of the max abs "
+              f"(tolerance {LOGITS_ATOL:.0e})", flush=True)
+        if not rel <= LOGITS_ATOL:
+            fail(f"dual {what} logits differ between GPU and CPU")
+    print(f"dual fp32 loss GPU vs CPU: {loss_g:.6f} vs {loss_c:.6f} (tolerance "
+          f"{LOSS_ATOL:.0e})", flush=True)
+    if not abs(loss_g - loss_c) <= LOSS_ATOL:
+        fail("the dual loss differs between GPU and CPU")
+    vtpf = (DUAL["image_size"] // 2 ** DUAL_VAE["num_layers"]) ** 2
+    atpf = DUAL["num_audio_tokens_per_video_frame"]
+    order = []  # sampling index of the first difference in each modality
+    for a, b, n, offset in ((samp_g[0], samp_c[0], vtpf, 0), (samp_g[1], samp_c[1], atpf, vtpf)):
+        diff = (a != b).nonzero()
+        if len(diff):
+            p = diff[0, 1].item()
+            order.append((p // n) * (vtpf + atpf) + offset + p % n)
+    if not order:
+        print(f"dual greedy generate fp32 ids GPU vs CPU: all {samp_c[0].numel()} video and "
+              f"{samp_c[1].numel()} audio ids equal", flush=True)
+        return
+    first = min(order)
+    print(f"dual greedy ids differ first at sample {first}; CPU top-2 logit gap there "
+          f"{gaps[first]:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
+    if not gaps[first] < TIE_GAP:
+        fail("dual greedy generate ids differ between GPU and CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
-    from nuwa_tpu_torch import NUWA, NUWASketch, VQGanVAE, tokenizer
+    from nuwa_tpu_torch import NUWA, NUWASketch, NUWAVideoAudio, VQGanVAE, tokenizer
     from nuwa_tpu_torch.kernels import build
     from nuwa_tpu_torch.kernels import cross as kcross
     from nuwa_tpu_torch.kernels import nda as knda
@@ -1732,6 +2093,10 @@ def main():
     check_autograd(knda)
     time_nda(knda)
     train_rows = time_train_kernels(knda)
+    # centered mode at the centered sketch encoder's shape (2 frames of fmap
+    # 16 less one token, its dilations 1 and 2, no bias), its own bound
+    centered_rows = time_train_kernels(knda, fmap=(SKETCH_FMAP,) * 2, t=2 * SKETCH_FMAP**2 - 1,
+                                       mode="centered", bias=False, dilations=(1, 2))
     cross_err = check_cross(kcross)
     cross_rows = time_cross(kcross)
     cross_bwd_err = check_cross_bwd(kcross)
@@ -1760,28 +2125,40 @@ def main():
     train128_launches = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda)
     train_128_against_cpu(NUWA, VQGanVAE, tokenizer)
     phase("NUWA training at 128 px")
+    audio_err = check_audio(knda)
+    check_audio_refusal(knda)
+    dual_errs = check_dual_video(knda)
+    audio_rows = time_audio(knda)
+    dual_launches, _ = serve_dual(NUWAVideoAudio, VQGanVAE, knda)
+    dual_against_cpu(NUWAVideoAudio, VQGanVAE)
+    phase("NUWAVideoAudio serving and the audio geometry")
     throughput(model, texts)
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
     phase("throughput")
 
     # launches: the NUWA serving run's, the training run's, the sketch
-    # serving run's, the sketch training runs' and the 128-px runs';
+    # serving run's, the sketch training runs', the 128-px runs' and the
+    # NUWAVideoAudio serving runs' (their audio launches under "audio");
     # Sparse3DNA times at the fmap-16 training shape, dilation 2, and under
     # "fmap_32" at the fmap-32 one, where the JAX package runs its
     # row-blocked kernels (rows 4-6 of the table); the cross forward's at the
     # sketch forward shape, the cross backward's at the sketch training
     # shape; no single PyTorch call computes the talking-heads attention or
     # its backward, so library_ms is null
-    serve_counts = {"fwd": serve_launches + sketch_fwd, "bwd_q": 0, "bwd_kv": 0}
+    serve_counts = {"fwd": serve_launches + sketch_fwd + dual_launches["fwd"], "bwd_q": 0,
+                    "bwd_kv": 0}
     sketch_train_total = {k: sketch_train_launches[1][k] + sketch_train_launches[2][k]
                           for k in sketch_train_launches[1]}
     fmap32_launches = {"fwd": serve128_launches, "bwd_q": 0, "bwd_kv": 0}
     entries = []
     for name, source, line, rb_line, err in (
-        ("fwd", "sparse3dna_fwd.cu", 239, 403, max(fwd_err, errs["fwd"], rb_errs["fwd"])),
-        ("bwd_q", "sparse3dna_bwd_q.cu", 865, 580, max(errs["bwd_q"], rb_errs["bwd_q"])),
-        ("bwd_kv", "sparse3dna_bwd_kv.cu", 1029, 745, max(errs["bwd_kv"], rb_errs["bwd_kv"])),
+        ("fwd", "sparse3dna_fwd.cu", 239, 403,
+         max(fwd_err, errs["fwd"], rb_errs["fwd"], dual_errs["fwd"])),
+        ("bwd_q", "sparse3dna_bwd_q.cu", 865, 580,
+         max(errs["bwd_q"], rb_errs["bwd_q"], dual_errs["bwd_q"])),
+        ("bwd_kv", "sparse3dna_bwd_kv.cu", 1029, 745,
+         max(errs["bwd_kv"], rb_errs["bwd_kv"], dual_errs["bwd_kv"])),
     ):
         row = next(r for r in train_rows if r["name"] == name and r["dilation"] == 2)
         rb_row = next(r for r in rb_rows if r["name"] == name and r["dilation"] == 2)
@@ -1795,7 +2172,7 @@ def main():
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             # causal windows (the video decoder), centered ones (the sketch encoder)
-            "modes": "causal and centered",
+            "modes": "causal, centered and audio" if name == "fwd" else "causal and centered",
             "centered_launches": sketch_train_total[f"{name}_centered"],
             # frames past 256 tokens: the row-blocked TPU kernel's shapes
             "fmap_32": {
@@ -1805,9 +2182,28 @@ def main():
                 "library_ms": None,
             },
         })
+        # centered mode at the sketch encoder's shape, dilation 1
+        c_row = next(r for r in centered_rows if r["name"] == name and r["dilation"] == 1)
+        entries[-1]["centered"] = {
+            "b": TRAIN_BATCH, "t": 2 * SKETCH_FMAP**2 - 1,
+            **{k: c_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
         if "backward_bound_ms" in row:  # the bound of B2 and B3 together
             entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
             entries[-1]["fmap_32"]["backward_bound_ms"] = rb_row["backward_bound_ms"]
+            entries[-1]["centered"]["backward_bound_ms"] = c_row["backward_bound_ms"]
+    # the audio geometry of SparseCausal2DNA (TPU kernels 1 and 4 through
+    # _audio_core_op and _audio_rb_core_op), at the depth-64 forward's shape
+    # (H = 4) and, under "at_h1", the generate_long prefill's (H = 1)
+    fwd_audio = audio_rows["forward, H=4"]
+    entries[0]["audio"] = {
+        "replaces": "nuwa_tpu/kernels/nda_pallas.py:2251 and :2455",
+        "launches": dual_launches["fwd_audio"],
+        "max_abs_err": max(audio_err, *(r["max_abs_err"] for r in audio_rows.values())),
+        **{k: fwd_audio[k] for k in ("b", "t", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "at_h1": {k: audio_rows["generate_long prefill, H=1"][k]
+                  for k in ("b", "t", "ms", "plain_ms", "bound_ms", "bound_by")},
+    }
     # one CUDA kernel replaces both fused TPU kernels: at two context frames
     # (_xfused_kernel) and at one (_xfused1_kernel)
     for frames, line in ((2, 2731), (1, 2810)):

@@ -5,12 +5,13 @@ indices joined with dots), the reversible layout included (a
 ``ReversibleTransformer``'s ``layers.<i>.f`` and ``layers.<i>.g`` are the JAX
 couples' ``{"f", "g"}``), with these exceptions:
 
-* ``ShiftVideo`` wraps its inner block as a module, while the JAX tree puts
-  the inner block's params in its place;
+* ``ShiftVideo`` and ``ShiftAudio`` wrap their inner block as a module,
+  while the JAX tree puts the inner block's params in its place;
 * a ``VQGanVAE``'s tree is ``{"params": ..., "state": ...}``, the form a
   ``NUWA`` tree holds under ``"vae"`` and a ``NUWASketch`` tree under
   ``"vae"`` and ``"sketch_vae"``: its parameters come from ``params`` and
-  its quantizer's buffers (``vq.embed`` ...) from ``state["vq"]``;
+  its quantizer's buffers (``vq.embed`` ...) from ``state["vq"]`` (a
+  ``NUWAVideoAudio`` tree holds it under ``"vae"`` too);
 * ``Conv2d.w`` is OIHW in the port and HWIO in the JAX package, so it is
   transposed on the way in.
 
@@ -25,7 +26,7 @@ import torch
 from torch import nn
 
 from .core.layers import Conv2d
-from .transformer import ShiftVideo
+from .transformer import ShiftAudio, ShiftVideo
 from .vqgan_vae import VQGanVAE
 
 
@@ -52,7 +53,7 @@ def jax_path(module: nn.Module, name: str, buffer: bool = False) -> str:
         rest = name[len(head):]
         if isinstance(sub, VQGanVAE):
             return head + ("state." if buffer else "params.") + rest
-        if isinstance(sub, ShiftVideo) and rest.startswith("inner."):
+        if isinstance(sub, (ShiftVideo, ShiftAudio)) and rest.startswith("inner."):
             return head + rest[len("inner."):]
     return name
 
@@ -96,9 +97,16 @@ def load_vqgan_vae(vae: VQGanVAE, params, state) -> VQGanVAE:
 
 
 def load_nuwa_vae(nuwa, params):
-    """Load only the codec of a JAX ``NUWA`` params tree, its ``"vae"``
-    subtree (``{"params": eval params, "state": codebook state}``), into
-    ``nuwa.vae``; the rest of the model keeps its weights."""
-    if nuwa.vae is None or "vae" not in params:
+    """Load only the codec of a JAX ``NUWA`` (or ``NUWAVideoAudio``) params
+    tree, its ``"vae"`` subtree (``{"params": eval params, "state": codebook
+    state}``), into ``nuwa.vae``; the rest of the model keeps its weights."""
+    if getattr(nuwa, "vae", None) is None or "vae" not in params:
         raise ValueError("both the model and the params tree need a VAE")
     return load_vqgan_vae(nuwa.vae, params["vae"]["params"], params["vae"]["state"])
+
+
+def load_nuwa_video_audio(model, params):
+    """Load a JAX ``NUWAVideoAudio`` params tree into the port's, its
+    ``"vae"`` subtree as for NUWA. The tree is float (an int8 tree from
+    ``nuwa_tpu.utils.quantize`` is not taken); every leaf is used once."""
+    return load_jax_params(model, params)

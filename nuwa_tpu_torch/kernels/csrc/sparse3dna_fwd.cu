@@ -1,16 +1,29 @@
-// Sparse3DNA forward (causal or centered, no dropout) for Hopper, sm_90a.
+// Sparse3DNA forward (causal, centered or audio, no dropout) for Hopper,
+// sm_90a.
 //
 // Replaces the TPU kernel `_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_fwd_call`, its pl.pallas_call, and the lane-packed
-// `_packed_core_op` at fmap 8). It computes the same function: every video
-// query attends its Kf*Kh*Kw dilated neighbours plus the bos key/value
-// (causal windows for the video decoder, centered ones for the sketch
-// encoder; a neighbour counts when it lies in the grid and before the
-// sequence end t, so the phantom tokens of a ragged last frame, which
-// centered windows reach, are masked), with an optional per-head
+// `_packed_core_op` at fmap 8), and in the audio geometry the same kernel
+// and the row-blocked `_rb_kernel` as `_audio_core_op` and
+// `_audio_rb_core_op` run them for SparseCausal2DNA. It computes the same
+// function: every query attends its Kf*Kh*Kw dilated neighbours plus the
+// bos key/value (causal windows for the video decoder, centered ones for
+// the sketch encoder; a neighbour counts when it lies in the grid and
+// before the sequence end t, so the phantom tokens of a ragged last frame,
+// which centered windows reach, are masked), with an optional per-head
 // relative-position bias; the softmax is fp32; the normalised probabilities
 // are mixed across heads by the talking-heads matrix (bos column included)
 // before they weight the values.
+//
+// The audio geometry is SparseCausal2DNA's grid of (timesteps, 1, H): the
+// time axis is causal with kernel Kf and dilation df, and on the width
+// axis the window is the whole timestep, the absolute columns 0..H-1, not
+// offsets around the query (kw = H). So a query sees every token of its
+// own timestep, the later ones included, as the JAX module's forward does;
+// the padded columns of a ragged last timestep lie at or past t and are
+// masked. The TPU kernels reach this function through pseudo-frames of G
+// timesteps with per-tap masks (`_audio_geometry`, `_audio_masks_np`); here
+// the neighbour comes from the coordinates, as in the video geometry.
 // It writes `out` (in the inputs' type) and the per-row logsumexp `lse`
 // (fp32), the residual a flash-style backward consumes.
 //
@@ -68,21 +81,25 @@ struct Geometry {
   int fh, fw;      // frame height and width
   int kf, kh, kw;  // kernel size per axis
   int df, dh, dw;  // dilation per axis
-  int causal;      // 1: causal windows, 0: centered
+  int mode;        // kCentered, kCausal or kAudio
 };
+
+constexpr int kCentered = 0, kCausal = 1, kAudio = 2;
 
 // Token id of the neighbour of (f, y, x) through window slot j, or -1 where
 // it lies outside the grid or at or past t. Slot j enumerates (a, b, c)
 // row-major; the offset on an axis of kernel k and dilation d is
-// (a - (k-1))*d when causal and (a - (k-1)/2)*d when centered.
+// (a - (k-1))*d when causal and (a - (k-1)/2)*d when centered. In the audio
+// geometry the frame and height axes are causal and the column is c itself.
 __device__ __forceinline__ int neighbour(const Geometry& g, int f, int y, int x, int j) {
   const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-  const int cf = g.causal ? g.kf - 1 : (g.kf - 1) / 2;
-  const int ch = g.causal ? g.kh - 1 : (g.kh - 1) / 2;
-  const int cw = g.causal ? g.kw - 1 : (g.kw - 1) / 2;
+  const bool causal = g.mode != kCentered;
+  const int cf = causal ? g.kf - 1 : (g.kf - 1) / 2;
+  const int ch = causal ? g.kh - 1 : (g.kh - 1) / 2;
+  const int cw = causal ? g.kw - 1 : (g.kw - 1) / 2;
   const int nf = f + (a - cf) * g.df;
   const int ny = y + (r / g.kw - ch) * g.dh;
-  const int nx = x + (r % g.kw - cw) * g.dw;
+  const int nx = g.mode == kAudio ? r % g.kw : x + (r % g.kw - cw) * g.dw;
   if (nf < 0 || ny < 0 || ny >= g.fh || nx < 0 || nx >= g.fw) return -1;
   const int tok = (nf * g.fh + ny) * g.fw + nx;
   return tok < g.t ? tok : -1;
@@ -217,6 +234,9 @@ int launch(const void* q, const void* k, const void* v, const void* kbos,
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(heads) * heads + 2 * heads * (kn + 1)) +
       sizeof(int) * kn;
+  // Past the 48 KB default the block's limit is raised to what it asks; past
+  // the card's opt-in maximum that call fails, and its error is returned
+  // (the wrapper raises it).
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         sparse3dna_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -238,15 +258,16 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, k, v, out
 // (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
-// bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32; causal 1 for
-// causal windows, 0 for centered.
+// bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32; mode 1 for
+// causal windows, 0 for centered, 2 for the audio geometry (fh = kh = 1,
+// kw = fw = H).
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* kbos, const void* vbos, const float* th,
                         const float* bias, void* out, float* lse, int b,
                         int heads, int t, int d, int fh, int fw, int kf, int kh,
-                        int kw, int df, int dh, int dw, int causal, void* stream) {
-  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
+                        int kw, int df, int dh, int dw, int mode, void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, s);

@@ -4,6 +4,15 @@ and the autograd function that joins them.
 Three kernels, each replacing two TPU kernels of
 ``nuwa_tpu/kernels/nda_pallas.py`` without dropout, in both of their modes:
 causal windows (the video decoder) and centered ones (the sketch encoder).
+The forward also takes the audio geometry of ``SparseCausal2DNA``
+(``mode="audio"``): a grid of (timesteps, 1, H) with ``fmap=(1, H)``,
+``kernel=(K, 1, H)`` and ``dilation=(d, 1, 1)``, causal in time, whose
+window on the width axis is the whole timestep (the absolute columns
+0..H-1, mode ``"full"`` of ``nuwa_tpu/nda.py``), so a query also sees the
+later tokens of its own timestep, as the JAX module's forward does. It
+replaces ``_kernel`` and ``_rb_kernel`` as ``_audio_core_op`` and
+``_audio_rb_core_op`` run them; the backward kernels' audio mode comes with
+NUWAVideoAudio training, and on a CUDA tensor they refuse it.
 The JAX package takes the whole-frame kernels for frames of up to 256
 tokens and the row-blocked ones above that (``rb_row_block``); each kernel
 here takes a frame of any size:
@@ -66,18 +75,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1  # token ids and t are 32-bit ints in the kernels
 _MAX_GRID_Y = 65535  # the batch rows are the grid's second axis
 _QUERIES_PER_BLOCK = 4  # kQueriesPerBlock of the query-side kernels
+# the window geometry: its name and the kernels' mode argument
+MODES = {"centered": 0, "causal": 1, "audio": 2}
 
 
 @functools.lru_cache(maxsize=64)
-def _neighbour_table(t, fmap, kernel, dilation, causal, device):
-    """(t, Kn) neighbour token ids (causal or centered windows) and their
-    validity, phantom tokens masked."""
+def _neighbour_table(t, fmap, kernel, dilation, mode, device):
+    """(t, Kn) neighbour token ids (causal or centered windows, or the audio
+    geometry's whole timesteps) and their validity, phantom tokens masked."""
     from ..nda import build_nda_indices
 
     fh, fw = fmap
     frames = -(-t // (fh * fw))
-    mode = "causal" if causal else "centered"
-    idx, valid = build_nda_indices((frames, fh, fw), kernel, dilation, (mode,) * 3)
+    if mode == "audio":  # (timesteps, H) with the width axis "full"
+        idx, valid = build_nda_indices((frames, fw), (kernel[0], fw), (dilation[0], 1),
+                                       ("causal", "full"))
+    else:
+        idx, valid = build_nda_indices((frames, fh, fw), kernel, dilation, (mode,) * 3)
     idx, valid = idx[:t], valid[:t] & (idx[:t] < t)
     return (
         torch.as_tensor(idx, dtype=torch.long, device=device).clamp(max=t - 1),
@@ -85,20 +99,21 @@ def _neighbour_table(t, fmap, kernel, dilation, causal, device):
     )
 
 
-def valid_neighbours(t, fmap, kernel, dilation) -> int:
-    """How many (query, causal neighbour) pairs of a t-token sequence are
-    valid."""
-    _, valid = _neighbour_table(t, tuple(fmap), tuple(kernel), tuple(dilation), True, "cpu")
+def valid_pairs(t, fmap, kernel, dilation, mode="causal") -> int:
+    """How many (query, neighbour) pairs of a t-token sequence are valid in
+    the given geometry (causal, centered or audio), bos not counted."""
+    _check_geometry(fmap, kernel, dilation, mode)
+    _, valid = _neighbour_table(t, tuple(fmap), tuple(kernel), tuple(dilation), mode, "cpu")
     return int(valid.sum())
 
 
 def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                          *, fmap, kernel, dilation, causal=True):
+                          *, fmap, kernel, dilation, mode="causal"):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
     results as ``sparse_3dna_fwd``."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), causal, str(q.device)
+        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
     )
     qf = q.float()
     sim = torch.einsum("bhid,bhijd->bhij", qf, k.float()[:, :, idx])
@@ -124,12 +139,12 @@ def _gathered(x, idx, bos):
 
 
 def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                            *, fmap, kernel, dilation, causal=True):
+                            *, fmap, kernel, dilation, mode="causal"):
     """Plain PyTorch version of the query-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_q``."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), causal, str(q.device)
+        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
     )
     qf, gf, th = q.float(), grad.float(), talking_heads.float()
     keys, vals = _gathered(k, idx, k_bos), _gathered(v, idx, v_bos)
@@ -152,12 +167,12 @@ def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad
             dth, dbias)
 
 
-def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, causal=True):
+def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal"):
     """Plain PyTorch version of the key-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_kv``."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), causal, str(q.device)
+        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
     )
     kn = idx.shape[1]
     flat = idx.reshape(-1)
@@ -204,13 +219,27 @@ def _launch(name, dtype, pointers, ints, device):
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
+def _check_geometry(fmap, kernel, dilation, mode):
+    """``mode`` is one of ``MODES``; the audio geometry is a (timesteps, 1, H)
+    grid whose window spans the whole timestep: fmap (1, H), kernel
+    (K, 1, H), dilation (d, 1, 1)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
+    if mode == "audio" and not (fmap[0] == 1 and kernel[1] == 1 and kernel[2] == fmap[1]
+                      and tuple(dilation[1:]) == (1, 1)):
+        raise ValueError("the audio geometry needs fmap (1, H), kernel (K, 1, H) and "
+                         f"dilation (d, 1, 1), got {fmap}, {kernel}, {dilation}")
+
+
 def _check_cuda(name, q, fmap, kernel, dilation, tensors):
     """Raise on anything the kernels do not take. ``tensors``: (name, tensor,
     shape, dtype) to check beside q (b, h, t, d). A frame of any size is
     taken: the kernels bound only the heads (one warp each, 32 a block),
     the head dim (8 registers a lane) and what their 32-bit ints index,
     t and the token ids of the windows, which reach at most one window's
-    frames past t."""
+    frames past t. The forward's shared memory grows with Kn (K·H in the
+    audio geometry): past the card's opt-in maximum its launch fails, and
+    ``_launch`` raises."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     b, h, t, d = q.shape
@@ -246,36 +275,38 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
-def _count(fn, causal):
-    """One launch of ``fn``'s kernel: its count, and its count of centered
-    launches."""
+def _count(fn, mode):
+    """One launch of ``fn``'s kernel: its count, and its count in ``mode``."""
     fn.launches += 1
-    fn.centered_launches += not causal
+    fn.mode_launches[mode] += 1
 
 
 def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                    *, fmap, kernel, dilation, causal=True):
-    """Sparse3DNA attention of t video queries over their dilated
-    neighbourhoods (causal windows, or centered ones with ``causal=False``)
-    plus bos.
+                    *, fmap, kernel, dilation, mode="causal"):
+    """Sparse3DNA attention of t queries over their dilated neighbourhoods
+    (causal windows, centered ones with ``mode="centered"``, or with
+    ``mode="audio"`` the whole-timestep windows of SparseCausal2DNA) plus bos.
 
     q (pre-scaled by dim_head**-0.5), k, v: (b, h, t, d); k_bos, v_bos:
     (b, h, 1, d); talking_heads: (h, h); rel_bias: (h, kf*kh*kw) or None;
-    fmap: (height, width) of a frame; kernel, dilation: per-axis triples.
-    Returns out (b, h, t, d) in q's dtype and lse (b, h, t) in fp32.
+    fmap: (height, width) of a frame, (1, H) in the audio geometry; kernel,
+    dilation: per-axis triples, (K, 1, H) and (d, 1, 1) in the audio
+    geometry. Returns out (b, h, t, d) in q's dtype and lse (b, h, t) in fp32.
     """
+    _check_geometry(fmap, kernel, dilation, mode)
     if q.device.type == "cpu":
         return sparse_3dna_fwd_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias,
-            fmap=fmap, kernel=kernel, dilation=dilation, causal=causal,
+            fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
         )
     b, h, t, d = q.shape
+    kn = kernel[0] * kernel[1] * kernel[2]
     full, bos = (b, h, t, d), (b, h, 1, d)
     _check_cuda("sparse_3dna_fwd", q, fmap, kernel, dilation, [
         ("k", k, full, q.dtype), ("v", v, full, q.dtype),
         ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
     ])
-    th, bias = _params(q, talking_heads, rel_bias, kernel[0] * kernel[1] * kernel[2])
+    th, bias = _params(q, talking_heads, rel_bias, kn)
     ins = [x.contiguous() for x in (q, k, v, k_bos, v_bos)]
     out = torch.empty_like(ins[0])
     lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
@@ -284,26 +315,37 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     _launch("sparse3dna_fwd", q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), out.data_ptr(),
              lse.data_ptr()],
-            [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
-    _count(sparse_3dna_fwd, causal)
+            [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
+    _count(sparse_3dna_fwd, mode)
     return out, lse
 
 
+def _refuse_audio(name, mode):
+    if mode == "audio":
+        raise NotImplementedError(
+            f"{name}: the audio geometry of the backward kernels comes with "
+            "NUWAVideoAudio training (the reversible dual backward); only the "
+            "forward kernel takes it")
+
+
 def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                      *, fmap, kernel, dilation, causal=True):
+                      *, fmap, kernel, dilation, mode="causal"):
     """Query side of the Sparse3DNA backward.
 
     Takes the forward's arguments, its output cotangent ``grad`` (b, h, t, d,
     q's dtype) and its ``lse``. Returns dq (q's dtype), dS and the mixed
     probabilities mix (both (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos
     and dv_bos ((b, h, 1, d), k_bos's dtype), dth (h, h) fp32 and the rel-pos
-    bias cotangent (h, Kn) fp32, or None without a bias.
+    bias cotangent (h, Kn) fp32, or None without a bias. On a CUDA tensor
+    the audio geometry raises ``NotImplementedError``.
     """
+    _check_geometry(fmap, kernel, dilation, mode)
     if q.device.type == "cpu":
         return sparse_3dna_bwd_q_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-            fmap=fmap, kernel=kernel, dilation=dilation, causal=causal,
+            fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
         )
+    _refuse_audio("sparse_3dna_bwd_q", mode)
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
     kn = kernel[0] * kernel[1] * kernel[2]
@@ -329,8 +371,8 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  partial.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
-        _count(sparse_3dna_bwd_q, causal)
+                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
+        _count(sparse_3dna_bwd_q, mode)
     sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
     dth = sums[:, :hh].sum(dim=0).view(h, h)
     dk_bos = sums[:, hh:hh + hd].reshape(b, h, 1, d)
@@ -339,14 +381,17 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     return dq, ds, mix, dk_bos.to(k_bos.dtype), dv_bos.to(v_bos.dtype), dth, dbias
 
 
-def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, causal=True):
+def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal"):
     """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
     from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
-    ``sparse_3dna_bwd_q`` returned."""
+    ``sparse_3dna_bwd_q`` returned. On a CUDA tensor the audio geometry
+    raises ``NotImplementedError``."""
+    _check_geometry(fmap, kernel, dilation, mode)
     if q.device.type == "cpu":
         return sparse_3dna_bwd_kv_plain(
-            q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation, causal=causal
+            q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
         )
+    _refuse_audio("sparse_3dna_bwd_kv", mode)
     b, h, t, d = q.shape
     slots = (b, h, t, kernel[0] * kernel[1] * kernel[2] + 1)
     _check_cuda("sparse_3dna_bwd_kv", q, fmap, kernel, dilation, [
@@ -359,15 +404,20 @@ def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, causal=True)
     if t > 0:
         _launch("sparse3dna_bwd_kv", q.dtype,
                 [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation, int(causal)], q.device)
-        _count(sparse_3dna_bwd_kv, causal)
+                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
+        _count(sparse_3dna_bwd_kv, mode)
     return dk, dv
 
 
-# kernel launches since each count was last reset, and how many of them ran
-# centered windows
-for _fn in (sparse_3dna_fwd, sparse_3dna_bwd_q, sparse_3dna_bwd_kv):
-    _fn.launches = _fn.centered_launches = 0
+def reset_launches():
+    """Set every kernel's launch count, and its count per mode, to 0."""
+    for fn in (sparse_3dna_fwd, sparse_3dna_bwd_q, sparse_3dna_bwd_kv):
+        fn.launches = 0
+        fn.mode_launches = dict.fromkeys(MODES, 0)
+
+
+# kernel launches since the counts were last reset, in all and per mode
+reset_launches()
 
 
 class Sparse3DNAFunction(torch.autograd.Function):
@@ -398,8 +448,10 @@ class Sparse3DNAFunction(torch.autograd.Function):
 
 
 def sparse_3dna(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                *, fmap, kernel, dilation, causal=True):
-    """``sparse_3dna_fwd``'s output, differentiable in every tensor argument."""
+                *, fmap, kernel, dilation, mode="causal"):
+    """``sparse_3dna_fwd``'s output, differentiable in every tensor argument
+    (in the audio geometry on the CPU only, until the backward kernels take
+    it)."""
     geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation),
-                    causal=bool(causal))
+                    mode=mode)
     return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry)

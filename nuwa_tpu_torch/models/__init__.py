@@ -1,4 +1,5 @@
 from .nuwa import NUWA
 from .nuwa_sketch import NUWASketch
+from .nuwa_video_audio import NUWAVideoAudio
 
-__all__ = ["NUWA", "NUWASketch"]
+__all__ = ["NUWA", "NUWASketch", "NUWAVideoAudio"]

@@ -1,5 +1,7 @@
-"""Sparse3DNA — 3D nearby attention over a (frames, height, width) grid —
-and SparseCross2DNA, the video decoder's cross-attention to sketch frames.
+"""Sparse3DNA — 3D nearby attention over a (frames, height, width) grid —,
+SparseCausal2DNA, its audio counterpart over (timesteps, tokens per
+timestep), and SparseCross2DNA, the video decoder's cross-attention to
+sketch frames.
 
 Counterpart of ``Sparse3DNA`` in ``nuwa_tpu/nda.py`` in both of its modes:
 causal (the video decoder) and centered (the sketch encoder's
@@ -7,6 +9,12 @@ causal (the video decoder) and centered (the sketch encoder's
 ``kernels.nda.sparse_3dna``, differentiable: the Hopper kernels (forward,
 query-side and key-side backward) on CUDA tensors, their plain gather
 versions on CPU tensors.
+
+``SparseCausal2DNA`` is the counterpart of the JAX module of that name
+without its ``use_pallas`` and ``backend`` options and the gates that pick
+between them: its attention is ``kernels.nda.sparse_3dna`` in the audio
+geometry for every height (the forward kernel on CUDA tensors, the plain
+gather version on CPU tensors).
 
 ``SparseCross2DNA`` is the counterpart of the JAX module of that name
 without its ``backend`` and ``use_pallas`` options: its video queries go
@@ -41,8 +49,12 @@ def _cast_tuple(val, size):
 
 
 def _axis_neighbors(size: int, k: int, dilation: int, mode: str):
-    """Per-axis neighbour coordinates (size, k) and their validity."""
+    """Per-axis neighbour coordinates (size, k) and their validity; mode
+    "full" gives every position of the axis (k is then the size)."""
     q = np.arange(size)[:, None]
+    if mode == "full":
+        nb = np.broadcast_to(np.arange(size)[None, :], (size, size)).copy()
+        return nb, np.ones_like(nb, dtype=bool)
     if mode == "causal":
         offs = (np.arange(k) - (k - 1)) * dilation
     elif mode == "centered":
@@ -135,8 +147,61 @@ class Sparse3DNA(nn.Module):
         out = sparse_3dna(
             q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
             fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
-            causal=self.causal,
+            mode="causal" if self.causal else "centered",
         )
+        out = torch.cat([bos_v_out, out], dim=2)
+        return self.to_out(merge_heads(out))
+
+
+class SparseCausal2DNA(nn.Module):
+    """Causal nearby attention for audio tokens laid out (time, height):
+    each query attends every token of the ``kernel_size`` dilated past
+    timesteps (its own included, the later tokens of its own timestep too,
+    as the JAX module's forward does) and the bos key/value, with talking
+    heads and an optional (kernel_size, height) axial bias. One fused qkv
+    projection; bos adopts its own value. A ragged last timestep's missing
+    tokens are masked: the JAX module pads the sequence to whole timesteps
+    and masks the padding, the kernels mask every token at or past t."""
+
+    def __init__(self, dim, height=1, heads=8, dim_head=64, kernel_size=5, dilation=1,
+                 rel_pos_bias=False):
+        super().__init__()
+        self.dim, self.height, self.heads, self.dim_head = dim, height, heads, dim_head
+        self.kernel_size, self.dilation = kernel_size, dilation
+        inner = heads * dim_head
+        self.inner_dim = inner
+        self.to_qkv = Dense(dim, inner * 3)
+        self.to_out = Dense(inner, dim)
+        self.talking_heads = nn.Parameter(torch.empty(heads, heads))
+        self.rel_pos_bias = (
+            AxialPositionalEmbedding(heads, shape=(kernel_size, height))
+            if rel_pos_bias else None
+        )
+
+    def reset_parameters(self, generator):
+        kaiming_uniform_(self.talking_heads, generator, self.heads)
+
+    def rel_bias(self):
+        """(heads, kernel_size * height) bias over window slots, or None."""
+        return None if self.rel_pos_bias is None else self.rel_pos_bias().T
+
+    def forward(self, x, **_):
+        b, n, _ = x.shape
+        h = self.heads
+        t = n - 1  # audio tokens after bos
+        if t == 0:  # bos only: it adopts its own value
+            return self.to_out(self.to_qkv(x).chunk(3, dim=-1)[2])
+        q, k, v = (split_heads(u, h) for u in self.to_qkv(x).chunk(3, dim=-1))
+        q = q[:, :, 1:] * self.dim_head**-0.5
+        bos_v_out = v[:, :, :1]
+        k_bos, k = k[:, :, :1], k[:, :, 1:]
+        v_bos, v = v[:, :, :1], v[:, :, 1:]
+
+        # the audio geometry: a (timesteps, 1, H) grid, windows of whole timesteps
+        H = self.height
+        out = sparse_3dna(q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
+                          fmap=(1, H), kernel=(self.kernel_size, 1, H),
+                          dilation=(self.dilation, 1, 1), mode="audio")
         out = torch.cat([bos_v_out, out], dim=2)
         return self.to_out(merge_heads(out))
 

@@ -1,7 +1,8 @@
-"""Video token shift: roll channel slices down the height and width axes.
+"""Token shift: roll channel slices down the height and width axes of the
+video, or one token along the audio sequence.
 
-Counterpart of ``nuwa_tpu/ops/shift.py`` for video in its one used mode,
-the spatial shift (no caller of the JAX package sets ``shift_time``).
+Counterpart of ``nuwa_tpu/ops/shift.py``: video in its one used mode, the
+spatial shift (no caller of the JAX package sets ``shift_time``), and audio.
 """
 from __future__ import annotations
 
@@ -50,3 +51,14 @@ def shift_video_tokens(x, image_size):
     parts[1] = _shift_axis(parts[1], 3)  # along the width axis
     x_video = torch.cat(parts, dim=-1).reshape(b, f * img_seq_len, d)[:, :n]
     return torch.cat([x_bos, x_video], dim=1)
+
+
+def shift_audio_tokens(x):
+    """Shift the first half of the channels (``torch.chunk`` sizing) one
+    token along the sequence, bos included: x (b, n, d). The JAX function
+    takes the tokens per timestep, pads the sequence to whole timesteps and
+    crops it back after the shift; a shift towards the end cropped to n
+    tokens never reads the padding, so the timestep size does not change
+    the result and is not taken here."""
+    half = _torch_chunk_sizes(x.shape[-1], 2)[0]
+    return torch.cat([_shift_axis(x[..., :half], 1), x[..., half:]], dim=-1)

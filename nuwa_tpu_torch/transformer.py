@@ -13,6 +13,7 @@ from .core.layers import LayerNorm, StableLayerNorm
 from .nda import Sparse3DNA, SparseCross2DNA
 from .ops.attention import Attention
 from .ops.feedforward import FeedForward
+from .ops.shift import shift_audio_tokens
 from .ops.shift import shift_video_tokens as shift_tokens
 from .reversible import reversible_sequence
 
@@ -43,6 +44,18 @@ class ShiftVideo(nn.Module):
 
     def forward(self, x, **kw):
         return self.inner(shift_tokens(x, self.image_size), **kw)
+
+
+class ShiftAudio(nn.Module):
+    """Audio token shift before the inner block; like ``ShiftVideo`` it owns
+    no parameters, and its inner block's sit in its place in the JAX tree."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x, **kw):
+        return self.inner(shift_audio_tokens(x), **kw)
 
 
 def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_attend=False,

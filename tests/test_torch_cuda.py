@@ -288,7 +288,7 @@ def test_sparse3dna_centered_kernels_match_plain(dtype, tol, t):
     causal test."""
     _needs_cuda()
     q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t)
-    geo = dict(fmap=(4, 4), kernel=(3, 5, 3), dilation=(2, 1, 2), causal=False)
+    geo = dict(fmap=(4, 4), kernel=(3, 5, 3), dilation=(2, 1, 2), mode="centered")
     args = (q, k, v, kb, vb, th, rel)
     got = knda.sparse_3dna_fwd(*args, **geo)
     want = knda.sparse_3dna_fwd_plain(*args, **geo)
@@ -324,7 +324,8 @@ def test_sparse3dna_kernels_match_plain_past_256_tokens(dtype, tol, fmap, frames
     hw = fmap[0] * fmap[1]
     for t in (frames * hw - 1, frames * hw - hw // 2):
         q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, seed=t)
-        geo = dict(fmap=fmap, kernel=(5, 3, 3), dilation=(1, 2, 2), causal=causal)
+        geo = dict(fmap=fmap, kernel=(5, 3, 3), dilation=(1, 2, 2),
+                   mode="causal" if causal else "centered")
         args = (q, k, v, kb, vb, th, rel)
         got = knda.sparse_3dna_fwd(*args, **geo)
         want = knda.sparse_3dna_fwd_plain(*args, **geo)
@@ -369,3 +370,50 @@ def test_backward_kernels_are_deterministic(dtype):
         runs.append(got + kcross.sparse_cross_2dna_bwd_kv(q, q, got[1], got[2], **geo))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("height,kernel,dilation", [(1, 7, 1), (3, 5, 2), (32, 7, 1)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_sparse3dna_audio_kernel_matches_plain(dtype, tol, height, kernel, dilation, ragged):
+    """The forward kernel in SparseCausal2DNA's audio geometry, a (timesteps,
+    1, H) grid whose window spans whole timesteps: 4 heads of 32, rel-pos
+    bias, 10 timesteps, whole or with half the last one missing; the launch
+    counted as an audio one. Tolerances as in the causal test."""
+    _needs_cuda()
+    t = 10 * height - (height // 2 if ragged else 0)
+    q, k, v, kb, vb, th, rel, _ = _bwd_inputs(dtype, t, kn=kernel * height, seed=t)
+    geo = dict(fmap=(1, height), kernel=(kernel, 1, height), dilation=(dilation, 1, 1),
+               mode="audio")
+    before = knda.sparse_3dna_fwd.mode_launches["audio"]
+    got = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **geo)
+    want = knda.sparse_3dna_fwd_plain(q, k, v, kb, vb, th, rel, **geo)
+    torch.cuda.synchronize()
+    assert knda.sparse_3dna_fwd.mode_launches["audio"] == before + 1
+    for name, a, b in zip(("out", "lse"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = _rel_err(a, b)
+        assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"
+
+
+@pytest.mark.cuda
+def test_sparse3dna_audio_backward_is_refused():
+    """The backward kernels' audio mode comes with NUWAVideoAudio training:
+    on the card both backward wrappers and the autograd function's backward
+    raise NotImplementedError, and a geometry that is not (1, H) x (K, 1, H)
+    raises ValueError."""
+    _needs_cuda()
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(torch.float32, 20, kn=3 * 4)
+    geo = dict(fmap=(1, 4), kernel=(3, 1, 4), dilation=(1, 1, 1), mode="audio")
+    _, lse = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **geo)
+    slots = torch.zeros(2, 4, 20, 13, device="cuda")
+    with pytest.raises(NotImplementedError):
+        knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse, **geo)
+    with pytest.raises(NotImplementedError):
+        knda.sparse_3dna_bwd_kv(q, g, slots, slots, **geo)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, kb, vb, th, rel)]
+    with pytest.raises(NotImplementedError):
+        knda.sparse_3dna(*leaves, **geo).sum().backward()
+    with pytest.raises(ValueError):
+        knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **dict(geo, kernel=(3, 1, 2)))

@@ -7,8 +7,8 @@ phantom token at position t, which must be masked. Every case below is
 ragged and reaches it.
 
   * the plain query-side and key-side backward, run through
-    ``sparse_3dna(causal=False)``, against ``torch.autograd`` of
-    ``sparse_3dna_fwd_plain(causal=False)``, fp64 inputs (the plain versions
+    ``sparse_3dna(mode="centered")``, against ``torch.autograd`` of
+    ``sparse_3dna_fwd_plain(mode="centered")``, fp64 inputs (the plain versions
     compute in fp32): within 1e-5 of each gradient's max abs;
   * ``Sparse3DNA(causal=False)``'s output (atol 1e-5) and its gradients for
     x and every parameter (within 1e-5 of each reference's max abs) against
@@ -56,7 +56,7 @@ def test_plain_backward_matches_autograd(fmap, kernel, dilation, t, bias):
     ins += [torch.tensor(_rnd(b, h, 1, d, seed=3 + i), requires_grad=True) for i in range(2)]
     ins.append(torch.tensor(_rnd(h, h, seed=5), requires_grad=True))
     rel = torch.tensor(_rnd(h, kn, seed=6), requires_grad=True) if bias else None
-    geo = dict(fmap=fmap, kernel=kernel, dilation=dilation, causal=False)
+    geo = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode="centered")
     grad = torch.tensor(_rnd(b, h, t, d, seed=7))
     leaves = ins + ([rel] if bias else [])
     out, _ = knda.sparse_3dna_fwd_plain(*ins, rel, **geo)

@@ -6,10 +6,10 @@ from pathlib import Path
 import nuwa_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
-PORTED = ("NUWA", "NUWASketch", "Sparse3DNA", "VQGanVAE", "NUWATrainer")
+PORTED = ("NUWA", "NUWASketch", "NUWAVideoAudio", "Sparse3DNA", "SparseCausal2DNA",
+          "CrossModalityCrossAttention", "VQGanVAE", "NUWATrainer")
 EXTRAS = ("Attention", "SparseCross2DNA")
-NOT_YET = ("NUWAVideoAudio", "CrossModalityCrossAttention", "VQGanVAETrainer",
-           "SparseCausal2DNA")
+NOT_YET = ("VQGanVAETrainer",)
 
 
 def test_public_exports():
@@ -23,14 +23,19 @@ def test_public_exports():
 
 def test_exports_are_the_modules_classes():
     from nuwa_tpu_torch.models.nuwa import NUWA
-    from nuwa_tpu_torch.nda import Sparse3DNA, SparseCross2DNA
+    from nuwa_tpu_torch.models.nuwa_video_audio import NUWAVideoAudio
+    from nuwa_tpu_torch.nda import Sparse3DNA, SparseCausal2DNA, SparseCross2DNA
     from nuwa_tpu_torch.ops.attention import Attention
+    from nuwa_tpu_torch.ops.crossmodality import CrossModalityCrossAttention
     from nuwa_tpu_torch.tokenizer import SimpleTokenizer
     from nuwa_tpu_torch.train.trainer_nuwa import NUWATrainer
 
     assert nuwa_tpu_torch.NUWA is NUWA
     assert nuwa_tpu_torch.Sparse3DNA is Sparse3DNA
     assert nuwa_tpu_torch.SparseCross2DNA is SparseCross2DNA
+    assert nuwa_tpu_torch.NUWAVideoAudio is NUWAVideoAudio
+    assert nuwa_tpu_torch.SparseCausal2DNA is SparseCausal2DNA
+    assert nuwa_tpu_torch.CrossModalityCrossAttention is CrossModalityCrossAttention
     assert nuwa_tpu_torch.Attention is Attention
     assert nuwa_tpu_torch.NUWATrainer is NUWATrainer
     assert isinstance(nuwa_tpu_torch.tokenizer, SimpleTokenizer)
@@ -39,6 +44,9 @@ def test_exports_are_the_modules_classes():
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((REPO / "nuwa_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    for module in ("dual_decoder", "decode_dual", "reversible_dual", "ops/crossmodality",
+                   "models/nuwa_video_audio"):
+        assert REPO / "nuwa_tpu_torch" / f"{module}.py" in files
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
