@@ -73,7 +73,7 @@ Phases, each of which exits non-zero on failure:
    geometry of SparseCausal2DNA (a (timesteps, 1, H) grid whose window spans
    whole timesteps) against its plain version at heights 1, 4, 5, 9 and 32,
    kernels 7 and 5, dilations 1 and 2, ragged last timesteps, the bias on
-   and off, fp32 and bf16; the backward kernels' refusal of that geometry;
+   and off, fp32 and bf16;
    held against its plain version and timed at the main path's two shapes,
    with its bound; the three Sparse3DNA kernels at the dual decoder's video
    launches against their plain versions; the depth-64
@@ -86,7 +86,22 @@ Phases, each of which exits non-zero on failure:
    + 12 launches a prefill) with tokens/s and the busy share of generate;
    then fp32 GPU vs CPU at the flagship's widths, depth 2, 2 frames, H = 4:
    codec ids, video and audio logits, the loss and greedy generate ids;
-10. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+10. NUWAVideoAudio training, BASELINE config 5: the query-side and
+   key-side backward kernels in the audio geometry against their plain
+   versions over the forward's 144 cases, every output equal bit for bit
+   across two calls; the autograd function against autograd of the plain
+   forward in that geometry; both kernels timed at the train step's shape
+   (H = 4, b 1, t 127) and at H = 1 (b 2, t 95) beside their plain versions
+   and bounds; the depth-64 flagship from a seed trained for 4 steps on
+   seeded token ids as scripts/bench_dual_flagship.py's step does it (the
+   loss with condition dropout, its backward through the reversible dual
+   decoder, the global-norm clip at 0.5, AdamW at lr 3e-4 with weight decay
+   0.01): finite losses, the exact launches of each kernel a step (B1 256,
+   128 audio; B2 and B3 128, 64 audio), step ms, tokens/s, peak memory and
+   the busy share; then at depth 2 in fp32 the loss and every gradient on
+   the GPU against the CPU, and one clip-and-AdamW step from the same
+   gradients;
+11. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, median after warm-up), and the device's busy share of a
    generate of each model.
 
@@ -1817,28 +1832,6 @@ def check_audio(knda):
     return worst_abs
 
 
-def check_audio_refusal(knda):
-    """On CUDA tensors the backward kernels and the autograd function's
-    backward refuse the audio geometry (its backward comes with training)."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
-    kw = audio_kw(4)
-    args, g = nda_inputs(1, 30, torch.float32, True, gen, kw["kernel"])
-    _, lse = knda.sparse_3dna_fwd(*args, **kw)
-    slots = torch.zeros(1, HEADS, 30, AUDIO_KERNEL * 4 + 1, device="cuda")
-    leaves = [x.detach().requires_grad_() for x in args]
-    for name, call in (
-        ("sparse_3dna_bwd_q", lambda: knda.sparse_3dna_bwd_q(*args, g, lse, **kw)),
-        ("sparse_3dna_bwd_kv", lambda: knda.sparse_3dna_bwd_kv(args[0], g, slots, slots, **kw)),
-        ("sparse_3dna backward", lambda: knda.sparse_3dna(*leaves, **kw).sum().backward()),
-    ):
-        try:
-            call()
-        except NotImplementedError as err:
-            print(f"{name} refuses the audio geometry on the card: {err}", flush=True)
-        else:
-            fail(f"{name} ran in the audio geometry on the card")
-
-
 def check_dual_video(knda):
     """The three Sparse3DNA kernels at the dual decoder's video launches
     (DUAL_VIDEO_SHAPES), fp32 and bf16, against their plain versions.
@@ -2056,6 +2049,289 @@ def dual_against_cpu(NUWAVideoAudio, VQGanVAE):
         fail("dual greedy generate ids differ between GPU and CPU")
 
 
+# ---------------------------------------------------------------------------
+# NUWAVideoAudio training: the backward kernels in the audio geometry, and
+# BASELINE config 5's train step
+# ---------------------------------------------------------------------------
+
+# the audio backward's shapes on the main path, (b, height, t): the depth-64
+# train step scores 4 x 32 audio tokens less the last at H = 4; and at H = 1
+# a window of 3 x 32 less one at b = 2
+AUDIO_BWD_SHAPES = {"train step, H=4": (1, 4, 127), "H=1": (2, 1, 95)}
+DUAL_TRAIN_STEPS = 4
+
+
+def audio_bwd_against_plain(knda, args, g, kw, dtype, what):
+    """The query-side and key-side kernels against their plain versions on
+    ``args`` and the cotangent ``g`` (each backward given the plain
+    forward's lse, the key side the plain query side's dS and mix), and
+    every output of two calls of each kernel equal bit for bit. Errors over
+    each reference's max abs (at least 1): the type's tolerance for the
+    outputs in q's dtype, fp32's for the fp32 ones. Fails on a miss;
+    returns {(kernel, rounded): (relative error, absolute error)}."""
+    _, lse = knda.sparse_3dna_fwd_plain(*args, **kw)
+    want = knda.sparse_3dna_bwd_q_plain(*args, g, lse, **kw)
+    want += knda.sparse_3dna_bwd_kv_plain(args[0], g, *want[1:3], **kw)
+    runs = []
+    for _ in range(2):
+        got = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
+        runs.append(got + knda.sparse_3dna_bwd_kv(args[0], g, *want[1:3], **kw))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, a2, w in zip(BWD_NAMES, *runs, want):
+        if w is None:
+            if a is not None:
+                fail(f"{what} {name}: None expected without a bias")
+            continue
+        if a.dtype != w.dtype or a.shape != w.shape:
+            fail(f"{what} {name}: {a.dtype} {tuple(a.shape)} != {w.dtype} {tuple(w.shape)}")
+        if not torch.equal(a, a2):
+            fail(f"{what} {name}: two calls differ")
+        err = (a.float() - w.float()).abs().max().item()
+        rel = err / max(1.0, w.float().abs().max().item())
+        rounded = name in ROUNDED
+        tol = TOL[dtype if rounded else torch.float32]
+        if not rel <= tol:
+            fail(f"sparse_3dna backward {what} {name}: error {rel} of the max abs > {tol}")
+        key = ("bwd_kv" if name in ("dk", "dv") else "bwd_q", rounded)
+        old = errs.get(key, (0.0, 0.0))
+        errs[key] = max(old[0], rel), max(old[1], err)
+    return errs
+
+
+def check_audio_bwd(knda):
+    """The backward kernels in the audio geometry against their plain
+    versions over check_audio's 144 cases (heights 1, 4, 5, 9 and 32,
+    kernels 7 and 5, dilations 1 and 2, whole or ragged last timesteps, the
+    bias on and off, fp32 and bf16, b = 2, 8 heads of 64), every output
+    equal bit for bit across two calls. Returns the largest absolute error
+    of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    worst, worst_abs, count = {}, {}, 0
+    for dtype, height, kernel, dil, ragged, bias in itertools.product(
+            (torch.float32, torch.bfloat16), (1, 4, 5, 9, 32), (7, 5), (1, 2), (False, True),
+            (False, True)):
+        if ragged and height == 1:
+            continue
+        t = 12 * height - (height // 2 if ragged else 0)
+        args, g = nda_inputs(2, t, dtype, bias, gen, (kernel, 1, height))
+        errs = audio_bwd_against_plain(
+            knda, args, g, audio_kw(height, kernel, dil), dtype,
+            f"audio H={height} K={kernel} dil={dil} t={t} bias={bias} {dtype}")
+        count += 1
+        for (kname, rounded), (rel, err) in errs.items():
+            key = (str(dtype), kname, rounded)
+            worst[key] = max(worst.get(key, 0.0), rel)
+            worst_abs[kname] = max(worst_abs.get(kname, 0.0), err)
+    for (dtype, kname, rounded), rel in sorted(worst.items()):
+        tol = TOL[getattr(torch, dtype.split(".")[1]) if rounded else torch.float32]
+        which = f"outputs in {dtype}" if rounded else "fp32 outputs"
+        print(f"sparse_3dna_{kname} audio geometry vs plain, {dtype} inputs, {which}: max "
+              f"error {rel:.3e} of the reference's max abs (tolerance {tol:.0e}; {count} "
+              f"cases over both types: H 1, 4, 5, 9, 32, K 7 and 5, dilations 1 and 2, "
+              f"ragged last timesteps, bias on and off; two calls equal bit for bit)",
+              flush=True)
+    return worst_abs
+
+
+def check_audio_autograd(knda):
+    """The autograd function in the audio geometry (forward and backward
+    kernels) against torch.autograd of the plain forward, fp32, at the
+    shapes of AUDIO_BWD_SHAPES with the bias: every input's gradient within
+    1e-5 of its max abs (at least 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    worst = 0.0
+    for b, height, t in AUDIO_BWD_SHAPES.values():
+        kw = audio_kw(height)
+        args, g = nda_inputs(b, t, torch.float32, True, gen, kw["kernel"])
+        args = [x.detach().requires_grad_() for x in args]
+        out, _ = knda.sparse_3dna_fwd_plain(*args, **kw)
+        want = torch.autograd.grad(out, args, g)
+        got = torch.autograd.grad(knda.sparse_3dna(*args, **kw), args, g)
+        for name, a, w in zip(("q", "k", "v", "k_bos", "v_bos", "talking_heads", "rel_bias"),
+                              got, want):
+            rel = (a - w).abs().max().item() / max(1.0, w.abs().max().item())
+            if not rel <= 1e-5:
+                fail(f"sparse_3dna autograd, audio H={height}: d{name} error {rel} > 1e-5")
+            worst = max(worst, rel)
+    print(f"sparse_3dna autograd function vs autograd of the plain forward, audio geometry, "
+          f"fp32, {', '.join(f'b={b} H={h} t={t}' for b, h, t in AUDIO_BWD_SHAPES.values())}: "
+          f"max error {worst:.3e} of the max abs (tolerance 1e-5)", flush=True)
+
+
+def time_audio_bwd(knda):
+    """The two backward kernels in the audio geometry at AUDIO_BWD_SHAPES:
+    bf16, 8 heads of 64, kernel 7, dilation 1, the rel-pos bias; held
+    against their plain versions on the same inputs, then timed beside them
+    and the bounds of their valid pairs (and of the backward as one
+    function)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    rows = {}
+    for name, (b, height, t) in AUDIO_BWD_SHAPES.items():
+        kw, dtype = audio_kw(height), torch.bfloat16
+        args, g = nda_inputs(b, t, dtype, True, gen, kw["kernel"])
+        errs = audio_bwd_against_plain(knda, args, g, kw, dtype, f"audio ({name}) b={b} t={t}")
+        _, lse = knda.sparse_3dna_fwd(*args, **kw)
+        _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
+        bounds = nda_bounds(knda, b, t, kw["dilation"], dtype, True, kw["fmap"], kw["kernel"],
+                            "audio")
+        for kname, kernel, plain in (
+            ("bwd_q", lambda: knda.sparse_3dna_bwd_q(*args, g, lse, **kw),
+             lambda: knda.sparse_3dna_bwd_q_plain(*args, g, lse, **kw)),
+            ("bwd_kv", lambda: knda.sparse_3dna_bwd_kv(args[0], g, ds, mix, **kw),
+             lambda: knda.sparse_3dna_bwd_kv_plain(args[0], g, ds, mix, **kw)),
+        ):
+            ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
+            bound, by = bounds[kname]
+            err = max(e for (k, _), (_, e) in errs.items() if k == kname)
+            rows[kname, name] = dict(b=b, height=height, t=t, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by, max_abs_err=err,
+                                     backward_bound_ms=bounds["bwd"][0])
+            print(f"sparse_3dna_{kname} audio geometry ({name}) bf16 b={b} t={t} kernel "
+                  f"({AUDIO_KERNEL}, 1, {height}): kernel {ms:.4f} ms (device), plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}), kernel / bound "
+                  f"{ms / bound:.1f}x; max abs error vs plain {err:.3e}", flush=True)
+        both = rows["bwd_q", name]["ms"] + rows["bwd_kv", name]["ms"]
+        print(f"sparse_3dna backward (bwd_q + bwd_kv) audio geometry ({name}): {both:.4f} ms, "
+              f"bound of the whole backward {bounds['bwd'][0]:.6f} ms ({bounds['bwd'][1]})",
+              flush=True)
+    return rows
+
+
+def dual_train_step(model, opt, params, batch, gen):
+    """One train step as scripts/bench_dual_flagship.py:104-113 jits it:
+    the loss with condition dropout (0.2, drawn from ``gen``), its backward,
+    the global-norm clip (0.5) and the AdamW step. Returns the loss."""
+    from nuwa_tpu_torch.train import clip_by_global_norm_
+
+    opt.zero_grad(set_to_none=True)
+    loss = model(*batch, return_loss=True, train=True, generator=gen)
+    loss.backward()
+    clip_by_global_norm_(params, 0.5)
+    opt.step()
+    return loss.detach()
+
+
+def train_dual(NUWAVideoAudio, VQGanVAE, knda):
+    """BASELINE config 5 at full width and depth (DUAL: depth 64), bf16,
+    b = 1, seeded token ids (1,024 video, 128 audio), AdamW (lr 3e-4, weight
+    decay 0.01) after the clip: DUAL_TRAIN_STEPS steps with the counts set
+    to 0 before each and read after. Per step the reversible decoder runs
+    each self quad's video Sparse3DNA and audio SparseCausal2DNA once in the
+    forward (under no grad) and again in the backward's recompute, then
+    their backward: B1 4 x depth (2 x depth audio), B2 and B3 2 x depth
+    (depth audio); the text encoder and the cross and inter-modality blocks
+    launch none. Returns the launches of all steps and the step's rates."""
+    from nuwa_tpu_torch.train import get_optimizer
+
+    depth = DUAL["dec_depth"]
+    expect = expect_launches(fwd=4 * depth, fwd_audio=2 * depth, bwd_q=2 * depth,
+                             bwd_q_audio=depth, bwd_kv=2 * depth, bwd_kv_audio=depth)
+    gen_cpu = torch.Generator().manual_seed(SEED + 73)
+    text = request_text(1, gen_cpu)
+    frames, atpf = DUAL["max_video_frames"], DUAL["num_audio_tokens_per_video_frame"]
+    torch.cuda.reset_peak_memory_stats()
+    model = dual_model(NUWAVideoAudio, VQGanVAE, DUAL, DUAL_VAE, seed=SEED + 74)
+    nv, na = frames * model.tokens_per_frame, frames * atpf
+    batch = (text, torch.randint(0, DUAL_VAE["vq_codebook_size"], (1, nv), generator=gen_cpu),
+             torch.randint(0, DUAL["num_audio_tokens"], (1, na), generator=gen_cpu))
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = get_optimizer(params, lr=3e-4, wd=0.01)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    losses, times, total = [], [], {k: 0 for k in expect}
+    for step in range(DUAL_TRAIN_STEPS):
+        reset_launches(knda)
+        loss, ms = timed(lambda: dual_train_step(model, opt, params, batch, gen))
+        got = launch_counts(knda)
+        if got != expect:
+            fail(f"dual train step {step}: launches {got}, expected {expect}")
+        total = {k: total[k] + got[k] for k in total}
+        losses.append(loss.item())
+        times.append(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(map(math.isfinite, losses)):
+        fail(f"dual train losses not finite: {losses}")
+    ms = statistics.median(times[1:])
+    rate = (nv + na) / (ms / 1e3)
+    n_params = sum(p.numel() for p in params)
+    print(f"dual train: losses {', '.join(f'{x:.4f}' for x in losses)} (finite)", flush=True)
+    print(f"dual train: launches per step read {got} (as expected, every step: B1 "
+          f"{4 * depth}, {2 * depth} audio; B2 and B3 {2 * depth}, {depth} audio)", flush=True)
+    print(f"dual train step (BASELINE config 5, depth {depth}, {n_params / 1e6:.1f} M trained "
+          f"parameters, b=1, {nv} video + {na} audio tokens): {ms:.1f} ms median of steps "
+          f"1-{DUAL_TRAIN_STEPS - 1} (step 0: {times[0]:.1f} ms), {rate:.0f} tokens/s, peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    share(lambda: dual_train_step(model, opt, params, batch, gen),
+          f"dual train step, depth {depth}", wall=ms)
+    del model, opt, params
+    torch.cuda.empty_cache()
+    return total, dict(ms=ms, tokens_per_s=rate, peak_gib=peak)
+
+
+def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE):
+    """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
+    cross-modality attention every 2 depths (one xmod block), b = 2 with a
+    fixed condition-dropout mask (row 1 unconditional), the same weights on
+    the GPU (kernels) and the CPU (plain path): the loss within LOSS_ATOL,
+    every parameter's gradient within GRAD_REL of its max abs; then one
+    clip-and-AdamW step (lr 3e-4, weight decay 0.01) on each, both fed the
+    CPU's gradients (Adam's first step is sign-like and would magnify the
+    gradients' rounding where they are near 0): every parameter within 1e-5
+    of its max abs."""
+    from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
+
+    cfg = dict(DUAL, dec_depth=2, max_video_frames=2, cross_modality_attn_every=2)
+    gen = torch.Generator().manual_seed(SEED + 76)
+    text = torch.cat([request_text(1, gen), request_text(1, gen)])
+    nv = 2 * (DUAL["image_size"] // 2 ** DUAL_VAE["num_layers"]) ** 2
+    video = torch.randint(0, DUAL_VAE["vq_codebook_size"], (2, nv), generator=gen)
+    audio = torch.randint(0, DUAL["num_audio_tokens"], (2, 64), generator=gen)
+    uncond = torch.tensor([False, True])
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
+                           seed=SEED + 77)
+        start = time.perf_counter()
+        loss = model(text, video, audio, return_loss=True, train=True, uncond=uncond)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad}
+        runs.append((model, loss.item(), grads))
+        print(f"dual fp32 train forward and backward on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    (gpu, loss_gpu, g_gpu), (cpu, loss_cpu, g_cpu) = runs
+    worst, where = 0.0, None
+    for name, ref in g_cpu.items():
+        rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, where = rel, name
+    print(f"dual fp32 train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
+          f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, largest error {worst:.3e} of the "
+          f"gradient's max abs at {where} (tolerance {GRAD_REL:.0e})", flush=True)
+    if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
+        fail("the dual training loss differs between GPU and CPU")
+    if not worst <= GRAD_REL:
+        fail("dual training gradients differ between GPU and CPU")
+    for model in (gpu, cpu):
+        params = [p for p in model.parameters() if p.requires_grad]
+        for (name, p) in ((n, p) for n, p in model.named_parameters() if p.requires_grad):
+            p.grad = g_cpu[name].to(p.device).clone()
+        clip_by_global_norm_(params, 0.5)
+        get_optimizer(params, lr=3e-4, wd=0.01).step()
+    after = {n: p.detach().cpu() for n, p in cpu.named_parameters() if p.requires_grad}
+    worst, where = 0.0, None
+    for name, p in gpu.named_parameters():
+        if p.requires_grad:
+            ref = after[name]
+            rel = (p.detach().cpu() - ref).abs().max().item() / max(ref.abs().max().item(),
+                                                                    1e-30)
+            if rel > worst:
+                worst, where = rel, name
+    print(f"dual fp32 clip-and-AdamW step GPU vs CPU, same gradients: largest parameter "
+          f"error {worst:.3e} of its max abs at {where} (tolerance 1e-05)", flush=True)
+    if not worst <= 1e-5:
+        fail("the dual AdamW step differs between GPU and CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -2126,12 +2402,17 @@ def main():
     train_128_against_cpu(NUWA, VQGanVAE, tokenizer)
     phase("NUWA training at 128 px")
     audio_err = check_audio(knda)
-    check_audio_refusal(knda)
     dual_errs = check_dual_video(knda)
     audio_rows = time_audio(knda)
     dual_launches, _ = serve_dual(NUWAVideoAudio, VQGanVAE, knda)
     dual_against_cpu(NUWAVideoAudio, VQGanVAE)
     phase("NUWAVideoAudio serving and the audio geometry")
+    audio_bwd_err = check_audio_bwd(knda)
+    check_audio_autograd(knda)
+    audio_bwd_rows = time_audio_bwd(knda)
+    dual_train_launches, _ = train_dual(NUWAVideoAudio, VQGanVAE, knda)
+    dual_train_against_cpu(NUWAVideoAudio, VQGanVAE)
+    phase("NUWAVideoAudio training and the audio backward")
     throughput(model, texts)
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
@@ -2139,7 +2420,8 @@ def main():
 
     # launches: the NUWA serving run's, the training run's, the sketch
     # serving run's, the sketch training runs', the 128-px runs' and the
-    # NUWAVideoAudio serving runs' (their audio launches under "audio");
+    # NUWAVideoAudio serving and training runs' (their audio launches under
+    # "audio");
     # Sparse3DNA times at the fmap-16 training shape, dilation 2, and under
     # "fmap_32" at the fmap-32 one, where the JAX package runs its
     # row-blocked kernels (rows 4-6 of the table); the cross forward's at the
@@ -2168,11 +2450,11 @@ def main():
             "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
             "launches": (serve_counts[name] + train_launches[name] + sketch_train_total[name]
-                         + rb_launches),
+                         + rb_launches + dual_train_launches[name]),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             # causal windows (the video decoder), centered ones (the sketch encoder)
-            "modes": "causal, centered and audio" if name == "fwd" else "causal and centered",
+            "modes": "causal, centered and audio",
             "centered_launches": sketch_train_total[f"{name}_centered"],
             # frames past 256 tokens: the row-blocked TPU kernel's shapes
             "fmap_32": {
@@ -2191,19 +2473,31 @@ def main():
             entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
             entries[-1]["fmap_32"]["backward_bound_ms"] = rb_row["backward_bound_ms"]
             entries[-1]["centered"]["backward_bound_ms"] = c_row["backward_bound_ms"]
-    # the audio geometry of SparseCausal2DNA (TPU kernels 1 and 4 through
-    # _audio_core_op and _audio_rb_core_op), at the depth-64 forward's shape
-    # (H = 4) and, under "at_h1", the generate_long prefill's (H = 1)
+    # the audio geometry of SparseCausal2DNA (TPU kernels 1-3 through
+    # _audio_core_op, 4-6 through _audio_rb_core_op): the forward at the
+    # depth-64 forward's shape (H = 4) and, under "at_h1", the generate_long
+    # prefill's (H = 1); the backward kernels at the depth-64 train step's
+    # (H = 4) and, under "at_h1", at H = 1
+    timed_keys = ("b", "t", "ms", "plain_ms", "bound_ms", "bound_by")
     fwd_audio = audio_rows["forward, H=4"]
     entries[0]["audio"] = {
         "replaces": "nuwa_tpu/kernels/nda_pallas.py:2251 and :2455",
-        "launches": dual_launches["fwd_audio"],
+        "launches": dual_launches["fwd_audio"] + dual_train_launches["fwd_audio"],
         "max_abs_err": max(audio_err, *(r["max_abs_err"] for r in audio_rows.values())),
-        **{k: fwd_audio[k] for k in ("b", "t", "ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: fwd_audio[k] for k in timed_keys},
         "library_ms": None,
-        "at_h1": {k: audio_rows["generate_long prefill, H=1"][k]
-                  for k in ("b", "t", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "at_h1": {k: audio_rows["generate_long prefill, H=1"][k] for k in timed_keys},
     }
+    for entry, name in zip(entries[1:3], ("bwd_q", "bwd_kv")):
+        row, row1 = audio_bwd_rows[name, "train step, H=4"], audio_bwd_rows[name, "H=1"]
+        entry["audio"] = {
+            "replaces": "nuwa_tpu/kernels/nda_pallas.py:2251 and :2455",
+            "launches": dual_train_launches[f"{name}_audio"],
+            "max_abs_err": max(audio_bwd_err[name], row["max_abs_err"], row1["max_abs_err"]),
+            **{k: row[k] for k in timed_keys}, "library_ms": None,
+            "backward_bound_ms": row["backward_bound_ms"],
+            "at_h1": {k: row1[k] for k in (*timed_keys, "backward_bound_ms")},
+        }
     # one CUDA kernel replaces both fused TPU kernels: at two context frames
     # (_xfused_kernel) and at one (_xfused1_kernel)
     for frames, line in ((2, 2731), (1, 2810)):

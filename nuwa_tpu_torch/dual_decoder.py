@@ -11,8 +11,11 @@ modules: f and g act on the video stream and j and k on audio, except in an
 ``xmod`` quad, whose g is the audio stream's feed-forward and k the video
 stream's (the JAX package's order). ``DualModalityDecoder`` runs the
 schedule with plain residuals, its inter-modality step reading the
-pre-update opposite streams; ``ReversibleDualModalityDecoder`` runs it
-through ``reversible_dual``, where audio reads the updated video. Both keep
+pre-update opposite streams, and with ``remat`` recomputes each block in
+the backward (``torch.utils.checkpoint``) instead of keeping its
+activations; ``ReversibleDualModalityDecoder`` runs it through
+``reversible_dual``, where audio reads the updated video and the backward
+rebuilds every activation by inversion (it ignores ``remat``). Both keep
 the JAX package's layer menu: per depth [self + ff] then [cross + ff], so
 the plain decoder carries one more FF per stream and depth than the
 reference's non-reversible layout. The context-parallel binding (``BindCP``)
@@ -21,6 +24,7 @@ is not ported.
 from __future__ import annotations
 
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .core.layers import StableLayerNorm
 from .nda import Sparse3DNA, SparseCausal2DNA
@@ -99,9 +103,10 @@ class DualModalityDecoder(nn.Module):
                  sparse_3dna_rel_pos_bias=False, sparse_2dna_kernel_size=7,
                  sparse_2dna_dilation=(1,), sparse_2dna_rel_pos_bias=False,
                  shift_video_tokens=False, shift_audio_tokens=False,
-                 audio_tokens_per_timestep=1, cross_modality_attn_every=3):
+                 audio_tokens_per_timestep=1, cross_modality_attn_every=3, remat=False):
         super().__init__()
         self.dim = dim
+        self.remat = remat
         fmap = sparse_3dna_video_shape[-1]
 
         def sand(inner):
@@ -162,11 +167,14 @@ class DualModalityDecoder(nn.Module):
 
     def forward(self, video, audio, *, context, audio_mask=None, video_mask=None,
                 context_mask=None):
+        kw = dict(context=context, context_mask=context_mask, video_mask=video_mask,
+                  audio_mask=audio_mask)
         for btype, mods in self.blocks():
-            video, audio = apply_dual_block(
-                btype, mods, video, audio, context=context, context_mask=context_mask,
-                video_mask=video_mask, audio_mask=audio_mask,
-            )
+            if self.remat:
+                video, audio = checkpoint(apply_dual_block, btype, mods, video, audio,
+                                          use_reentrant=False, **kw)
+            else:
+                video, audio = apply_dual_block(btype, mods, video, audio, **kw)
         return self.video_norm(video), self.audio_norm(audio)
 
 

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` (the hash is of
-the source, so an edited source never loads a stale library). Sources are
-compiled for ``sm_90a`` at first use, one ``nvcc`` per source, all started
-together. Nothing is built when this module is imported.
+the source and of every ``csrc`` header, so an edited source or header never
+loads a stale library). Sources are compiled for ``sm_90a`` at first use, one
+``nvcc`` per source, all started together. Nothing is built when this module
+is imported.
 """
 from __future__ import annotations
 
@@ -31,8 +32,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:

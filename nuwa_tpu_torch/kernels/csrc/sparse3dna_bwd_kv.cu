@@ -1,9 +1,12 @@
-// Sparse3DNA backward, key side (causal or centered, no dropout) for Hopper,
-// sm_90a.
+// Sparse3DNA backward, key side (causal, centered or audio, no dropout) for
+// Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_bwd_kv_kernel` in nuwa_tpu/kernels/nda_pallas.py
-// (reached through `_bwd_kv_call`, its pl.pallas_call). For every key token
-// it sums, over the (query, slot) pairs that read that key,
+// (reached through `_bwd_kv_call`, its pl.pallas_call), and in the audio
+// geometry the same kernel and the row-blocked `_rb_bwd_kv_kernel` as
+// `_audio_core_op` and `_audio_rb_core_op` run them for SparseCausal2DNA.
+// For every key token it sums, over the (query, slot) pairs that read that
+// key,
 //
 //   dK = sum dS[query, slot] * q[query]
 //   dV = sum mix[query, slot] * g[query]
@@ -15,14 +18,23 @@
 // at the training shape (b = 2, h = 8, t = 2559, Kn = 45), which is cheaper
 // to read back than to recompute.
 //
-// The inverse neighbourhood: slot (a, b, c), row-major over (kf, kh, kw),
-// has the offset ((a-cf)*df, (b-ch)*dh, (c-cw)*dw), with c_ = k_-1 on each
-// axis when causal and (k_-1)/2 when centered, so key (f, y, x) is read
-// through that slot by the query (f - (a-cf)*df, y - (b-ch)*dh,
-// x - (c-cw)*dw): the window reflected. The pair exists when that query lies
-// inside the grid on each axis (checked per axis: a flat index would wrap
-// across rows) and before the sequence end t; the key, below t, is then a
-// valid neighbour of it.
+// The inverse neighbourhood (`reader` in sparse3dna_geometry.cuh). With
+// causal or centered windows, slot (a, b, c), row-major over (kf, kh, kw), has
+// the offset ((a-cf)*df, (b-ch)*dh, (c-cw)*dw), with c_ = k_-1 on each axis
+// when causal and (k_-1)/2 when centered, so key (f, y, x) is read through
+// that slot by the one query (f - (a-cf)*df, y - (b-ch)*dh, x - (c-cw)*dw):
+// the window reflected, Kn pairs, one a slot. In the audio geometry a slot's
+// column is absolute, so the key (s, c) of a (timesteps, 1, H) grid is read
+// through the one slot a*H + c of each time tap a, by every query of
+// timestep s + (cf - a)*df, its H columns alike: K*H pairs (query, slot),
+// again Kn of them, but H to a slot. A pair exists when its query lies inside
+// the grid on each axis (checked per axis: a flat index would wrap across
+// rows) and before the sequence end t (which the queries of a ragged last
+// timestep pass or fail one by one); the key, below t, is then a valid
+// neighbour of it. Each block lists its key's pairs' queries in shared
+// memory and sums the pairs in that one fixed order; a pair's slot is
+// arithmetic (`reader_slot`), not a second table, which would put a shared
+// load behind each pair's validity branch.
 //
 // What bounds it on the card: memory. Per key and head it does 4 * Kn * d
 // operations, while the bytes the function must move are one row each of q,
@@ -31,11 +43,13 @@
 // operations per byte. Each key gathers up to Kn rows of q and g; one block per
 // (key token, batch element) holds all h heads, one warp per head, lanes
 // striding the head dim; the query rows shared by neighbouring keys come from
-// L1/L2. Each key's sums are its own, so no atomics are needed and dk, dv
-// are written once.
+// L1/L2. Each key's sums are its own, so no atomics are needed, dk and dv
+// are written once, and every output is the same bit for bit on every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sparse3dna_geometry.cuh"
 
 namespace {
 
@@ -50,21 +64,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-struct Geometry {
-  int t;           // valid video tokens (rows of q, k, v)
-  int fh, fw;      // frame height and width
-  int kf, kh, kw;  // kernel size per axis
-  int df, dh, dw;  // dilation per axis
-  int causal;      // 1: causal windows, 0: centered
-};
-
 // grid (t, b), block 32 * heads: warp w handles head w of one key token.
 template <typename T>
 __global__ void __launch_bounds__(1024) sparse3dna_bwd_kv_kernel(
     const T* __restrict__ q, const T* __restrict__ gout, const float* __restrict__ ds,
     const float* __restrict__ mix, T* __restrict__ dk, T* __restrict__ dv, int heads, int d,
     Geometry g) {
-  extern __shared__ int s_q[];  // (kn) the query reading this key through slot j, or -1
+  extern __shared__ int s_q[];  // (kn) the query of this key's pair p, or -1
   const int kn = g.kf * g.kh * g.kw;
   const int slots = kn + 1;
   const int key = blockIdx.x;
@@ -74,18 +80,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_kv_kernel(
 
   const int hw = g.fh * g.fw;
   const int f = key / hw, y = (key % hw) / g.fw, xx = key % g.fw;
-  const int cf = g.causal ? g.kf - 1 : (g.kf - 1) / 2;
-  const int ch = g.causal ? g.kh - 1 : (g.kh - 1) / 2;
-  const int cw = g.causal ? g.kw - 1 : (g.kw - 1) / 2;
-  for (int j = threadIdx.x; j < kn; j += blockDim.x) {
-    const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-    const int qf = f - (a - cf) * g.df;
-    const int qy = y - (r / g.kw - ch) * g.dh;
-    const int qx = xx - (r % g.kw - cw) * g.dw;
-    const int tok = (qf * g.fh + qy) * g.fw + qx;
-    const bool in_grid = qf >= 0 && qy >= 0 && qy < g.fh && qx >= 0 && qx < g.fw;
-    s_q[j] = (in_grid && tok < g.t) ? tok : -1;
-  }
+  for (int p = threadIdx.x; p < kn; p += blockDim.x) s_q[p] = reader(g, f, y, xx, p);
   __syncthreads();
 
   const int h = warp;
@@ -98,19 +93,21 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_kv_kernel(
   float ak[kMaxR], av[kMaxR];
 #pragma unroll
   for (int r = 0; r < kMaxR; ++r) ak[r] = av[r] = 0.f;
-  for (int j = 0; j < kn; ++j) {
-    const int tok = s_q[j];  // uniform across the warp
-    if (tok < 0) continue;
-    const size_t s = static_cast<size_t>(tok) * slots + 1 + j;
-    const float wk = dsplane[s], wv = mixplane[s];
-    const T* qr = qplane + static_cast<size_t>(tok) * d;
-    const T* gr = gplane + static_cast<size_t>(tok) * d;
+  for (int tap = 0; tap < kn; tap += g.kw) {  // pair p = tap + c
+    for (int c = 0; c < g.kw; ++c) {
+      const int tok = s_q[tap + c];  // uniform across the warp
+      if (tok < 0) continue;
+      const size_t s = static_cast<size_t>(tok) * slots + 1 + reader_slot(g, xx, tap, c);
+      const float wk = dsplane[s], wv = mixplane[s];
+      const T* qr = qplane + static_cast<size_t>(tok) * d;
+      const T* gr = gplane + static_cast<size_t>(tok) * d;
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
-      const int e = lane + 32 * r;
-      if (e < d) {
-        ak[r] += wk * to_f(qr[e]);
-        av[r] += wv * to_f(gr[e]);
+      for (int r = 0; r < kMaxR; ++r) {
+        const int e = lane + 32 * r;
+        if (e < d) {
+          ak[r] += wk * to_f(qr[e]);
+          av[r] += wv * to_f(gr[e]);
+        }
       }
     }
   }
@@ -144,13 +141,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, gout, dk, dv
 // (b, heads, t, d); ds, mix (b, heads, t, kn + 1) fp32, slot 0 being bos;
-// causal 1 for causal windows, 0 for centered.
+// mode 1 for causal windows, 0 for centered, 2 for the audio geometry
+// (fh = kh = 1, kw = fw = H).
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_bwd_kv(int dtype, const void* q, const void* gout, const float* ds,
                            const float* mix, void* dk, void* dv, int b, int heads, int t, int d,
                            int fh, int fw, int kf, int kh, int kw, int df, int dh, int dw,
-                           int causal, void* stream) {
-  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
+                           int mode, void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);
   if (dtype == 1) return launch<__nv_bfloat16>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);

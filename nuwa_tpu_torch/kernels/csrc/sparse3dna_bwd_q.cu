@@ -1,12 +1,15 @@
-// Sparse3DNA backward, query side (causal or centered, no dropout) for
-// Hopper, sm_90a.
+// Sparse3DNA backward, query side (causal, centered or audio, no dropout)
+// for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_bwd_q_kernel` in nuwa_tpu/kernels/nda_pallas.py
-// (reached through `_bwd_q_call`, its pl.pallas_call). Given the forward's
-// inputs, its per-row logsumexp `lse` and the output cotangent `g`, it
-// recomputes for every query the probabilities P over bos and its Kn dilated
-// neighbours (the forward's causal or centered windows, sparse3dna_fwd.cu),
-// and forms, per head a and slot j:
+// (reached through `_bwd_q_call`, its pl.pallas_call), and in the audio
+// geometry the same kernel and the row-blocked `_rb_bwd_q_kernel` as
+// `_audio_core_op` and `_audio_rb_core_op` run them for SparseCausal2DNA.
+// Given the forward's inputs, its per-row logsumexp `lse` and the output
+// cotangent `g`, it recomputes for every query the probabilities P over bos
+// and its Kn dilated neighbours (the forward's windows, by the rule of
+// sparse3dna_geometry.cuh: causal, centered, or the audio geometry's whole
+// timesteps, where Kn = K*H), and forms, per head a and slot j:
 //
 //   dA[a, j] = g[a] . v_j[a]                 (cotangent of the mixed probs)
 //   dP[b, j] = sum_a th[a, b] * dA[a, j]     (through the talking-heads mix)
@@ -50,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sparse3dna_geometry.cuh"
+
 namespace {
 
 constexpr int kMaxR = 8;              // head dim up to 32 * kMaxR = 256
@@ -67,29 +72,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-struct Geometry {
-  int t;           // valid video tokens (rows of q, k, v)
-  int fh, fw;      // frame height and width
-  int kf, kh, kw;  // kernel size per axis
-  int df, dh, dw;  // dilation per axis
-  int causal;      // 1: causal windows, 0: centered
-};
-
-// The forward kernel's neighbour (sparse3dna_fwd.cu): the token id through
-// window slot j, or -1 outside the grid or at or past t.
-__device__ __forceinline__ int neighbour(const Geometry& g, int f, int y, int x, int j) {
-  const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-  const int cf = g.causal ? g.kf - 1 : (g.kf - 1) / 2;
-  const int ch = g.causal ? g.kh - 1 : (g.kh - 1) / 2;
-  const int cw = g.causal ? g.kw - 1 : (g.kw - 1) / 2;
-  const int nf = f + (a - cf) * g.df;
-  const int ny = y + (r / g.kw - ch) * g.dh;
-  const int nx = x + (r % g.kw - cw) * g.dw;
-  if (nf < 0 || ny < 0 || ny >= g.fh || nx < 0 || nx >= g.fw) return -1;
-  const int tok = (nf * g.fh + ny) * g.fw + nx;
-  return tok < g.t ? tok : -1;
 }
 
 template <typename T>
@@ -308,15 +290,16 @@ extern "C" {
 // (b, heads, t, kn + 1) fp32; partial (b, ceil(t / 4), nsum) fp32 with
 // nsum = heads*heads + 2*heads*d (+ heads*kn with a bias), every slot
 // written: per block [dth | dk_bos | dv_bos | dbias] over its 4 queries, for
-// the caller to sum over the block axis; causal 1 for causal windows, 0 for
-// centered. Returns the cudaError_t of the launch (0 on success).
+// the caller to sum over the block axis; mode 1 for causal windows, 0 for
+// centered, 2 for the audio geometry (fh = kh = 1, kw = fw = H).
+// Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
                           const void* kbos, const void* vbos, const float* th,
                           const float* bias, const void* gout, const float* lse, void* dq,
                           float* ds, float* mix, float* partial, int b, int heads, int t,
                           int d, int fh, int fw, int kf, int kh, int kw, int df, int dh,
-                          int dw, int causal, void* stream) {
-  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, causal};
+                          int dw, int mode, void* stream) {
+  const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, partial, b,

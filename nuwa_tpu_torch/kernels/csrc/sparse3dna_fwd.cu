@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sparse3dna_geometry.cuh"
+
 namespace {
 
 constexpr int kMaxR = 8;  // head dim up to 32 * kMaxR = 256
@@ -74,35 +76,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-struct Geometry {
-  int t;           // valid video tokens (rows of q, k, v)
-  int fh, fw;      // frame height and width
-  int kf, kh, kw;  // kernel size per axis
-  int df, dh, dw;  // dilation per axis
-  int mode;        // kCentered, kCausal or kAudio
-};
-
-constexpr int kCentered = 0, kCausal = 1, kAudio = 2;
-
-// Token id of the neighbour of (f, y, x) through window slot j, or -1 where
-// it lies outside the grid or at or past t. Slot j enumerates (a, b, c)
-// row-major; the offset on an axis of kernel k and dilation d is
-// (a - (k-1))*d when causal and (a - (k-1)/2)*d when centered. In the audio
-// geometry the frame and height axes are causal and the column is c itself.
-__device__ __forceinline__ int neighbour(const Geometry& g, int f, int y, int x, int j) {
-  const int a = j / (g.kh * g.kw), r = j % (g.kh * g.kw);
-  const bool causal = g.mode != kCentered;
-  const int cf = causal ? g.kf - 1 : (g.kf - 1) / 2;
-  const int ch = causal ? g.kh - 1 : (g.kh - 1) / 2;
-  const int cw = causal ? g.kw - 1 : (g.kw - 1) / 2;
-  const int nf = f + (a - cf) * g.df;
-  const int ny = y + (r / g.kw - ch) * g.dh;
-  const int nx = g.mode == kAudio ? r % g.kw : x + (r % g.kw - cw) * g.dw;
-  if (nf < 0 || ny < 0 || ny >= g.fh || nx < 0 || nx >= g.fw) return -1;
-  const int tok = (nf * g.fh + ny) * g.fw + nx;
-  return tok < g.t ? tok : -1;
 }
 
 // grid (t, b), block 32 * heads: warp w handles head w of one query token.

@@ -2,17 +2,18 @@
 and the autograd function that joins them.
 
 Three kernels, each replacing two TPU kernels of
-``nuwa_tpu/kernels/nda_pallas.py`` without dropout, in both of their modes:
-causal windows (the video decoder) and centered ones (the sketch encoder).
-The forward also takes the audio geometry of ``SparseCausal2DNA``
-(``mode="audio"``): a grid of (timesteps, 1, H) with ``fmap=(1, H)``,
-``kernel=(K, 1, H)`` and ``dilation=(d, 1, 1)``, causal in time, whose
-window on the width axis is the whole timestep (the absolute columns
-0..H-1, mode ``"full"`` of ``nuwa_tpu/nda.py``), so a query also sees the
-later tokens of its own timestep, as the JAX module's forward does. It
-replaces ``_kernel`` and ``_rb_kernel`` as ``_audio_core_op`` and
-``_audio_rb_core_op`` run them; the backward kernels' audio mode comes with
-NUWAVideoAudio training, and on a CUDA tensor they refuse it.
+``nuwa_tpu/kernels/nda_pallas.py`` without dropout, in three geometries:
+causal windows (the video decoder), centered ones (the sketch encoder), and
+the audio geometry of ``SparseCausal2DNA`` (``mode="audio"``): a grid of
+(timesteps, 1, H) with ``fmap=(1, H)``, ``kernel=(K, 1, H)`` and
+``dilation=(d, 1, 1)``, causal in time, whose window on the width axis is
+the whole timestep (the absolute columns 0..H-1, mode ``"full"`` of
+``nuwa_tpu/nda.py``), so a query also sees the later tokens of its own
+timestep, as the JAX module's forward does. In the audio geometry they
+replace the six as ``_audio_core_op`` and ``_audio_rb_core_op`` run them;
+there a key is read through one slot of each time tap by all H queries of a
+timestep, so the key side's inverse neighbourhood is not the reflected
+window (``csrc/sparse3dna_geometry.cuh`` holds both rules).
 The JAX package takes the whole-frame kernels for frames of up to 256
 tokens and the row-blocked ones above that (``rb_row_block``); each kernel
 here takes a frame of any size:
@@ -320,14 +321,6 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     return out, lse
 
 
-def _refuse_audio(name, mode):
-    if mode == "audio":
-        raise NotImplementedError(
-            f"{name}: the audio geometry of the backward kernels comes with "
-            "NUWAVideoAudio training (the reversible dual backward); only the "
-            "forward kernel takes it")
-
-
 def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
                       *, fmap, kernel, dilation, mode="causal"):
     """Query side of the Sparse3DNA backward.
@@ -336,8 +329,7 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     q's dtype) and its ``lse``. Returns dq (q's dtype), dS and the mixed
     probabilities mix (both (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos
     and dv_bos ((b, h, 1, d), k_bos's dtype), dth (h, h) fp32 and the rel-pos
-    bias cotangent (h, Kn) fp32, or None without a bias. On a CUDA tensor
-    the audio geometry raises ``NotImplementedError``.
+    bias cotangent (h, Kn) fp32, or None without a bias.
     """
     _check_geometry(fmap, kernel, dilation, mode)
     if q.device.type == "cpu":
@@ -345,7 +337,6 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
             q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
             fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
         )
-    _refuse_audio("sparse_3dna_bwd_q", mode)
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
     kn = kernel[0] * kernel[1] * kernel[2]
@@ -384,14 +375,12 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
 def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal"):
     """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
     from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
-    ``sparse_3dna_bwd_q`` returned. On a CUDA tensor the audio geometry
-    raises ``NotImplementedError``."""
+    ``sparse_3dna_bwd_q`` returned."""
     _check_geometry(fmap, kernel, dilation, mode)
     if q.device.type == "cpu":
         return sparse_3dna_bwd_kv_plain(
             q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
         )
-    _refuse_audio("sparse_3dna_bwd_kv", mode)
     b, h, t, d = q.shape
     slots = (b, h, t, kernel[0] * kernel[1] * kernel[2] + 1)
     _check_cuda("sparse_3dna_bwd_kv", q, fmap, kernel, dilation, [
@@ -449,9 +438,8 @@ class Sparse3DNAFunction(torch.autograd.Function):
 
 def sparse_3dna(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
                 *, fmap, kernel, dilation, mode="causal"):
-    """``sparse_3dna_fwd``'s output, differentiable in every tensor argument
-    (in the audio geometry on the CPU only, until the backward kernels take
-    it)."""
+    """``sparse_3dna_fwd``'s output, differentiable in every tensor argument,
+    in every geometry."""
     geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation),
                     mode=mode)
     return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry)

@@ -1,4 +1,4 @@
-"""NUWAVideoAudio — text to joint video and audio, serving.
+"""NUWAVideoAudio — text to joint video and audio, serving and training.
 
 Counterpart of ``nuwa_tpu/models/nuwa_video_audio.py``: a text encoder
 with absolute positions, twin decoder towers (``dual_decoder``: Sparse3DNA
@@ -13,9 +13,14 @@ frozen codec under no grad and samples come out through it.
 Left out: ``method="full"`` (the per-token re-forward oracle), int8 weights
 (``dequant``), context and pipeline parallelism, dropout, the rotary and
 reversible text encoders (``text_rotary_pos_emb``, ``enc_reversible``: no
-caller of the JAX model sets them); the reversible dual decoder's backward,
-which comes with training. The model lives on one device, ``cuda`` unless
-the caller names another.
+caller of the JAX model sets them). The model lives on one device, ``cuda``
+unless the caller names another.
+
+Training is ``forward(..., return_loss=True, train=True)``, its
+``backward()``, ``train.clip_by_global_norm_`` and a ``train.get_optimizer``
+step, the step the JAX package jits in ``scripts/bench_dual_flagship.py``;
+the reversible decoder rebuilds its activations in the backward, and the
+plain one keeps them, or with ``dec_remat`` recomputes each block.
 """
 from __future__ import annotations
 
@@ -48,8 +53,8 @@ class NUWAVideoAudio(nn.Module):
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
                  sparse_3dna_rel_pos_bias=True, sparse_2dna_kernel_size=7,
                  sparse_2dna_dilation=1, sparse_2dna_rel_pos_bias=True,
-                 audio_loss_weight=1.0, cross_modality_attn_every=3, compute_dtype=None,
-                 device=None, seed=0):
+                 audio_loss_weight=1.0, cross_modality_attn_every=3, dec_remat=False,
+                 compute_dtype=None, device=None, seed=0):
         super().__init__()
         device = resolve_device(device)
         self.vae = vae.to(device).requires_grad_(False)  # frozen codec
@@ -93,7 +98,7 @@ class NUWAVideoAudio(nn.Module):
                 sparse_2dna_rel_pos_bias=sparse_2dna_rel_pos_bias,
                 shift_video_tokens=shift_video_tokens, shift_audio_tokens=shift_audio_tokens,
                 audio_tokens_per_timestep=H,
-                cross_modality_attn_every=cross_modality_attn_every,
+                cross_modality_attn_every=cross_modality_attn_every, remat=dec_remat,
             )
             self.to_video_logits = nn.Parameter(torch.empty(dim, vae.codebook_size))
             self.to_audio_logits = nn.Parameter(torch.empty(dim, num_audio_tokens))

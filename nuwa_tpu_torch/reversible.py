@@ -30,15 +30,17 @@ def _detached(kwargs):
     }
 
 
-def _grads(out, cotangent, x, module, kwargs):
-    """Cotangents of ``x``, of the module's parameters and of the routed
-    tensors that need grad; None where the output does not depend on one."""
+def _grads(out, cotangent, inputs, module, kwargs):
+    """Cotangents of the ``inputs``, of the module's parameters and of the
+    routed tensors that need grad; None where the output does not depend on
+    one."""
     params = list(module.parameters())
     leaves = {n: v for n, v in kwargs.items() if torch.is_tensor(v) and v.requires_grad}
     grads = torch.autograd.grad(
-        out, [x, *params, *leaves.values()], cotangent, allow_unused=True
+        out, [*inputs, *params, *leaves.values()], cotangent, allow_unused=True
     )
-    return grads[0], grads[1 : 1 + len(params)], dict(zip(leaves, grads[1 + len(params) :]))
+    n, m = len(inputs), len(inputs) + len(params)
+    return grads[:n], grads[n:m], dict(zip(leaves, grads[m:]))
 
 
 def _add(a, b):
@@ -72,7 +74,7 @@ class _Reversible(torch.autograd.Function):
                 y1_ = y1.detach().requires_grad_()
                 g_kw = _route(kwargs, g_route)
                 g_out = g(y1_, **g_kw)
-                dgy1, dpg, dkw_g = _grads(g_out, dy2, y1_, g, g_kw)
+                (dgy1,), dpg, dkw_g = _grads(g_out, dy2, [y1_], g, g_kw)
             x2 = y2 - g_out.detach()
             dy1 = dy1 + dgy1
 
@@ -80,7 +82,7 @@ class _Reversible(torch.autograd.Function):
                 x2_ = x2.detach().requires_grad_()
                 f_kw = _route(kwargs, f_route)
                 f_out = f(x2_, **f_kw)
-                dfx2, dpf, dkw_f = _grads(f_out, dy1, x2_, f, f_kw)
+                (dfx2,), dpf, dkw_f = _grads(f_out, dy1, [x2_], f, f_kw)
             x1 = y1 - f_out.detach()
 
             dparams = [*dpf, *dpg, *dparams]

@@ -1,4 +1,4 @@
-"""Dual-stream (video + audio) reversible runtime: its forward.
+"""Dual-stream (video + audio) reversible runtime.
 
 Counterpart of ``nuwa_tpu/reversible_dual.py``. Twin reversible towers with
 three block types, each a quad of modules (f, g, j, k):
@@ -14,14 +14,22 @@ three block types, each a quad of modules (f, g, j, k):
         n2 = m2 + g(n1)       # audio ff
 
 Each stream enters both halves of its tower and leaves as their mean. The
-forward keeps no activation: it runs inside a ``torch.autograd.Function``
-whose ``backward`` raises until the recompute backward lands with
-NUWAVideoAudio training. ``reverse=False`` runs the same math under plain
-autograd, which keeps every activation.
+forward keeps only the last four streams and the routed tensors. The
+backward walks the blocks in reverse and inverts each quad in the JAX
+package's order: an ``xmod`` quad g, then j (which reads the updated y2),
+then k, then f (which reads m2); a ``self`` / ``cross`` quad g and f, then k
+and j. It re-runs each module with grad enabled on detached inputs to get
+its input, parameter and routed-tensor cotangents (the text ``context``
+among them), and returns them through autograd, so each parameter's
+gradient is accumulated once. ``reverse=False`` runs the same math under
+plain autograd, which keeps every activation.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from .reversible import _add, _detached, _grads
 
 
 def _route(kwargs, names):
@@ -52,18 +60,81 @@ def _run(blocks, x1, x2, m1, m2, kwargs):
     return x1, x2, m1, m2
 
 
+def _vjp(module, inputs, kwargs, names, cotangent, dkwargs):
+    """Re-run ``module(*inputs, **kw)``, ``kw`` the entries of ``kwargs``
+    that ``names`` routes, with grad on detached copies of the inputs; add
+    the routed tensors' cotangents into ``dkwargs`` under their names in
+    ``kwargs``. Returns the output (detached) and the cotangents of the
+    inputs and of the module's parameters, None where the output does not
+    depend on one."""
+    kw = _route(kwargs, names)
+    with torch.enable_grad():
+        inputs = [x.detach().requires_grad_() for x in inputs]
+        out = module(*inputs, **kw)
+        dinputs, dparams, dkw = _grads(out, cotangent, inputs, module, kw)
+    for entry in names:
+        src, dst = entry if isinstance(entry, tuple) else (entry, entry)
+        if dst in dkw:
+            dkwargs[src] = _add(dkwargs.get(src), dkw[dst])
+    return out.detach(), dinputs, dparams
+
+
 class _DualReversible(torch.autograd.Function):
     @staticmethod
     def forward(ctx, blocks, names, video, audio, *tensors):
-        kwargs = dict(zip(names, tensors[: len(names)]))  # the parameters follow
-        return _run(blocks, video, video, audio, audio, kwargs)
+        values = tensors[: len(names)]  # the parameters follow, for their gradients
+        outs = _run(blocks, video, video, audio, audio, dict(zip(names, values)))
+        ctx.blocks, ctx.names = blocks, names
+        ctx.save_for_backward(*outs, *values)
+        return outs
 
     @staticmethod
-    def backward(ctx, *cotangents):
-        raise NotImplementedError(
-            "the reversible dual backward comes with NUWAVideoAudio training; "
-            "use reverse=False for gradients under plain autograd"
-        )
+    @once_differentiable
+    def backward(ctx, dy1, dy2, dn1, dn2):
+        y1, y2, n1, n2, *values = ctx.saved_tensors
+        kwargs = _detached(dict(zip(ctx.names, values)))
+        dkwargs, dparams = {}, []
+        for btype, (f, g, j, k), routes in reversed(ctx.blocks):
+            if btype == "xmod":
+                out, (dgn1,), dpg = _vjp(g, (n1,), kwargs, routes["g"], dn2, dkwargs)
+                m2 = n2 - out
+                dn1 = dn1 + dgn1
+
+                out, (djm2, djy2), dpj = _vjp(j, (m2, y2), kwargs, routes["j"], dn1, dkwargs)
+                m1 = n1 - out
+                dm2 = dn2 + djm2
+                dy2 = dy2 + djy2
+
+                out, (dky1,), dpk = _vjp(k, (y1,), kwargs, routes["k"], dy2, dkwargs)
+                x2 = y2 - out
+                dy1 = dy1 + dky1
+
+                out, (dfx2, dfm2), dpf = _vjp(f, (x2, m2), kwargs, routes["f"], dy1, dkwargs)
+                x1 = y1 - out
+                dx2 = dy2 + dfx2
+                dm2 = dm2 + dfm2
+            else:
+                out, (dgy1,), dpg = _vjp(g, (y1,), kwargs, routes["g"], dy2, dkwargs)
+                x2 = y2 - out
+                dy1 = dy1 + dgy1
+
+                out, (dfx2,), dpf = _vjp(f, (x2,), kwargs, routes["f"], dy1, dkwargs)
+                x1 = y1 - out
+                dx2 = dy2 + dfx2
+
+                out, (dkn1,), dpk = _vjp(k, (n1,), kwargs, routes["k"], dn2, dkwargs)
+                m2 = n2 - out
+                dn1 = dn1 + dkn1
+
+                out, (djm2,), dpj = _vjp(j, (m2,), kwargs, routes["j"], dn1, dkwargs)
+                m1 = n1 - out
+                dm2 = dn2 + djm2
+            # the forward's parameter order: f, g, j, k per block
+            dparams = [*dpf, *dpg, *dpj, *dpk, *dparams]
+            y1, y2, n1, n2 = x1, x2, m1, m2
+            dy2, dn2 = dx2, dm2  # dy1 and dn1 already hold the x1, m1 cotangents
+        dvalues = [dkwargs.get(n) for n in ctx.names]
+        return (None, None, dy1 + dy2, dn1 + dn2, *dvalues, *dparams)
 
 
 def dual_reversible_sequence(blocks, video, audio, kwargs, *, reverse=True):

@@ -8,7 +8,10 @@ plain gather version on the CPU) against nuwa_tpu's, fp32.
     of every parameter within 1e-5 of each reference's max abs;
   * the JAX module's Pallas kernels (``use_pallas=True``) in interpret mode,
     as tests/test_pallas_nda.py runs them, at heights 1 and 4: within that
-    file's 2e-2 (the kernels' bf16 score cache);
+    file's 2e-2 (the kernels' bf16 score cache); and the output and every
+    gradient against their forward and backward kernels, the score cache in
+    fp32, at height 4 (the whole-frame kernels) and 3 (the row-blocked
+    ones): within 2e-2 too;
   * the reference's own-timestep finding, in both packages at height 2: the
     full forward's output at audio query 0 moves with audio token 1, which
     lies in the same timestep; the cached step's output at that query is the
@@ -70,21 +73,31 @@ def test_sparse_causal_2dna_matches_jax_gather(height, kernel, dilation, bias):
     t = _ragged_t(height, 2 * kernel)
     x = _rnd(2, 1 + t, DIM, seed=1)
     w = _rnd(2, 1 + t, DIM, seed=2)
+    _assert_grads_match(tmod, x, w, _jax_grads(jmod, p, x, w), REL)
+
+
+def _jax_grads(jmod, p, x, w):
+    """The JAX module's output on x, and the gradients of sum(out * w) in its
+    params and in x."""
     run = jax.jit(jax.value_and_grad(lambda p, x: (jnp.sum(jmod(p, x) * w), jmod(p, x)),
                                      argnums=(0, 1), has_aux=True))
     (_, want), (jgrads, jgx) = run(p, jnp.asarray(x))
+    return np.asarray(want), flatten_params(jax.tree.map(np.asarray, jgrads)), np.asarray(jgx)
+
+
+def _assert_grads_match(tmod, x, w, want, rel):
+    """The port's output and gradients against ``_jax_grads``' within ``rel``
+    of each reference's max abs (at least 1 for the gradients)."""
+    want, ref, jgx = want
     xt = torch.from_numpy(x).requires_grad_()
     out = tmod(xt)
-    want = np.asarray(want)
     np.testing.assert_allclose(out.detach().numpy(), want,
-                               atol=REL * np.abs(want).max(), rtol=0)
+                               atol=rel * np.abs(want).max(), rtol=0)
     (out * torch.from_numpy(w)).sum().backward()
-    ref = flatten_params(jax.tree.map(np.asarray, jgrads))
     got = {jax_path(tmod, n): q.grad.numpy() for n, q in tmod.named_parameters()}
     assert sorted(got) == sorted(ref)
-    for name, g, r in [("x", xt.grad.numpy(), np.asarray(jgx)),
-                       *((n, got[n], r) for n, r in ref.items())]:
-        np.testing.assert_allclose(g, r, atol=REL * max(1.0, np.abs(r).max()), rtol=0,
+    for name, g, r in [("x", xt.grad.numpy(), jgx), *((n, got[n], r) for n, r in ref.items())]:
+        np.testing.assert_allclose(g, r, atol=rel * max(1.0, np.abs(r).max()), rtol=0,
                                    err_msg=name)
 
 
@@ -98,6 +111,32 @@ def test_sparse_causal_2dna_matches_pallas_interpret(height, kernel, dilation):
     with torch.no_grad():
         got = tmod(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+
+
+# (height, kernel, dilation): H = 4 runs the whole-frame kernels through
+# _audio_core_op (TPU kernels 1-3), H = 3 the row-blocked ones through
+# _audio_rb_core_op (kernels 4-6: lcm(H, 128) = 384 > 256)
+@pytest.mark.parametrize("height,kernel,dilation", [(4, 5, 2), (3, 3, 1)])
+def test_sparse_causal_2dna_grads_match_pallas_interpret(monkeypatch, height, kernel,
+                                                         dilation):
+    """The output and every gradient against the JAX module's Pallas
+    forward and backward kernels in interpret mode, their score cache in
+    fp32 (``_CACHE_DTYPE``, as tests/test_torch_cross_grad.py sets it), a
+    ragged last timestep, the bias on: within 2e-2, the tolerance of the
+    forward's check above."""
+    import nuwa_tpu.kernels.nda_pallas as K
+
+    monkeypatch.setattr(K, "_CACHE_DTYPE", jnp.float32)
+    K._VJP_CACHE.clear()
+    try:
+        jmod, p, tmod = _pair(height, kernel, dilation, bias=True, seed=8)
+        t = _ragged_t(height, 6)
+        x, w = _rnd(2, 1 + t, DIM, seed=9), _rnd(2, 1 + t, DIM, seed=10)
+        with pltpu.force_tpu_interpret_mode():
+            want = _jax_grads(jmod.replace(use_pallas=True), p, x, w)
+        _assert_grads_match(tmod, x, w, want, 2e-2)
+    finally:
+        K._VJP_CACHE.clear()
 
 
 def test_forward_attends_its_own_timestep_and_the_cached_step_does_not():

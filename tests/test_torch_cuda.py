@@ -398,22 +398,48 @@ def test_sparse3dna_audio_kernel_matches_plain(dtype, tol, height, kernel, dilat
 
 
 @pytest.mark.cuda
-def test_sparse3dna_audio_backward_is_refused():
-    """The backward kernels' audio mode comes with NUWAVideoAudio training:
-    on the card both backward wrappers and the autograd function's backward
-    raise NotImplementedError, and a geometry that is not (1, H) x (K, 1, H)
-    raises ValueError."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("height,kernel,dilation", [(1, 7, 1), (3, 5, 2), (32, 7, 1)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_sparse3dna_audio_backward_kernels_match_plain(dtype, tol, height, kernel, dilation,
+                                                       ragged):
+    """The query-side and key-side kernels in the audio geometry, where the
+    key side's pairs are a key's one slot per time tap read by every query
+    of a timestep: 4 heads of 32, rel-pos bias, 10 timesteps, whole or with
+    half the last one missing, against their plain versions (tolerances as
+    in the causal test, the launches counted as audio ones), every output
+    equal bit for bit across two calls, and the autograd function against
+    autograd of the plain forward in fp32 (1e-5 of each gradient's max abs);
+    a geometry that is not (1, H) x (K, 1, H) raises ValueError."""
     _needs_cuda()
-    q, k, v, kb, vb, th, rel, g = _bwd_inputs(torch.float32, 20, kn=3 * 4)
-    geo = dict(fmap=(1, 4), kernel=(3, 1, 4), dilation=(1, 1, 1), mode="audio")
-    _, lse = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **geo)
-    slots = torch.zeros(2, 4, 20, 13, device="cuda")
-    with pytest.raises(NotImplementedError):
-        knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse, **geo)
-    with pytest.raises(NotImplementedError):
-        knda.sparse_3dna_bwd_kv(q, g, slots, slots, **geo)
-    leaves = [x.detach().requires_grad_() for x in (q, k, v, kb, vb, th, rel)]
-    with pytest.raises(NotImplementedError):
-        knda.sparse_3dna(*leaves, **geo).sum().backward()
+    t = 10 * height - (height // 2 if ragged else 0)
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, kn=kernel * height, seed=t + 1)
+    geo = dict(fmap=(1, height), kernel=(kernel, 1, height), dilation=(dilation, 1, 1),
+               mode="audio")
+    _, lse = knda.sparse_3dna_fwd_plain(q, k, v, kb, vb, th, rel, **geo)
+    before = [fn.mode_launches["audio"] for fn in (knda.sparse_3dna_bwd_q,
+                                                  knda.sparse_3dna_bwd_kv)]
+    runs = []
+    for _ in range(2):
+        got = knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse, **geo)
+        runs.append(got + knda.sparse_3dna_bwd_kv(q, g, got[1], got[2], **geo))
+    want = knda.sparse_3dna_bwd_q_plain(q, k, v, kb, vb, th, rel, g, lse, **geo)
+    want += knda.sparse_3dna_bwd_kv_plain(q, g, want[1], want[2], **geo)
+    torch.cuda.synchronize()
+    assert [fn.mode_launches["audio"] for fn in (
+        knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv)] == [n + 2 for n in before]
+    names = ("dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk", "dv")
+    for name, a, a2, b in zip(names, *runs, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, a2), name
+        err = _rel_err(a, b)
+        assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"
+    if dtype == torch.float32:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, kb, vb, th, rel)]
+        out, _ = knda.sparse_3dna_fwd_plain(*leaves, **geo)
+        wants = torch.autograd.grad(out, leaves, g)
+        gots = torch.autograd.grad(knda.sparse_3dna(*leaves, **geo), leaves, g)
+        for name, a, b in zip(("q", "k", "v", "k_bos", "v_bos", "th", "bias"), gots, wants):
+            assert _rel_err(a, b) <= 1e-5, name
     with pytest.raises(ValueError):
-        knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **dict(geo, kernel=(3, 1, 2)))
+        knda.sparse_3dna_bwd_kv(q, g, want[1], want[2], **dict(geo, kernel=(kernel, 1, 2)))

@@ -9,8 +9,13 @@ the CPU, against nuwa_tpu with the same weights:
   * ``DualModalityDecoder`` and ``ReversibleDualModalityDecoder`` (depth 3,
     cross-modality attention every 2 depths, token shift on both towers,
     H = 2, rel-pos biases, dilations cycled by depth) on random streams:
-    both outputs within 1e-5 of their max abs; the reversible forward keeps
-    no graph for a backward, which raises until training lands;
+    both outputs within 1e-5 of their max abs, and the gradients of a
+    weighted sum of them in both streams, the text context and every
+    parameter against ``jax.grad`` within 1e-4 of each one's max abs (at
+    least 1: sums in another order, and the reversible backward rebuilds
+    its activations by subtraction). The reversible decoder's come from the port's recompute
+    backward of ``dual_reversible_sequence`` through self, cross and xmod
+    quads, the JAX package's from its custom VJP (``reverse=True``);
   * ``convert.load_nuwa_video_audio`` on a JAX ``NUWAVideoAudio`` tree (the
     shapes of ``jax.eval_shape`` of its init): every leaf used once.
 """
@@ -27,14 +32,14 @@ from nuwa_tpu.ops.crossmodality import CrossModalityCrossAttention as JXmod
 from nuwa_tpu.ops.shift import shift_audio_tokens as jshift_audio_tokens
 from nuwa_tpu.vqgan_vae import VQGanVAE as JVQGanVAE
 from nuwa_tpu_torch import CrossModalityCrossAttention, NUWAVideoAudio, VQGanVAE
-from nuwa_tpu_torch.convert import flatten_params, load_jax_params, load_nuwa_video_audio
+from nuwa_tpu_torch.convert import flatten_params, jax_path, load_jax_params, load_nuwa_video_audio
 from nuwa_tpu_torch.core.layers import init_weights_
 from nuwa_tpu_torch.dual_decoder import DualModalityDecoder, ReversibleDualModalityDecoder
 from nuwa_tpu_torch.ops.shift import shift_audio_tokens
 from test_torch_sketch import jax_params
 
 torch.set_num_threads(1)
-REL = 1e-5
+REL, GRAD_REL = 1e-5, 1e-4
 
 
 def _rnd(*shape, seed=0):
@@ -89,20 +94,33 @@ def test_dual_decoder_forward_matches_jax(reversible):
     tdec = (ReversibleDualModalityDecoder if reversible else DualModalityDecoder)(**DUAL)
     init_weights_(tdec, seed=4)
     assert tdec.kinds == [btype for btype, _, _ in jdec.blocks()]
+    assert {"self", "cross", "xmod"} == set(tdec.kinds)
     params = jax_params(jdec, tdec)
     video, audio = _rnd(2, 1 + 17, 16, seed=5), _rnd(2, 1 + 7, 16, seed=6)
     context, cmask = _rnd(2, 5, 16, seed=7), np.array([[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]], bool)
-    want = jax.jit(lambda p, v, a, c, m: jdec(p, v, a, context=c, context_mask=m))(
-        params, video, audio, context, cmask)
-    got = tdec(torch.from_numpy(video), torch.from_numpy(audio),
-               context=torch.from_numpy(context), context_mask=torch.from_numpy(cmask))
+    wv, wa = _rnd(2, 1 + 17, 16, seed=8), _rnd(2, 1 + 7, 16, seed=9)
+
+    def loss(p, v, a, c):
+        out = jdec(p, v, a, context=c, context_mask=cmask)
+        return jnp.sum(out[0] * wv) + jnp.sum(out[1] * wa), out
+
+    (_, want), jgrads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True))(
+        params, video, audio, context)
+    inputs = [torch.from_numpy(x).requires_grad_() for x in (video, audio, context)]
+    got = tdec(*inputs[:2], context=inputs[2], context_mask=torch.from_numpy(cmask))
     for g, w in zip(got, want):
         w = np.asarray(w)
         np.testing.assert_allclose(g.detach().numpy(), w, atol=REL * np.abs(w).max(), rtol=0)
-    if reversible:
-        assert got[0].requires_grad
-        with pytest.raises(NotImplementedError):
-            got[0].sum().backward()
+    (torch.sum(got[0] * torch.from_numpy(wv)) + torch.sum(got[1] * torch.from_numpy(wa))).backward()
+    ref = flatten_params(jax.tree.map(np.asarray, jgrads[0]))
+    named = {jax_path(tdec, n): p.grad for n, p in tdec.named_parameters()}
+    assert sorted(named) == sorted(ref)
+    pairs = [(n, x.grad, jg) for n, x, jg in zip(("video", "audio", "context"), inputs, jgrads[1:])]
+    for name, g, r in pairs + [(n, named[n], r) for n, r in ref.items()]:
+        r = np.asarray(r)
+        assert g is not None, name
+        np.testing.assert_allclose(g.numpy(), r, atol=GRAD_REL * max(1.0, np.abs(r).max()),
+                                   rtol=0, err_msg=name)
 
 
 def test_load_nuwa_video_audio_uses_every_leaf_once():
