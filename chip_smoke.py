@@ -101,7 +101,22 @@ Phases, each of which exits non-zero on failure:
    the busy share; then at depth 2 in fp32 the loss and every gradient on
    the GPU against the CPU, and one clip-and-AdamW step from the same
    gradients;
-11. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+11. training with attention and feed-forward dropout (rate 0.1): the three
+   Sparse3DNA kernels with dropout against their plain versions (the same
+   counter-hash mask) at the main path's shapes, causal at the fmap-16
+   training shape, centered at the sketch encoder's, at fmap 32 and in the
+   audio geometry at H = 4 and 1, fp32 and bf16, every backward output
+   equal bit for bit across two calls and the dropped share of the valid
+   pairs within 4 binomial standard deviations of the rate; each kernel's
+   time with and without dropout beside its plain version's; NUWATrainer at
+   128 px with attn_dropout = ff_dropout = 0.1 (4 steps, every launch a
+   dropout one, step ms beside the step without dropout) and its fp32 loss
+   and gradients on the GPU against the CPU (the one dropout seed drawn
+   from the same CPU generator); the depth-64 flagship's train step with
+   the same dropout (4 steps, launches, step ms and peak memory beside the
+   step without), and at depth 2 its fp32 loss and gradients against the
+   CPU;
+12. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, median after warm-up), and the device's busy share of a
    generate of each model.
 
@@ -550,21 +565,24 @@ def reset_launches(knda):
         fn.launches = 0
 
 
+COUNTED_MODES = ("centered", "audio", "dropout")
+
+
 def launch_counts(knda):
     """Each wrapper's launches since the reset, and the Sparse3DNA wrappers'
-    centered ones as "<name>_centered" and audio ones as "<name>_audio"."""
+    centered ones as "<name>_centered", audio ones as "<name>_audio" and
+    those with attention dropout as "<name>_dropout"."""
     fns = kernel_wrappers(knda)
     counts = {name: fn.launches for name, fn in fns.items()}
     counts.update({f"{name}_{mode}": fns[name].mode_launches[mode] for name in CENTERED
-                   for mode in ("centered", "audio")})
+                   for mode in COUNTED_MODES})
     return counts
 
 
 def expect_launches(**nonzero):
     """The launch counts of a run that launches the named kernels that many
     times and no other."""
-    keys = (*KERNELS, *(f"{name}_{mode}" for mode in ("centered", "audio")
-                        for name in CENTERED))
+    keys = (*KERNELS, *(f"{name}_{mode}" for mode in COUNTED_MODES for name in CENTERED))
     return {key: nonzero.get(key, 0) for key in keys}
 
 
@@ -1635,16 +1653,22 @@ def read_png(path):
     return rows[:, 1:].reshape(height, width, 3)
 
 
-def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda):
+def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, dropout=0.0):
     """NUWATrainer at 128 px, bf16: NUWA128_STEPS AdamW steps at batch 2 on
     one seeded batch of captions and pixel videos, the counts set to 0
     before each step and read after it (the reversible decoder: B1 12, B2 6,
-    B3 6 a step; the codec and the sample at step 0 none). The step-0 sample
-    (one frame) is written as a PNG, which must decode to the logged frame
-    inside the grid's 2-pixel border."""
+    B3 6 a step, each of them a dropout launch with ``dropout``, the
+    ``attn_dropout`` and ``ff_dropout`` of the model; the codec and the
+    sample at step 0 none). The step-0 sample (one frame) is written as a
+    PNG, which must decode to the logged frame inside the grid's 2-pixel
+    border. Returns the launches of all steps and the step's median ms."""
     depth = NUWA128["dec_depth"]
-    expect = expect_launches(fwd=2 * depth, bwd_q=depth, bwd_kv=depth)
-    model = nuwa128_model(NUWA, VQGanVAE)
+    drop = depth if dropout else 0
+    expect = expect_launches(fwd=2 * depth, bwd_q=depth, bwd_kv=depth, fwd_dropout=2 * drop,
+                             bwd_q_dropout=drop, bwd_kv_dropout=drop)
+    label = f"128 px train, dropout {dropout}" if dropout else "128 px train"
+    results = f"{NUWA128_RESULTS}_dropout" if dropout else NUWA128_RESULTS
+    model = nuwa128_model(NUWA, VQGanVAE, attn_dropout=dropout, ff_dropout=dropout)
     text = nuwa128_text(tokenizer, NUWA128_BATCH).numpy()
     video = moving_squares(NUWA128_BATCH, NUWA128["max_video_frames"], SIZE128,
                            np.random.default_rng(SEED + 45))
@@ -1652,7 +1676,7 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda):
         nuwa=model, dataset=list(zip(text, video)), num_train_steps=NUWA128_STEPS, lr=3e-4,
         wd=0.01, batch_size=NUWA128_BATCH, grad_accum_every=1, max_grad_norm=0.5,
         cond_dropout_prob=0.2, save_results_every=1000, num_sampled_frames=1, seed=SEED,
-        results_folder=NUWA128_RESULTS, tokenizer=tokenizer,
+        results_folder=results, tokenizer=tokenizer,
     )
     if any(p.requires_grad for p in model.vae.parameters()) or any(
             p is q for p in trainer.params for q in model.vae.parameters()):
@@ -1671,57 +1695,61 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda):
         losses.append(logs["loss"])
         got = launch_counts(knda)
         if got != expect:
-            fail(f"128 px train step {step}: launches {got}, expected {expect}")
+            fail(f"{label} step {step}: launches {got}, expected {expect}")
         total = {k: total[k] + got[k] for k in total}
         if step == 0:
             sample, side = logs.get("sampled_video"), SIZE128
             if sample is None or sample.shape != (1, 3, side, side):
-                fail(f"128 px train step 0 logged no (1, 3, {side}, {side}) sample")
-            png = read_png(f"{NUWA128_RESULTS}/0.png")
+                fail(f"{label} step 0 logged no (1, 3, {side}, {side}) sample")
+            png = read_png(f"{results}/0.png")
             want = (np.clip(sample[0], 0.0, 1.0) * 255).astype(np.uint8).transpose(1, 2, 0)
             if png.shape != (side + 4, side + 4, 3) or not np.array_equal(
                     png[2:side + 2, 2:side + 2], want):
                 fail(f"128 px sample PNG {png.shape} does not hold the sampled frame")
-            print(f"128 px train step 0: sampled '{logs['sampled_text']}' to "
-                  f"{NUWA128_RESULTS}/0.png, a {png.shape[0]} x {png.shape[1]} x 3 PNG that "
+            print(f"{label} step 0: sampled '{logs['sampled_text']}' to "
+                  f"{results}/0.png, a {png.shape[0]} x {png.shape[1]} x 3 PNG that "
                   f"decodes to the {side} x {side} x 3 frame in a 2-pixel border", flush=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(map(math.isfinite, losses)):
-        fail(f"128 px train losses not finite: {losses}")
+        fail(f"{label} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"128 px train loss did not fall: {losses}")
+        fail(f"{label} loss did not fall: {losses}")
     ms = statistics.median(times[1:])  # step 0 also samples 1,024 tokens
     tokens = NUWA128_BATCH * NUWA128["max_video_frames"] * FMAP128**2
     shown = {k: v for k, v in expect.items() if v}
-    print(f"128 px train: losses {', '.join(f'{x:.4f}' for x in losses)} (finite, falling); "
+    print(f"{label}: losses {', '.join(f'{x:.4f}' for x in losses)} (finite, falling); "
           f"launches per step {shown} (as expected, every step)", flush=True)
-    print(f"128 px train step (b={NUWA128_BATCH}, {tokens} video tokens): {ms:.1f} ms median "
+    print(f"{label} step (b={NUWA128_BATCH}, {tokens} video tokens): {ms:.1f} ms median "
           f"of steps 1-{NUWA128_STEPS - 1} (step 0 with its sample: {times[0]:.1f} ms), "
           f"{tokens / (ms / 1e3):.0f} video tokens/s, peak memory {peak:.2f} GiB", flush=True)
     train_device_share(trainer)
     del trainer, model
     torch.cuda.empty_cache()
-    return total
+    return total, ms
 
 
-def train_128_against_cpu(NUWA, VQGanVAE, tokenizer):
+def train_128_against_cpu(NUWA, VQGanVAE, tokenizer, dropout=0.0):
     """The fp32 loss and every gradient at 2 frames and b = 1 (condition
     dropout off), the GPU path (kernels) against the CPU plain path; the
-    codec's parameters have none."""
+    codec's parameters have none. With ``dropout`` (the model's
+    ``attn_dropout`` and ``ff_dropout``) both draw their one dropout seed
+    from the same CPU generator, so they drop the same pairs."""
     text = nuwa128_text(tokenizer, 1)
     video = torch.from_numpy(moving_squares(1, 2, SIZE128, np.random.default_rng(SEED + 46)))
     grads = []
+    what = f"128 px train, dropout {dropout}," if dropout else "128 px train"
     for device in ("cuda", "cpu"):
         model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 47,
-                              max_video_frames=2)
+                              max_video_frames=2, attn_dropout=dropout, ff_dropout=dropout)
         start = time.perf_counter()
-        loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False]))
+        loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False]),
+                     generator=torch.Generator().manual_seed(SEED + 48))
         loss.backward()
         if any(p.grad is not None for p in model.vae.parameters()):
             fail(f"a codec parameter has a gradient on {device}")
         grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
                                     if p.requires_grad}))
-        print(f"fp32 128 px train forward and backward on {device}: "
+        print(f"fp32 {what} forward and backward on {device}: "
               f"{time.perf_counter() - start:.1f} s", flush=True)
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
     worst, where = 0.0, None
@@ -1729,14 +1757,14 @@ def train_128_against_cpu(NUWA, VQGanVAE, tokenizer):
         rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
         if rel > worst:
             worst, where = rel, name
-    print(f"fp32 128 px train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
+    print(f"fp32 {what} GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
           f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, largest error {worst:.3e} of the "
           f"gradient's max abs at {where} (tolerance {GRAD_REL:.0e}); no codec gradient",
           flush=True)
     if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
-        fail("the 128 px training loss differs between GPU and CPU")
+        fail(f"the {what} loss differs between GPU and CPU")
     if not worst <= GRAD_REL:
-        fail("128 px training gradients differ between GPU and CPU")
+        fail(f"{what} gradients differ between GPU and CPU")
 
 
 
@@ -2212,7 +2240,7 @@ def dual_train_step(model, opt, params, batch, gen):
     return loss.detach()
 
 
-def train_dual(NUWAVideoAudio, VQGanVAE, knda):
+def train_dual(NUWAVideoAudio, VQGanVAE, knda, dropout=0.0):
     """BASELINE config 5 at full width and depth (DUAL: depth 64), bf16,
     b = 1, seeded token ids (1,024 video, 128 audio), AdamW (lr 3e-4, weight
     decay 0.01) after the clip: DUAL_TRAIN_STEPS steps with the counts set
@@ -2221,17 +2249,23 @@ def train_dual(NUWAVideoAudio, VQGanVAE, knda):
     forward (under no grad) and again in the backward's recompute, then
     their backward: B1 4 x depth (2 x depth audio), B2 and B3 2 x depth
     (depth audio); the text encoder and the cross and inter-modality blocks
-    launch none. Returns the launches of all steps and the step's rates."""
+    launch none. With ``dropout`` (the model's ``attn_dropout`` and
+    ``ff_dropout``) every launch is a dropout one. Returns the launches of
+    all steps and the step's rates."""
     from nuwa_tpu_torch.train import get_optimizer
 
     depth = DUAL["dec_depth"]
+    drop = 2 * depth if dropout else 0
     expect = expect_launches(fwd=4 * depth, fwd_audio=2 * depth, bwd_q=2 * depth,
-                             bwd_q_audio=depth, bwd_kv=2 * depth, bwd_kv_audio=depth)
+                             bwd_q_audio=depth, bwd_kv=2 * depth, bwd_kv_audio=depth,
+                             fwd_dropout=2 * drop, bwd_q_dropout=drop, bwd_kv_dropout=drop)
+    label = f"dual train, dropout {dropout}" if dropout else "dual train"
     gen_cpu = torch.Generator().manual_seed(SEED + 73)
     text = request_text(1, gen_cpu)
     frames, atpf = DUAL["max_video_frames"], DUAL["num_audio_tokens_per_video_frame"]
     torch.cuda.reset_peak_memory_stats()
-    model = dual_model(NUWAVideoAudio, VQGanVAE, DUAL, DUAL_VAE, seed=SEED + 74)
+    model = dual_model(NUWAVideoAudio, VQGanVAE, DUAL, DUAL_VAE, seed=SEED + 74,
+                       attn_dropout=dropout, ff_dropout=dropout)
     nv, na = frames * model.tokens_per_frame, frames * atpf
     batch = (text, torch.randint(0, DUAL_VAE["vq_codebook_size"], (1, nv), generator=gen_cpu),
              torch.randint(0, DUAL["num_audio_tokens"], (1, na), generator=gen_cpu))
@@ -2244,31 +2278,32 @@ def train_dual(NUWAVideoAudio, VQGanVAE, knda):
         loss, ms = timed(lambda: dual_train_step(model, opt, params, batch, gen))
         got = launch_counts(knda)
         if got != expect:
-            fail(f"dual train step {step}: launches {got}, expected {expect}")
+            fail(f"{label} step {step}: launches {got}, expected {expect}")
         total = {k: total[k] + got[k] for k in total}
         losses.append(loss.item())
         times.append(ms)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not all(map(math.isfinite, losses)):
-        fail(f"dual train losses not finite: {losses}")
+        fail(f"{label} losses not finite: {losses}")
     ms = statistics.median(times[1:])
     rate = (nv + na) / (ms / 1e3)
     n_params = sum(p.numel() for p in params)
-    print(f"dual train: losses {', '.join(f'{x:.4f}' for x in losses)} (finite)", flush=True)
-    print(f"dual train: launches per step read {got} (as expected, every step: B1 "
-          f"{4 * depth}, {2 * depth} audio; B2 and B3 {2 * depth}, {depth} audio)", flush=True)
-    print(f"dual train step (BASELINE config 5, depth {depth}, {n_params / 1e6:.1f} M trained "
+    print(f"{label}: losses {', '.join(f'{x:.4f}' for x in losses)} (finite)", flush=True)
+    print(f"{label}: launches per step read {got} (as expected, every step: B1 "
+          f"{4 * depth}, {2 * depth} audio; B2 and B3 {2 * depth}, {depth} audio; "
+          f"dropout ones B1 {2 * drop}, B2 and B3 {drop})", flush=True)
+    print(f"{label} step (BASELINE config 5, depth {depth}, {n_params / 1e6:.1f} M trained "
           f"parameters, b=1, {nv} video + {na} audio tokens): {ms:.1f} ms median of steps "
           f"1-{DUAL_TRAIN_STEPS - 1} (step 0: {times[0]:.1f} ms), {rate:.0f} tokens/s, peak "
           f"memory {peak:.2f} GiB", flush=True)
     share(lambda: dual_train_step(model, opt, params, batch, gen),
-          f"dual train step, depth {depth}", wall=ms)
+          f"{label} step, depth {depth}", wall=ms)
     del model, opt, params
     torch.cuda.empty_cache()
     return total, dict(ms=ms, tokens_per_s=rate, peak_gib=peak)
 
 
-def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE):
+def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=0.0):
     """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
     cross-modality attention every 2 depths (one xmod block), b = 2 with a
     fixed condition-dropout mask (row 1 unconditional), the same weights on
@@ -2277,7 +2312,9 @@ def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE):
     clip-and-AdamW step (lr 3e-4, weight decay 0.01) on each, both fed the
     CPU's gradients (Adam's first step is sign-like and would magnify the
     gradients' rounding where they are near 0): every parameter within 1e-5
-    of its max abs."""
+    of its max abs. With ``dropout`` (the model's ``attn_dropout`` and
+    ``ff_dropout``) both draw their one dropout seed from the same CPU
+    generator, so they drop the same pairs, and the step is not repeated."""
     from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
 
     cfg = dict(DUAL, dec_depth=2, max_video_frames=2, cross_modality_attn_every=2)
@@ -2290,27 +2327,31 @@ def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE):
     runs = []
     for device in ("cuda", "cpu"):
         model = dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
-                           seed=SEED + 77)
+                           seed=SEED + 77, attn_dropout=dropout, ff_dropout=dropout)
         start = time.perf_counter()
-        loss = model(text, video, audio, return_loss=True, train=True, uncond=uncond)
+        loss = model(text, video, audio, return_loss=True, train=True, uncond=uncond,
+                     generator=torch.Generator().manual_seed(SEED + 78))
         loss.backward()
         grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad}
         runs.append((model, loss.item(), grads))
-        print(f"dual fp32 train forward and backward on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
+        print(f"dual fp32 train{f', dropout {dropout},' if dropout else ''} forward and "
+              f"backward on {device}: {time.perf_counter() - start:.1f} s", flush=True)
     (gpu, loss_gpu, g_gpu), (cpu, loss_cpu, g_cpu) = runs
     worst, where = 0.0, None
     for name, ref in g_cpu.items():
         rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
         if rel > worst:
             worst, where = rel, name
-    print(f"dual fp32 train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
-          f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, largest error {worst:.3e} of the "
-          f"gradient's max abs at {where} (tolerance {GRAD_REL:.0e})", flush=True)
+    print(f"dual fp32 train{f', dropout {dropout},' if dropout else ''} GPU vs CPU: loss "
+          f"{loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance {LOSS_ATOL:.0e}); {len(g_cpu)} "
+          f"gradients, largest error {worst:.3e} of the gradient's max abs at {where} "
+          f"(tolerance {GRAD_REL:.0e})", flush=True)
     if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
         fail("the dual training loss differs between GPU and CPU")
     if not worst <= GRAD_REL:
         fail("dual training gradients differ between GPU and CPU")
+    if dropout:
+        return
     for model in (gpu, cpu):
         params = [p for p in model.parameters() if p.requires_grad]
         for (name, p) in ((n, p) for n, p in model.named_parameters() if p.requires_grad):
@@ -2330,6 +2371,122 @@ def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE):
           f"error {worst:.3e} of its max abs at {where} (tolerance 1e-05)", flush=True)
     if not worst <= 1e-5:
         fail("the dual AdamW step differs between GPU and CPU")
+
+
+# ---------------------------------------------------------------------------
+# attention and feed-forward dropout
+# ---------------------------------------------------------------------------
+
+DROP_RATE, DROP_SEED = 0.1, 1234567
+# the main path's shapes of the three kernels, (b, t, geometry, bias): the
+# fmap-16 training shape (dilation 2), the centered sketch encoder's
+# (dilation 1, no bias), the fmap-32 training shape and the config-5 train
+# step's audio at H = 4, with H = 1 beside it
+DROPOUT_SHAPES = {
+    "causal, fmap 16": (TRAIN_BATCH, TRAIN_T, dict(fmap=TRAIN_FMAP, kernel=TRAIN_KERNEL,
+                                                  dilation=(2, 2, 2), mode="causal"), True),
+    "centered": (TRAIN_BATCH, 2 * SKETCH_FMAP**2 - 1,
+                 dict(fmap=(SKETCH_FMAP,) * 2, kernel=TRAIN_KERNEL, dilation=(1, 1, 1),
+                      mode="centered"), False),
+    "fmap 32": (TRAIN_BATCH, T128, dict(fmap=(FMAP128,) * 2, kernel=TRAIN_KERNEL,
+                                        dilation=(2, 2, 2), mode="causal"), True),
+    "audio, H=4": (1, 127, audio_kw(4), True),
+    "audio, H=1": (2, 95, audio_kw(1), True),
+}
+
+
+def dropout_rows(knda):
+    """The three kernels with attention dropout at DROP_RATE and a seed, at
+    each shape of DROPOUT_SHAPES, fp32 and bf16: against their plain versions
+    on the same inputs (the same counter-hash mask; errors over each
+    reference's max abs, the type's tolerance for outputs in q's dtype and
+    fp32's for the fp32 ones), every backward output equal bit for bit
+    across two calls, and the dropped share of the valid pairs' mixed
+    probabilities; then, in bf16, each kernel's device time with and
+    without dropout beside its plain version's with dropout. Returns
+    {(kernel, shape): row}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    rows = {}
+    drop = (DROP_RATE, DROP_SEED)
+    for name, (b, t, kw, bias) in DROPOUT_SHAPES.items():
+        dkw = dict(kw, dropout=drop)
+        for dtype in (torch.float32, torch.bfloat16):
+            args, g = nda_inputs(b, t, dtype, bias, gen, kw["kernel"])
+            out, lse = knda.sparse_3dna_fwd(*args, **dkw)
+            ref, ref_lse = knda.sparse_3dna_fwd_plain(*args, **dkw)
+            want = knda.sparse_3dna_bwd_q_plain(*args, g, ref_lse, **dkw)
+            want += knda.sparse_3dna_bwd_kv_plain(args[0], g, *want[1:3], **dkw)
+            runs = []
+            for _ in range(2):
+                got = knda.sparse_3dna_bwd_q(*args, g, ref_lse, **dkw)
+                runs.append(got + knda.sparse_3dna_bwd_kv(args[0], g, *want[1:3], **dkw))
+            torch.cuda.synchronize()
+            errs = {}
+            for oname, a, a2, w in zip(("out", "lse", *BWD_NAMES), (out, lse, *runs[0]),
+                                       (out, lse, *runs[1]), (ref, ref_lse, *want)):
+                if w is None:
+                    continue
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    fail(f"dropout {name} {oname}: {a.dtype} {tuple(a.shape)} != "
+                         f"{w.dtype} {tuple(w.shape)}")
+                if not torch.equal(a, a2):
+                    fail(f"dropout {name} {oname} {dtype}: two calls differ")
+                err = (a.float() - w.float()).abs().max().item()
+                rel = err / max(1.0, w.float().abs().max().item())
+                tol = TOL[dtype if oname in ROUNDED else torch.float32]
+                if not rel <= tol:
+                    fail(f"dropout {name} {oname} {dtype}: error {rel} of the max abs > {tol}")
+                kname = ("fwd" if oname in ("out", "lse") else
+                         "bwd_kv" if oname in ("dk", "dv") else "bwd_q")
+                old = errs.get(kname, (0.0, 0.0))
+                errs[kname] = max(old[0], rel), max(old[1], err)
+            # the share of the valid pairs' mixed probabilities dropped
+            nodrop_mix = knda.sparse_3dna_bwd_q(*args, g, ref_lse, **kw)[2]
+            valid = nodrop_mix != 0
+            share = ((runs[0][2] == 0) & valid).sum().item() / valid.sum().item()
+            n = valid.sum().item()
+            if not abs(share - DROP_RATE) <= 4 * (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5:
+                fail(f"dropout {name} {dtype}: dropped share {share} of {n} pairs is more "
+                     f"than 4 binomial standard deviations from the rate {DROP_RATE}")
+            print(f"dropout {DROP_RATE} {name} b={b} t={t} {dtype} vs plain: "
+                  + ", ".join(f"sparse_3dna_{k} max error {rel:.3e} of the max abs"
+                              for k, (rel, _) in errs.items())
+                  + f" (tolerances {TOL[dtype]:.0e} for outputs in {dtype}, 1e-05 for fp32 "
+                  f"ones); backward equal bit for bit across two calls; {share:.4f} of "
+                  f"{n} valid pairs dropped (within 4 binomial standard deviations)",
+                  flush=True)
+            del out, lse, ref, ref_lse, want, runs, got, nodrop_mix, valid
+            for kname, (_, err) in errs.items():
+                row = rows.setdefault((kname, name), dict(b=b, t=t, max_abs_err=0.0))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+        # times, bf16: with and without dropout, and the plain version with it
+        args, g = nda_inputs(b, t, torch.bfloat16, bias, gen, kw["kernel"])
+        _, lse = knda.sparse_3dna_fwd(*args, **dkw)
+        _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **dkw)
+        plain_iters = 2 if t > 4096 else 5
+        for kname, call, plain in (
+            ("fwd", lambda k, **o: k.sparse_3dna_fwd(*args, **o), knda.sparse_3dna_fwd_plain),
+            ("bwd_q", lambda k, **o: k.sparse_3dna_bwd_q(*args, g, lse, **o),
+             knda.sparse_3dna_bwd_q_plain),
+            ("bwd_kv", lambda k, **o: k.sparse_3dna_bwd_kv(args[0], g, ds, mix, **o),
+             knda.sparse_3dna_bwd_kv_plain),
+        ):
+            ms = device_ms(lambda: call(knda, **dkw))
+            base = device_ms(lambda: call(knda, **kw))
+            plain_args = {"fwd": args, "bwd_q": (*args, g, lse),
+                          "bwd_kv": (args[0], g, ds, mix)}[kname]
+            plain_ms = device_ms(lambda: plain(*plain_args, **dkw), iters=plain_iters)
+            bound, by = nda_bounds(knda, b, t, kw["dilation"], torch.bfloat16, bias, kw["fmap"],
+                                   kw["kernel"], kw["mode"])[kname]
+            rows[kname, name].update(ms=ms, no_dropout_ms=base, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by)
+            print(f"sparse_3dna_{kname} dropout {DROP_RATE} {name} bf16 b={b} t={t}: kernel "
+                  f"{ms:.4f} ms (device), {base:.4f} ms without dropout "
+                  f"({100 * (ms / base - 1):+.1f}%), plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.6f} ms ({by})", flush=True)
+        del args, g, lse, ds, mix
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -2398,7 +2555,7 @@ def main():
     serve128_launches, _ = serve_128(NUWA, VQGanVAE, tokenizer, knda)
     nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer)
     phase("NUWA serving at 128 px")
-    train128_launches = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda)
+    train128_launches, train128_ms = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda)
     train_128_against_cpu(NUWA, VQGanVAE, tokenizer)
     phase("NUWA training at 128 px")
     audio_err = check_audio(knda)
@@ -2410,9 +2567,24 @@ def main():
     audio_bwd_err = check_audio_bwd(knda)
     check_audio_autograd(knda)
     audio_bwd_rows = time_audio_bwd(knda)
-    dual_train_launches, _ = train_dual(NUWAVideoAudio, VQGanVAE, knda)
+    dual_train_launches, dual_train = train_dual(NUWAVideoAudio, VQGanVAE, knda)
     dual_train_against_cpu(NUWAVideoAudio, VQGanVAE)
     phase("NUWAVideoAudio training and the audio backward")
+    drop_rows = dropout_rows(knda)
+    drop128_launches, drop128_ms = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda,
+                                             dropout=DROP_RATE)
+    print(f"128 px train step with attn_dropout = ff_dropout = {DROP_RATE}: {drop128_ms:.1f} ms "
+          f"against {train128_ms:.1f} ms without ({100 * (drop128_ms / train128_ms - 1):+.1f}%)",
+          flush=True)
+    train_128_against_cpu(NUWA, VQGanVAE, tokenizer, dropout=DROP_RATE)
+    drop_dual_launches, drop_dual = train_dual(NUWAVideoAudio, VQGanVAE, knda,
+                                               dropout=DROP_RATE)
+    print(f"dual train step with attn_dropout = ff_dropout = {DROP_RATE}: "
+          f"{drop_dual['ms']:.1f} ms against {dual_train['ms']:.1f} ms without "
+          f"({100 * (drop_dual['ms'] / dual_train['ms'] - 1):+.1f}%), peak memory "
+          f"{drop_dual['peak_gib']:.2f} against {dual_train['peak_gib']:.2f} GiB", flush=True)
+    dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=DROP_RATE)
+    phase("training with attention and feed-forward dropout")
     throughput(model, texts)
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
@@ -2450,11 +2622,12 @@ def main():
             "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
             "launches": (serve_counts[name] + train_launches[name] + sketch_train_total[name]
-                         + rb_launches + dual_train_launches[name]),
+                         + rb_launches + dual_train_launches[name] + drop128_launches[name]
+                         + drop_dual_launches[name]),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             # causal windows (the video decoder), centered ones (the sketch encoder)
-            "modes": "causal, centered and audio",
+            "modes": "causal, centered and audio, with and without attention dropout",
             "centered_launches": sketch_train_total[f"{name}_centered"],
             # frames past 256 tokens: the row-blocked TPU kernel's shapes
             "fmap_32": {
@@ -2497,6 +2670,22 @@ def main():
             **{k: row[k] for k in timed_keys}, "library_ms": None,
             "backward_bound_ms": row["backward_bound_ms"],
             "at_h1": {k: row1[k] for k in (*timed_keys, "backward_bound_ms")},
+        }
+    # attention dropout (the training runs with attn_dropout = ff_dropout =
+    # DROP_RATE): its launches there, the times at the fmap-16 training shape
+    # and under "shapes" at each of DROPOUT_SHAPES, each beside the time
+    # without dropout
+    timed_keys = ("ms", "no_dropout_ms", "plain_ms", "bound_ms", "bound_by")
+    for entry, name in zip(entries[:3], ("fwd", "bwd_q", "bwd_kv")):
+        row = drop_rows[name, "causal, fmap 16"]
+        entry["dropout"] = {
+            "rate": DROP_RATE,
+            "launches": drop128_launches[f"{name}_dropout"] + drop_dual_launches[f"{name}_dropout"],
+            "max_abs_err": max(drop_rows[name, shape]["max_abs_err"] for shape in DROPOUT_SHAPES),
+            **{k: row[k] for k in timed_keys}, "library_ms": None,
+            "shapes": {shape: {k: drop_rows[name, shape][k]
+                               for k in ("b", "t", "max_abs_err", *timed_keys)}
+                       for shape in DROPOUT_SHAPES},
         }
     # one CUDA kernel replaces both fused TPU kernels: at two context frames
     # (_xfused_kernel) and at one (_xfused1_kernel)

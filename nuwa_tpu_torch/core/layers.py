@@ -1,6 +1,6 @@
-"""Leaf layers: Dense, Embedding, LayerNorm, StableLayerNorm, and the
-codec's convolution layers (Conv2d, GroupNorm, LayerNormChan, leaky_relu,
-the bilinear upsample).
+"""Leaf layers: Dense, Embedding, LayerNorm, StableLayerNorm, dropout and
+the seeds of a stack's layers, and the codec's convolution layers (Conv2d,
+GroupNorm, LayerNormChan, leaky_relu, the bilinear upsample).
 
 Counterpart of ``nuwa_tpu/core/layers.py``. Parameters keep the JAX
 package's names and layouts (``Dense.w`` is ``(din, dout)``), so
@@ -21,6 +21,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.nda import _avalanche, keep_mask, keep_params
+
+_U32 = 0xFFFFFFFF
 
 
 @torch.no_grad()
@@ -47,6 +51,43 @@ def init_weights_(model: nn.Module, seed: int, skip=()) -> nn.Module:
         if id(m) not in kept and hasattr(m, "reset_parameters"):
             m.reset_parameters(gen)
     return model
+
+
+def dropout(x, rate, seed, ids=None):
+    """Inverted dropout: the counterpart of ``dropout`` in
+    ``nuwa_tpu/core/layers.py``. No seed, or a rate of 0, is the identity
+    (inference), as a key of None is there. The mask is not drawn from a
+    generator (JAX's ``jax.random.bernoulli`` bits cannot be drawn in torch,
+    and ``torch.utils.checkpoint`` does not replay an explicit generator) but
+    from the Sparse3DNA kernels' counter hash, ``kernels.nda.keep_mask``, so
+    it is the same on every device and any recompute replays it. ``ids``:
+    (q_ids (n,), k_ids (n, K) or (1, K)) for an x of (b, h, n, K), keying
+    each element by (seed, batch row, head, query id, key id); None keys each
+    element of an x of any shape by its flat index (the query id of batch row
+    0 and head 0, key id 0). The kept values are scaled by fp32 1 / keep."""
+    if seed is None or rate <= 0:
+        return x
+    if ids is None:
+        keep = keep_mask(seed, rate, 1, 1, torch.arange(x.numel(), device=x.device))
+        keep = keep.view(x.shape)
+    else:
+        keep = keep_mask(seed, rate, x.shape[0], x.shape[1], *ids)
+    return torch.where(keep, x * keep_params(rate)[1], 0.0)
+
+
+def split_seed(seed, n):
+    """One dropout seed for each of a stack's ``n`` layers: None each
+    without a seed; the sequence itself when one is given (an int or None a
+    layer: the tests pass the seeds that JAX's split keys draw); else n ints
+    in [0, 2**31 - 1) hashed from the one int and the layer's index."""
+    if seed is None:
+        return [None] * n
+    if isinstance(seed, (list, tuple)):
+        if len(seed) != n:
+            raise ValueError(f"{len(seed)} seeds for {n} layers")
+        return list(seed)
+    base = (int(seed) * 0x9E3779B9) & _U32
+    return [_avalanche((base + i + 0x85EBCA6B) & _U32) % (2**31 - 1) for i in range(n)]
 
 
 class Dense(nn.Module):

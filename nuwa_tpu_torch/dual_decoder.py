@@ -20,13 +20,19 @@ the JAX package's layer menu: per depth [self + ff] then [cross + ff], so
 the plain decoder carries one more FF per stream and depth than the
 reference's non-reversible layout. The context-parallel binding (``BindCP``)
 is not ported.
+
+``attn_dropout`` reaches every attention of the schedule and ``ff_dropout``
+every feed-forward. ``forward(..., seed=...)`` gives each block four seeds,
+one for each of f, g, j and k (``core.layers.split_seed``), as the JAX
+decoders split four keys a block; the reversible recompute and ``remat``'s
+both re-run each module with its seed, and the counter-hash masks replay.
 """
 from __future__ import annotations
 
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .core.layers import StableLayerNorm
+from .core.layers import StableLayerNorm, split_seed
 from .nda import Sparse3DNA, SparseCausal2DNA
 from .ops.attention import Attention
 from .ops.crossmodality import CrossModalityCrossAttention
@@ -55,26 +61,30 @@ class Quad(nn.Module):
 
 
 def apply_dual_block(btype, mods, video, audio, *, context=None, context_mask=None,
-                     video_mask=None, audio_mask=None):
+                     video_mask=None, audio_mask=None, seeds=(None,) * 4):
     """One schedule entry of the plain dual decoder: the (video, audio) pair
-    through the block's four sandwiched modules."""
+    through the block's four sandwiched modules, each with its dropout seed
+    (``seeds``: f, g, j, k)."""
     f, g, j, k = mods
+    sf, sg, sj, sk = seeds
     if btype == "self":
-        video = f(video, mask=video_mask) + video
-        video = g(video) + video
-        audio = j(audio, mask=audio_mask) + audio
-        audio = k(audio) + audio
+        video = f(video, mask=video_mask, seed=sf) + video
+        video = g(video, seed=sg) + video
+        audio = j(audio, mask=audio_mask, seed=sj) + audio
+        audio = k(audio, seed=sk) + audio
     elif btype == "cross":
-        video = f(video, context=context, mask=video_mask, context_mask=context_mask) + video
-        video = g(video) + video
-        audio = j(audio, context=context, mask=audio_mask, context_mask=context_mask) + audio
-        audio = k(audio) + audio
+        video = f(video, context=context, mask=video_mask, context_mask=context_mask,
+                  seed=sf) + video
+        video = g(video, seed=sg) + video
+        audio = j(audio, context=context, mask=audio_mask, context_mask=context_mask,
+                  seed=sj) + audio
+        audio = k(audio, seed=sk) + audio
     else:  # xmod: both sides read the pre-update streams
-        video_new = f(video, audio, mask=video_mask, context_mask=audio_mask) + video
-        audio_new = j(audio, video, mask=audio_mask, context_mask=video_mask) + audio
+        video_new = f(video, audio, mask=video_mask, context_mask=audio_mask, seed=sf) + video
+        audio_new = j(audio, video, mask=audio_mask, context_mask=video_mask, seed=sj) + audio
         # g is the audio stream's ff, k the video stream's
-        video = k(video_new) + video_new
-        audio = g(audio_new) + audio_new
+        video = k(video_new, seed=sk) + video_new
+        audio = g(audio_new, seed=sg) + audio_new
     return video, audio
 
 
@@ -90,10 +100,19 @@ _ROUTES = {
 }
 
 
-def reversible_dual_blocks(blocks):
+def block_seeds(seed, n):
+    """The dropout seeds (f, g, j, k) of each of ``n`` blocks from ``seed``
+    (``core.layers.split_seed``: None, one int, or four a block in order)."""
+    seeds = split_seed(seed, 4 * n)
+    return [tuple(seeds[4 * i:4 * i + 4]) for i in range(n)]
+
+
+def reversible_dual_blocks(blocks, seed=None):
     """A ``DualModalityDecoder.blocks()`` schedule in ``reversible_dual``'s
-    form: each (type, quad) with the routes its four modules read."""
-    return [(btype, mods, _ROUTES[btype]) for btype, mods in blocks]
+    form: each (type, quad) with the routes its four modules read and their
+    four dropout seeds."""
+    return [(btype, mods, _ROUTES[btype], seeds)
+            for (btype, mods), seeds in zip(blocks, block_seeds(seed, len(blocks)))]
 
 
 class DualModalityDecoder(nn.Module):
@@ -103,7 +122,8 @@ class DualModalityDecoder(nn.Module):
                  sparse_3dna_rel_pos_bias=False, sparse_2dna_kernel_size=7,
                  sparse_2dna_dilation=(1,), sparse_2dna_rel_pos_bias=False,
                  shift_video_tokens=False, shift_audio_tokens=False,
-                 audio_tokens_per_timestep=1, cross_modality_attn_every=3, remat=False):
+                 audio_tokens_per_timestep=1, cross_modality_attn_every=3, remat=False,
+                 attn_dropout=0.0, ff_dropout=0.0):
         super().__init__()
         self.dim = dim
         self.remat = remat
@@ -113,20 +133,20 @@ class DualModalityDecoder(nn.Module):
             return Sandwich(dim, inner)
 
         def video_ff():
-            ff = FeedForward(dim)
+            ff = FeedForward(dim, dropout=ff_dropout)
             return sand(ShiftVideo(ff, image_size=fmap) if shift_video_tokens else ff)
 
         def audio_ff():
-            ff = FeedForward(dim)
+            ff = FeedForward(dim, dropout=ff_dropout)
             return sand(ShiftAudio(ff) if shift_audio_tokens else ff)
 
         def attention():
-            return sand(Attention(dim=dim, heads=heads, dim_head=dim_head))
+            return sand(Attention(dim=dim, heads=heads, dim_head=dim_head, dropout=attn_dropout))
 
         def xmod(chunk, context_chunk):
             return SandwichX(dim, CrossModalityCrossAttention(
                 dim=dim, heads=heads, dim_head=dim_head, chunk_size=chunk,
-                context_chunk_size=context_chunk))
+                context_chunk_size=context_chunk, dropout=attn_dropout))
 
         kinds, quads = [], []
         vtpf, atpf = num_video_tokens_per_frame, num_audio_tokens_per_video_frame
@@ -136,6 +156,7 @@ class DualModalityDecoder(nn.Module):
                 kernel_size=sparse_3dna_kernel_size,
                 dilation=sparse_3dna_dilations[ind % len(sparse_3dna_dilations)],
                 video_shape=sparse_3dna_video_shape, rel_pos_bias=sparse_3dna_rel_pos_bias,
+                dropout=attn_dropout,
             )
             if shift_video_tokens:
                 video_self = ShiftVideo(video_self, image_size=fmap)
@@ -143,7 +164,7 @@ class DualModalityDecoder(nn.Module):
                 dim=dim, height=audio_tokens_per_timestep, heads=heads, dim_head=dim_head,
                 kernel_size=sparse_2dna_kernel_size,
                 dilation=sparse_2dna_dilation[ind % len(sparse_2dna_dilation)],
-                rel_pos_bias=sparse_2dna_rel_pos_bias,
+                rel_pos_bias=sparse_2dna_rel_pos_bias, dropout=attn_dropout,
             )
             if shift_audio_tokens:
                 audio_self = ShiftAudio(audio_self)
@@ -154,8 +175,8 @@ class DualModalityDecoder(nn.Module):
             if (ind + 1) % cross_modality_attn_every == 0:
                 # the xmod feed-forwards take no token shift
                 kinds.append("xmod")
-                quads.append(Quad(xmod(vtpf, atpf), sand(FeedForward(dim)), xmod(atpf, vtpf),
-                                  sand(FeedForward(dim))))
+                quads.append(Quad(xmod(vtpf, atpf), sand(FeedForward(dim, dropout=ff_dropout)),
+                                  xmod(atpf, vtpf), sand(FeedForward(dim, dropout=ff_dropout))))
         self.kinds = kinds
         self.layers = nn.ModuleList(quads)
         self.video_norm = StableLayerNorm(dim)
@@ -166,10 +187,12 @@ class DualModalityDecoder(nn.Module):
         return [(kind, quad.mods()) for kind, quad in zip(self.kinds, self.layers)]
 
     def forward(self, video, audio, *, context, audio_mask=None, video_mask=None,
-                context_mask=None):
+                context_mask=None, seed=None):
         kw = dict(context=context, context_mask=context_mask, video_mask=video_mask,
                   audio_mask=audio_mask)
-        for btype, mods in self.blocks():
+        blocks = self.blocks()
+        for (btype, mods), seeds in zip(blocks, block_seeds(seed, len(blocks))):
+            kw["seeds"] = seeds
             if self.remat:
                 video, audio = checkpoint(apply_dual_block, btype, mods, video, audio,
                                           use_reentrant=False, **kw)
@@ -182,8 +205,8 @@ class ReversibleDualModalityDecoder(DualModalityDecoder):
     """The same schedule as quad-stream reversible blocks."""
 
     def forward(self, video, audio, *, context, audio_mask=None, video_mask=None,
-                context_mask=None, reverse=True):
-        blocks = reversible_dual_blocks(self.blocks())
+                context_mask=None, reverse=True, seed=None):
+        blocks = reversible_dual_blocks(self.blocks(), seed)
         kwargs = dict(context=context, context_mask=context_mask, video_mask=video_mask,
                       audio_mask=audio_mask)
         video, audio = dual_reversible_sequence(blocks, video, audio, kwargs, reverse=reverse)

@@ -1,5 +1,5 @@
-// Sparse3DNA backward, key side (causal, centered or audio, no dropout) for
-// Hopper, sm_90a.
+// Sparse3DNA backward, key side (causal, centered or audio, with or without
+// attention dropout) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_bwd_kv_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_bwd_kv_call`, its pl.pallas_call), and in the audio
@@ -12,7 +12,12 @@
 //   dV = sum mix[query, slot] * g[query]
 //
 // per head, from the fp32 (b, h, t, Kn + 1) tensors dS and mix that the
-// query-side kernel (sparse3dna_bwd_q.cu) wrote. The TPU kernel recomputed
+// query-side kernel (sparse3dna_bwd_q.cu) wrote. With attention dropout
+// that kernel writes the dropped mix, the probabilities that weighted the
+// values, and a dS that already carries the mask, so this kernel is the same
+// function with or without dropout and takes no dropout argument (the Pallas
+// key-side kernels regenerate the mask instead: nda_pallas.py:787, :1065,
+// :1121). The TPU kernel recomputed
 // S and P for each key frame instead, because on the TPU the probabilities
 // are a dense (T x Kf*HW) tensor; here they are the sparse (T x Kn) one, 15 MB
 // at the training shape (b = 2, h = 8, t = 2559, Kn = 45), which is cheaper

@@ -1,5 +1,5 @@
-// Sparse3DNA backward, query side (causal, centered or audio, no dropout)
-// for Hopper, sm_90a.
+// Sparse3DNA backward, query side (causal, centered or audio, with or
+// without attention dropout) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_bwd_q_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_bwd_q_call`, its pl.pallas_call), and in the audio
@@ -16,6 +16,20 @@
 //   rho[b]   = sum_j P[b, j] * dP[b, j]
 //   dS[b, j] = P[b, j] * (dP[b, j] - rho[b]) (through the softmax)
 //   mix[a, j] = sum_b th[a, b] * P[b, j]     (the forward's mixed probs)
+//
+// With attention dropout the forward weighted the values by the dropped
+// mixed probabilities D[a, j] = mix[a, j] * z[a, j], z the keep factor of
+// sparse3dna_dropout.cuh (the fp32 scale 1 / keep or 0, the same hash as the
+// forward's), so the cotangent of the mix is dA[a, j] * z[a, j]: the kernel
+// multiplies dA by z as it forms it, and every term above that reads dA
+// (dP, hence rho and dS; dth) follows from the masked cotangent, the
+// rel-pos bias cotangent and dk_bos through dS. The mix it writes, and dv_bos
+// reads, is D: the probabilities that weighted the values. (The Pallas
+// kernels mask dA and the recomputed mix the same way: nda_pallas.py:624,
+// :907, :981.) Every value row is still read: skipping those of dropped
+// pairs puts a shared-memory test before each value row's load, which
+// measured slower on an H100 (dropout cost +14-23% of the time without it,
+// against +6-12% reading every row).
 //
 // It writes dq = sum_j dS[., j] k_j (bos included), and dS and mix as fp32
 // (b, h, t, Kn + 1) tensors for the key-side kernel (sparse3dna_bwd_kv.cu),
@@ -53,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sparse3dna_dropout.cuh"
 #include "sparse3dna_geometry.cuh"
 
 namespace {
@@ -87,15 +102,16 @@ __device__ __forceinline__ float row_dot(const float (&x)[kMaxR], const T* row, 
 }
 
 // grid (ceil(t / kQueriesPerBlock), b), block 32 * heads: warp w handles
-// head w of each of the block's queries in turn.
-template <typename T>
+// head w of each of the block's queries in turn. kDrop: with attention
+// dropout (false compiles none of the dropout code).
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ kbos, const T* __restrict__ vbos,
     const float* __restrict__ th, const float* __restrict__ bias,
     const T* __restrict__ gout, const float* __restrict__ lse,
     T* __restrict__ dq, float* __restrict__ ds_out, float* __restrict__ mix_out,
-    float* __restrict__ partial, int heads, int d, Geometry g) {
+    float* __restrict__ partial, int heads, int d, Geometry g, Dropout drop) {
   extern __shared__ float smem[];
   const int kn = g.kf * g.kh * g.kw;
   const int slots = kn + 1;  // slot 0 is bos
@@ -106,7 +122,8 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
   float* s_ds = s_da + heads * slots;        // (heads, slots) dP, then dS
   float* s_mix = s_ds + heads * slots;       // (heads, slots) mixed probs
   float* s_dbias = s_mix + heads * slots;    // (heads, kn) this block's sum
-  int* s_nb = reinterpret_cast<int*>(s_dbias + heads * kn);  // (kn) token or -1
+  float* s_keep = s_dbias + heads * kn;      // (heads, slots) keep factors, with dropout
+  int* s_nb = reinterpret_cast<int*>(s_keep + (kDrop ? heads * slots : 0));  // (kn)
 
   const int bi = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -117,6 +134,8 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
   const T* vplane = v + row * g.t * d;
   const T* kb = kbos + row * d;
   const T* vb = vbos + row * d;
+  const uint32_t row_stream = kDrop ? drop_stream(drop, bi) : 0u;
+  float* keep = s_keep + h * slots;  // this head's keep factors, with dropout
 
   for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) {
     s_th[x] = th[x];
@@ -146,6 +165,11 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
       gr[r] = e < d ? to_f(gout[qoff + e]) : 0.f;
     }
     const float m = lse[row * g.t + i];
+    if (kDrop) {
+      for (int j = lane; j < slots; j += 32)
+        keep[j] = keep_factor(drop, row_stream, h, i, slot_key(s_nb, j));
+      __syncwarp();
+    }
 
     // ---- P and dA of this head, one warp-wide dot product each ----------
     float* p = s_p + h * slots;
@@ -155,7 +179,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
       const float a = row_dot(gr, vb, lane, d);
       if (lane == 0) {
         p[0] = expf(s - m);
-        da[0] = a;
+        da[0] = kDrop ? a * keep[0] : a;
       }
     }
     for (int j = 0; j < kn; ++j) {
@@ -169,7 +193,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
       }
       if (lane == 0) {
         p[1 + j] = pj;
-        da[1 + j] = aj;
+        da[1 + j] = kDrop ? aj * keep[1 + j] : aj;
       }
     }
     __syncthreads();  // every head's P and dA
@@ -185,7 +209,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_bwd_q_kernel(
         mx += s_th[h * heads + a] * s_p[a * slots + j];
       }
       dsr[j] = dp;
-      mixr[j] = mx;
+      mixr[j] = kDrop ? mx * keep[j] : mx;
       rho += p[j] * dp;
     }
     rho = warp_sum(rho);
@@ -259,24 +283,26 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kbos, const void* vbos,
            const float* th, const float* bias, const void* gout, const float* lse, void* dq,
            float* ds, float* mix, float* partial, int b, int heads, int d, Geometry g,
-           cudaStream_t stream) {
+           Dropout drop, cudaStream_t stream) {
   const int kn = g.kf * g.kh * g.kw;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(heads) * heads +
-                                       4 * static_cast<size_t>(heads) * (kn + 1) +
+                                       (drop.on ? 5 : 4) * static_cast<size_t>(heads) * (kn + 1) +
                                        static_cast<size_t>(heads) * kn) +
                       sizeof(int) * kn;
+  const auto kernel =
+      drop.on ? sparse3dna_bwd_q_kernel<T, true> : sparse3dna_bwd_q_kernel<T, false>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(sparse3dna_bwd_q_kernel<T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((g.t + kQueriesPerBlock - 1) / kQueriesPerBlock, b);
   const dim3 block(32 * heads);
-  sparse3dna_bwd_q_kernel<T><<<grid, block, smem, stream>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
-      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g);
+      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g,
+      drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -291,22 +317,26 @@ extern "C" {
 // nsum = heads*heads + 2*heads*d (+ heads*kn with a bias), every slot
 // written: per block [dth | dk_bos | dv_bos | dbias] over its 4 queries, for
 // the caller to sum over the block axis; mode 1 for causal windows, 0 for
-// centered, 2 for the audio geometry (fh = kh = 1, kw = fw = H).
+// centered, 2 for the audio geometry (fh = kh = 1, kw = fw = H); drop 1 for
+// the forward's attention dropout with its seed, threshold and fp32 scale
+// (sparse3dna_dropout.cuh), 0 for none: mix is then the dropped mix.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
                           const void* kbos, const void* vbos, const float* th,
                           const float* bias, const void* gout, const float* lse, void* dq,
                           float* ds, float* mix, float* partial, int b, int heads, int t,
                           int d, int fh, int fw, int kf, int kh, int kw, int df, int dh,
-                          int dw, int mode, void* stream) {
+                          int dw, int mode, int drop, unsigned int seed, unsigned int thresh,
+                          float scale, void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
+  const Dropout dp{drop, seed, thresh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, partial, b,
-                         heads, d, g, s);
+                         heads, d, g, dp, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix,
-                                 partial, b, heads, d, g, s);
+                                 partial, b, heads, d, g, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,5 +1,5 @@
-// Sparse3DNA forward (causal, centered or audio, no dropout) for Hopper,
-// sm_90a.
+// Sparse3DNA forward (causal, centered or audio, with or without attention
+// dropout) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `_kernel` in nuwa_tpu/kernels/nda_pallas.py
 // (reached through `_fwd_call`, its pl.pallas_call, and the lane-packed
@@ -13,7 +13,12 @@
 // which centered windows reach, are masked), with an optional per-head
 // relative-position bias; the softmax is fp32; the normalised probabilities
 // are mixed across heads by the talking-heads matrix (bos column included)
-// before they weight the values.
+// before they weight the values. With dropout on, each mixed probability is
+// multiplied by its keep factor (sparse3dna_dropout.cuh: the fp32 scale
+// 1 / keep or 0, hashed from the seed, the batch row, the head, the query
+// and the key token) before PV, as the Pallas kernels drop after the mix
+// (nda_pallas.py:279, :447); `lse` stays the undropped softmax's. The
+// warp of a head reads no value row of a pair that head drops.
 //
 // The audio geometry is SparseCausal2DNA's grid of (timesteps, 1, H): the
 // time axis is causal with kernel Kf and dilation df, and on the width
@@ -53,6 +58,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sparse3dna_dropout.cuh"
 #include "sparse3dna_geometry.cuh"
 
 namespace {
@@ -79,12 +85,14 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // grid (t, b), block 32 * heads: warp w handles head w of one query token.
-template <typename T>
+// kDrop: with attention dropout (false compiles none of the dropout code).
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(1024) sparse3dna_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ kbos, const T* __restrict__ vbos,
     const float* __restrict__ th, const float* __restrict__ bias,
-    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g) {
+    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g,
+    Dropout drop) {
   extern __shared__ float smem[];
   const int kn = g.kf * g.kh * g.kw;
   const int slots = kn + 1;  // slot 0 is bos
@@ -160,11 +168,13 @@ __global__ void __launch_bounds__(1024) sparse3dna_fwd_kernel(
   if (lane == 0) lse[row * g.t + i] = m + logf(den);
   __syncthreads();
 
-  // ---- talking heads: mixed[h, j] = sum_h2 th[h, h2] * p[h2, j] --------
+  // ---- talking heads: mixed[h, j] = sum_h2 th[h, h2] * p[h2, j], dropped
   float* mix = s_mix + h * slots;
+  const uint32_t row_stream = kDrop ? drop_stream(drop, bi) : 0u;
   for (int j = lane; j < slots; j += 32) {
     float acc = 0.f;
     for (int h2 = 0; h2 < heads; ++h2) acc += s_th[h * heads + h2] * s_p[h2 * slots + j];
+    if (kDrop) acc *= keep_factor(drop, row_stream, h, i, slot_key(s_nb, j));
     mix[j] = acc;
   }
   __syncwarp();
@@ -184,6 +194,7 @@ __global__ void __launch_bounds__(1024) sparse3dna_fwd_kernel(
     const int tok = s_nb[j];
     if (tok < 0) continue;  // its probability is 0 in every head
     const float w = mix[1 + j];
+    if (kDrop && w == 0.f) continue;  // dropped in this head: its value row is not read
     const T* vr = vplane + static_cast<size_t>(tok) * d;
 #pragma unroll
     for (int r = 0; r < kMaxR; ++r) {
@@ -202,26 +213,27 @@ __global__ void __launch_bounds__(1024) sparse3dna_fwd_kernel(
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* kbos,
            const void* vbos, const float* th, const float* bias, void* out,
-           float* lse, int b, int heads, int d, Geometry g, cudaStream_t stream) {
+           float* lse, int b, int heads, int d, Geometry g, Dropout drop, cudaStream_t stream) {
   const int kn = g.kf * g.kh * g.kw;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(heads) * heads + 2 * heads * (kn + 1)) +
       sizeof(int) * kn;
+  const auto kernel =
+      drop.on ? sparse3dna_fwd_kernel<T, true> : sparse3dna_fwd_kernel<T, false>;
   // Past the 48 KB default the block's limit is raised to what it asks; past
   // the card's opt-in maximum that call fails, and its error is returned
   // (the wrapper raises it).
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sparse3dna_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(g.t, b);
   const dim3 block(32 * heads);
-  sparse3dna_fwd_kernel<T><<<grid, block, smem, stream>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
-      static_cast<T*>(out), lse, heads, d, g);
+      static_cast<T*>(out), lse, heads, d, g, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -233,19 +245,23 @@ extern "C" {
 // (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
 // bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32; mode 1 for
 // causal windows, 0 for centered, 2 for the audio geometry (fh = kh = 1,
-// kw = fw = H).
+// kw = fw = H); drop 1 for attention dropout with the hash's seed, its
+// threshold and the fp32 scale 1 / keep (sparse3dna_dropout.cuh), 0 for none.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* kbos, const void* vbos, const float* th,
                         const float* bias, void* out, float* lse, int b,
                         int heads, int t, int d, int fh, int fw, int kf, int kh,
-                        int kw, int df, int dh, int dw, int mode, void* stream) {
+                        int kw, int df, int dh, int dw, int mode, int drop,
+                        unsigned int seed, unsigned int thresh, float scale, void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
+  const Dropout dp{drop, seed, thresh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, s);
+    return launch<float>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, dp, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, s);
+    return launch<__nv_bfloat16>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, dp,
+                                 s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -2,7 +2,8 @@
 and the autograd function that joins them.
 
 Three kernels, each replacing two TPU kernels of
-``nuwa_tpu/kernels/nda_pallas.py`` without dropout, in three geometries:
+``nuwa_tpu/kernels/nda_pallas.py``, with or without attention dropout, in
+three geometries:
 causal windows (the video decoder), centered ones (the sketch encoder), and
 the audio geometry of ``SparseCausal2DNA`` (``mode="audio"``): a grid of
 (timesteps, 1, H) with ``fmap=(1, H)``, ``kernel=(K, 1, H)`` and
@@ -62,6 +63,23 @@ The query-side kernel's sums over queries (the bos, talking-heads and bias
 cotangents) are written per block and summed here over the block axis in
 one fixed order, so every output of the backward is the same, bit for bit,
 from run to run.
+
+Attention dropout: every function here takes ``dropout=(rate, seed)``
+(None, a rate of 0 or a seed of None: no dropout, the launch that runs
+without it). The mask is inverted dropout on the mixed probabilities, after
+the talking-heads mix and before PV, keyed by a counter hash of (seed, batch
+row, head, query token, key token), the bos column's key id being -2:
+``keep_mask``, the JAX package's ``_coord_keep_mask`` (``nuwa_tpu/nda.py``,
+the twin of the Pallas kernels' ``_keep_mask_abs``), and
+``csrc/sparse3dna_dropout.cuh`` in the kernels. So the forward and the
+backward draw the same bits on any device, any recompute replays them, and
+the row-blocked TPU kernels' bits (rows 4-6, keyed by the same absolute ids)
+are matched; the whole-frame TPU kernels key their mask by tiles
+(``_keep_mask``), whose bits no other path draws. The forward's ``lse`` is
+the undropped softmax's. The query-side backward masks the cotangent of the
+mix and returns the dropped mix, so the key side is the same function with
+or without dropout (its ``dropout`` argument only counts the launch). A
+dropout launch adds one to ``mode_launches["dropout"]`` beside its mode.
 """
 from __future__ import annotations
 
@@ -78,6 +96,85 @@ _MAX_GRID_Y = 65535  # the batch rows are the grid's second axis
 _QUERIES_PER_BLOCK = 4  # kQueriesPerBlock of the query-side kernels
 # the window geometry: its name and the kernels' mode argument
 MODES = {"centered": 0, "causal": 1, "audio": 2}
+_U32 = 0xFFFFFFFF
+BOS_KEY = -2  # the bos column's key id in the dropout hash
+
+
+def _avalanche(x):
+    """splitmix32's avalanche on int64 tensors that hold uint32 values."""
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _U32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & _U32
+    return x ^ (x >> 16)
+
+
+def keep_params(rate):
+    """(threshold, scale) of inverted dropout at ``rate``: a pair is kept
+    where its hash is at least the threshold, and scaled by fp32 1 / keep;
+    both computed as the JAX package does."""
+    keep = 1.0 - rate
+    thresh = min(_U32, int(round((1.0 - keep) * 2**32)))
+    return thresh, torch.tensor(1.0 / keep, dtype=torch.float32).item()
+
+
+def keep_mask(seed, rate, b, h, q_ids, k_ids=None):
+    """(b, h, n, K) bool: where inverted dropout at ``rate`` keeps the pair
+    (batch row, head, query ``q_ids[i]``, key ``k_ids[i, j]``); ``q_ids``
+    (n,) and ``k_ids`` (n, K) or (1, K) integer tensors, negative ids taken
+    as their uint32; no ``k_ids`` is key 0 (K = 1). Bit for bit
+    ``_coord_keep_mask`` of ``nuwa_tpu/nda.py``: uint32 arithmetic done in
+    int64, each product and sum masked to 32 bits before any shift (an int64
+    product may wrap, its low 32 bits stay right). The hash's XOR terms of
+    the batch row are host ints, so a call launches about 20 elementwise
+    kernels, most of them the avalanche."""
+    thresh, _ = keep_params(rate)
+    e = ((q_ids.long() & _U32) * 0x27D4EB2F & _U32)[:, None]
+    if k_ids is not None:
+        e = e ^ ((k_ids.long().to(e.device) & _U32) * 0x165667B1 & _U32)
+    s0 = (int(seed) * 0x9E3779B9) & _U32
+    streams = [_avalanche((s0 + r + 0x85EBCA6B) & _U32) for r in range(b)]
+    if b == h == 1:  # one stream and head 0's term 0: a scalar XOR
+        return (_avalanche(e ^ streams[0]) >= thresh)[None, None]
+    terms = torch.stack([_head_terms(h, e.device) ^ s for s in streams])  # (b, h)
+    return _avalanche(e ^ terms[:, :, None, None]) >= thresh
+
+
+@functools.lru_cache(maxsize=None)
+def _head_terms(h, device):
+    """(h,) the hash's XOR term of each head, uint32 values in int64."""
+    return torch.arange(h, device=device) * 0x9E3779B9 & _U32
+
+
+def _dropout(dropout):
+    """(rate, seed) of a dropout that acts, or None."""
+    if dropout is None:
+        return None
+    rate, seed = dropout
+    if seed is None or rate <= 0:
+        return None
+    if not rate < 1:
+        raise ValueError(f"dropout rate must be below 1, got {rate}")
+    return float(rate), int(seed)
+
+
+def _drop_args(dropout):
+    """The kernels' dropout arguments: (on, seed, threshold, scale)."""
+    if dropout is None:
+        return [0, 0, 0, 0.0]
+    rate, seed = dropout
+    return [1, seed & _U32, *keep_params(rate)]
+
+
+def _dropped(x, dropout, idx):
+    """The mixed probabilities (or their cotangent) ``x`` (b, h, t, Kn + 1),
+    slot 0 bos, with the dropout mask of the pairs that ``idx`` (t, Kn)
+    gives applied and the kept ones scaled: ``x`` itself without dropout."""
+    if dropout is None:
+        return x
+    rate, seed = dropout
+    b, h, t = x.shape[:3]
+    k_ids = torch.cat([idx.new_full((t, 1), BOS_KEY), idx], dim=1)
+    keep = keep_mask(seed, rate, b, h, torch.arange(t, device=idx.device), k_ids)
+    return torch.where(keep, x * keep_params(rate)[1], 0.0)
 
 
 @functools.lru_cache(maxsize=64)
@@ -109,9 +206,10 @@ def valid_pairs(t, fmap, kernel, dilation, mode="causal") -> int:
 
 
 def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                          *, fmap, kernel, dilation, mode="causal"):
+                          *, fmap, kernel, dilation, mode="causal", dropout=None):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
     results as ``sparse_3dna_fwd``."""
+    dropout = _dropout(dropout)
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
         t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
@@ -125,7 +223,7 @@ def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     sim = torch.cat([sim_bos[..., None], sim], dim=-1)
     lse = torch.logsumexp(sim, dim=-1)
     attn = torch.softmax(sim, dim=-1)
-    attn = torch.einsum("bhij,gh->bgij", attn, talking_heads.float())
+    attn = _dropped(torch.einsum("bhij,gh->bgij", attn, talking_heads.float()), dropout, idx)
     out = attn[..., :1] * v_bos.float()
     out = out + torch.einsum("bhij,bhijd->bhid", attn[..., 1:], v.float()[:, :, idx])
     return out.to(q.dtype), lse
@@ -140,9 +238,10 @@ def _gathered(x, idx, bos):
 
 
 def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                            *, fmap, kernel, dilation, mode="causal"):
+                            *, fmap, kernel, dilation, mode="causal", dropout=None):
     """Plain PyTorch version of the query-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_q``."""
+    dropout = _dropout(dropout)
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
         t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
@@ -155,9 +254,10 @@ def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad
     slot_valid = torch.cat([valid.new_ones(t, 1), valid], dim=1)
     sim = sim.masked_fill(~slot_valid, float("-inf"))
     p = torch.exp(sim - lse[..., None])
-    da = torch.einsum("bhid,bhijd->bhij", gf, vals)
+    # the cotangent of the (undropped) mix, and the mix that weighted the values
+    da = _dropped(torch.einsum("bhid,bhijd->bhij", gf, vals), dropout, idx)
     dp = torch.einsum("bgij,gh->bhij", da, th)  # through the talking-heads mix
-    mix = torch.einsum("bhij,gh->bgij", p, th)
+    mix = _dropped(torch.einsum("bhij,gh->bgij", p, th), dropout, idx)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))  # through the softmax
     dq = torch.einsum("bhij,bhijd->bhid", ds, keys)
     dth = torch.einsum("bgij,bhij->gh", da, p)
@@ -168,9 +268,11 @@ def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad
             dth, dbias)
 
 
-def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal"):
+def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal",
+                             dropout=None):
     """Plain PyTorch version of the key-side backward kernel (fp32 math);
-    same arguments and results as ``sparse_3dna_bwd_kv``."""
+    same arguments and results as ``sparse_3dna_bwd_kv`` (the ``mix`` it
+    is given is the dropped one, so ``dropout`` changes nothing)."""
     b, h, t, d = q.shape
     idx, valid = _neighbour_table(
         t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
@@ -188,8 +290,9 @@ def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="
 @functools.lru_cache(maxsize=None)
 def _library(name):
     """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
-    an int dtype, pointers, then ints (b, heads, t, d and the geometry), then
-    the stream."""
+    an int dtype, pointers, then ints (b, heads, t, d and the geometry), the
+    Sparse3DNA forward's and query side's dropout (on, seed, threshold,
+    scale), then the stream."""
     pointers, ints = {
         "sparse3dna_fwd": (9, 13),
         "sparse3dna_bwd_q": (13, 13),
@@ -198,10 +301,12 @@ def _library(name):
         "sparse_cross2dna_bwd_q": (13, 8),
         "sparse_cross2dna_bwd_kv": (6, 8),
     }[name]
+    drop = ([ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
+            if name in ("sparse3dna_fwd", "sparse3dna_bwd_q") else [])
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
+        [ctypes.c_int] + [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + drop
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -276,14 +381,17 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
-def _count(fn, mode):
-    """One launch of ``fn``'s kernel: its count, and its count in ``mode``."""
+def _count(fn, mode, dropout):
+    """One launch of ``fn``'s kernel: its count, its count in ``mode`` and,
+    with dropout, its dropout count."""
     fn.launches += 1
     fn.mode_launches[mode] += 1
+    if dropout is not None:
+        fn.mode_launches["dropout"] += 1
 
 
 def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                    *, fmap, kernel, dilation, mode="causal"):
+                    *, fmap, kernel, dilation, mode="causal", dropout=None):
     """Sparse3DNA attention of t queries over their dilated neighbourhoods
     (causal windows, centered ones with ``mode="centered"``, or with
     ``mode="audio"`` the whole-timestep windows of SparseCausal2DNA) plus bos.
@@ -292,13 +400,15 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     (b, h, 1, d); talking_heads: (h, h); rel_bias: (h, kf*kh*kw) or None;
     fmap: (height, width) of a frame, (1, H) in the audio geometry; kernel,
     dilation: per-axis triples, (K, 1, H) and (d, 1, 1) in the audio
-    geometry. Returns out (b, h, t, d) in q's dtype and lse (b, h, t) in fp32.
+    geometry; dropout: (rate, seed) or None. Returns out (b, h, t, d) in q's
+    dtype and lse (b, h, t) in fp32, the undropped softmax's.
     """
     _check_geometry(fmap, kernel, dilation, mode)
+    dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_3dna_fwd_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias,
-            fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
+            fmap=fmap, kernel=kernel, dilation=dilation, mode=mode, dropout=dropout,
         )
     b, h, t, d = q.shape
     kn = kernel[0] * kernel[1] * kernel[2]
@@ -316,26 +426,29 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     _launch("sparse3dna_fwd", q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), out.data_ptr(),
              lse.data_ptr()],
-            [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
-    _count(sparse_3dna_fwd, mode)
+            [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], *_drop_args(dropout)],
+            q.device)
+    _count(sparse_3dna_fwd, mode, dropout)
     return out, lse
 
 
 def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                      *, fmap, kernel, dilation, mode="causal"):
+                      *, fmap, kernel, dilation, mode="causal", dropout=None):
     """Query side of the Sparse3DNA backward.
 
-    Takes the forward's arguments, its output cotangent ``grad`` (b, h, t, d,
-    q's dtype) and its ``lse``. Returns dq (q's dtype), dS and the mixed
-    probabilities mix (both (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos
-    and dv_bos ((b, h, 1, d), k_bos's dtype), dth (h, h) fp32 and the rel-pos
-    bias cotangent (h, Kn) fp32, or None without a bias.
+    Takes the forward's arguments (its dropout too), its output cotangent
+    ``grad`` (b, h, t, d, q's dtype) and its ``lse``. Returns dq (q's
+    dtype), dS and the mixed probabilities mix, dropped with dropout (both
+    (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos and dv_bos ((b, h, 1,
+    d), k_bos's dtype), dth (h, h) fp32 and the rel-pos bias cotangent (h,
+    Kn) fp32, or None without a bias.
     """
     _check_geometry(fmap, kernel, dilation, mode)
+    dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_3dna_bwd_q_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-            fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
+            fmap=fmap, kernel=kernel, dilation=dilation, mode=mode, dropout=dropout,
         )
     b, h, t, d = q.shape
     full, bos = (b, h, t, d), (b, h, 1, d)
@@ -362,8 +475,9 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  partial.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
-        _count(sparse_3dna_bwd_q, mode)
+                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], *_drop_args(dropout)],
+                q.device)
+        _count(sparse_3dna_bwd_q, mode, dropout)
     sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
     dth = sums[:, :hh].sum(dim=0).view(h, h)
     dk_bos = sums[:, hh:hh + hd].reshape(b, h, 1, d)
@@ -372,11 +486,15 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     return dq, ds, mix, dk_bos.to(k_bos.dtype), dv_bos.to(v_bos.dtype), dth, dbias
 
 
-def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal"):
+def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal",
+                       dropout=None):
     """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
     from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
-    ``sparse_3dna_bwd_q`` returned."""
+    ``sparse_3dna_bwd_q`` returned. Those carry the forward's dropout, so
+    the function is the same with or without it; ``dropout`` only counts
+    the launch as a dropout launch."""
     _check_geometry(fmap, kernel, dilation, mode)
+    dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_3dna_bwd_kv_plain(
             q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
@@ -394,18 +512,20 @@ def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal
         _launch("sparse3dna_bwd_kv", q.dtype,
                 [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
                 [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
-        _count(sparse_3dna_bwd_kv, mode)
+        _count(sparse_3dna_bwd_kv, mode, dropout)
     return dk, dv
 
 
 def reset_launches():
-    """Set every kernel's launch count, and its count per mode, to 0."""
+    """Set every kernel's launch count, and its count per mode and with
+    dropout, to 0."""
     for fn in (sparse_3dna_fwd, sparse_3dna_bwd_q, sparse_3dna_bwd_kv):
         fn.launches = 0
-        fn.mode_launches = dict.fromkeys(MODES, 0)
+        fn.mode_launches = dict.fromkeys((*MODES, "dropout"), 0)
 
 
-# kernel launches since the counts were last reset, in all and per mode
+# kernel launches since the counts were last reset, in all, per mode and with
+# dropout
 reset_launches()
 
 
@@ -415,31 +535,35 @@ class Sparse3DNAFunction(torch.autograd.Function):
     (``sparse_3dna_bwd_q``) and then gathers dk and dv key-side
     (``sparse_3dna_bwd_kv``), as the JAX package's ``_core_op`` does with its
     two Pallas kernels. The rel-pos bias gradient comes back as (h, Kn), and
-    autograd chains it to the axial tables that built the bias."""
+    autograd chains it to the axial tables that built the bias. The dropout
+    (rate, seed) is kept beside the geometry: the backward draws the
+    forward's mask again from it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry):
-        out, lse = sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias, **geometry)
+    def forward(ctx, q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry, dropout):
+        out, lse = sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias,
+                                   dropout=dropout, **geometry)
         ctx.save_for_backward(q, k, v, k_bos, v_bos, talking_heads, rel_bias, lse)
-        ctx.geometry = geometry
+        ctx.geometry, ctx.dropout = geometry, dropout
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, k_bos, v_bos, th, rel_bias, lse = ctx.saved_tensors
-        geo, grad = ctx.geometry, grad.to(q.dtype)
+        geo, grad = dict(ctx.geometry, dropout=ctx.dropout), grad.to(q.dtype)
         dq, ds, mix, dk_bos, dv_bos, dth, dbias = sparse_3dna_bwd_q(
             q, k, v, k_bos, v_bos, th, rel_bias, grad, lse, **geo
         )
         dk, dv = sparse_3dna_bwd_kv(q, grad, ds, mix, **geo)
         dbias = dbias.to(rel_bias.dtype) if rel_bias is not None else None
-        return dq, dk, dv, dk_bos, dv_bos, dth.to(th.dtype), dbias, None
+        return dq, dk, dv, dk_bos, dv_bos, dth.to(th.dtype), dbias, None, None
 
 
 def sparse_3dna(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                *, fmap, kernel, dilation, mode="causal"):
+                *, fmap, kernel, dilation, mode="causal", dropout=None):
     """``sparse_3dna_fwd``'s output, differentiable in every tensor argument,
-    in every geometry."""
+    in every geometry, with or without dropout ((rate, seed) or None)."""
     geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation),
                     mode=mode)
-    return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry)
+    return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry,
+                                    _dropout(dropout))

@@ -8,7 +8,10 @@ with top-k, Gumbel sampling and classifier-free guidance. With a ``vae``
 (a frozen ``VQGanVAE``) the model takes pixel videos, which the codec turns
 into tokens under no grad, and returns sampled videos as pixels; with an
 ``image_size`` instead it is in raw-fmap mode, and videos are token ids.
-The model lives on one device, ``cuda`` unless the caller names another.
+``attn_dropout`` and ``ff_dropout`` act in training only (``forward(...,
+train=True)``), in the text encoder and the decoder; ``generate`` and
+``generate_long`` never drop. The model lives on one device, ``cuda``
+unless the caller names another.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.layers import Embedding, init_weights_, normal_
+from ..core.layers import Embedding, init_weights_, normal_, split_seed
 from ..decode import TransformerDecoder
 from ..ops.embeddings import AxialPositionalEmbedding, rotary_freqs
 from ..ops.sampling import prob_mask_like
@@ -31,6 +34,18 @@ def cross_entropy(logits, targets):
     return F.cross_entropy(logits.float().flatten(0, -2), targets.reshape(-1).long())
 
 
+def dropout_seeds(model, train, generator, n):
+    """The dropout seeds of a training forward's ``n`` stacks: one int drawn
+    from ``generator`` (on its device) and ``n`` derived from it, as the JAX
+    models split their key; None each when not training or when the model
+    drops nothing, so that no draw moves the generator then."""
+    if not train or (model.attn_dropout <= 0 and model.ff_dropout <= 0):
+        return [None] * n
+    device = generator.device if generator is not None else model.device
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device))
+    return split_seed(seed, n)
+
+
 class NUWA(nn.Module):
     """Give exactly one of ``vae`` (the fmap and the vocabulary are the
     codec's; its parameters get no gradient) and ``image_size`` (the fmap
@@ -43,8 +58,8 @@ class NUWA(nn.Module):
                  dec_depth=6, dec_dim_head=64, dec_heads=8, dec_reversible=False,
                  embed_gradient_frac=0.2, shift_video_tokens=True,
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
-                 sparse_3dna_rel_pos_bias=False, compute_dtype=None,
-                 device=None, seed=0):
+                 sparse_3dna_rel_pos_bias=False, attn_dropout=0.0, ff_dropout=0.0,
+                 compute_dtype=None, device=None, seed=0):
         super().__init__()
         if (vae is None) == (image_size is None):
             raise ValueError("either VAE or image size must be specified")
@@ -63,6 +78,7 @@ class NUWA(nn.Module):
         self.max_video_tokens = max_video_frames * self.tokens_per_frame
         self.text_max_seq_len = text_max_seq_len
         self.text_enc_dim_head = text_enc_dim_head
+        self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         self.dtype = getattr(torch, compute_dtype) if compute_dtype else None
         d = sparse_3dna_dilation
         dilations = tuple(d) if isinstance(d, (list, tuple)) else tuple(range(1, d + 1))
@@ -72,7 +88,7 @@ class NUWA(nn.Module):
             self.text_embedding = Embedding(text_num_tokens, dim, embed_gradient_frac)
             self.text_transformer = (ReversibleTransformer if enc_reversible else Transformer)(
                 dim=dim, depth=text_enc_depth, heads=text_enc_heads,
-                dim_head=text_enc_dim_head,
+                dim_head=text_enc_dim_head, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             )
             self.video_bos = nn.Parameter(torch.empty(dim))
             self.image_embedding = Embedding(num_image_tokens, dim, embed_gradient_frac)
@@ -85,6 +101,7 @@ class NUWA(nn.Module):
                 sparse_3dna_kernel_size=sparse_3dna_kernel_size,
                 sparse_3dna_dilations=dilations,
                 sparse_3dna_rel_pos_bias=sparse_3dna_rel_pos_bias,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             )
             self.to_logits = nn.Parameter(torch.empty(dim, num_image_tokens))
         init_weights_(self, seed, skip=(self.vae,) if self.vae is not None else ())
@@ -115,7 +132,7 @@ class NUWA(nn.Module):
 
     # ---- text encoder -----------------------------------------------------
 
-    def embed_text(self, text, mask=None, *, train=False):
+    def embed_text(self, text, mask=None, *, train=False, seed=None):
         seq_len = text.shape[1]
         if seq_len > self.text_max_seq_len:
             raise ValueError(f"text of {seq_len} tokens > {self.text_max_seq_len}")
@@ -123,7 +140,7 @@ class NUWA(nn.Module):
         if self.dtype is not None:
             tokens = tokens.to(self.dtype)
         rot = rotary_freqs(seq_len, min(32, self.text_enc_dim_head), self.device)
-        return self.text_transformer(tokens, mask=mask, rotary_pos_emb=rot)
+        return self.text_transformer(tokens, mask=mask, rotary_pos_emb=rot, seed=seed)
 
     def _cfg_context(self, text_embeds, text_mask, use_cfg):
         if not use_cfg:
@@ -135,7 +152,8 @@ class NUWA(nn.Module):
 
     # ---- decoder core -----------------------------------------------------
 
-    def _decode_logits(self, frame_indices_input, text_embeds, text_mask, *, train=False):
+    def _decode_logits(self, frame_indices_input, text_embeds, text_mask, *, train=False,
+                       seed=None):
         """frame_indices_input: (b, n) tokens, already shifted for teacher
         forcing; returns (b, n + 1, vocab) logits."""
         b, n = frame_indices_input.shape
@@ -145,7 +163,8 @@ class NUWA(nn.Module):
         emb = torch.cat([bos, emb], dim=1)
         if self.dtype is not None:
             emb = emb.to(self.dtype)
-        out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask)
+        out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask,
+                                     seed=seed)
         return out @ self.to_logits.to(out.dtype)
 
     def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
@@ -159,12 +178,16 @@ class NUWA(nn.Module):
 
         ``train`` scales the embeddings' gradients and applies condition
         dropout: each sample's text is masked out with ``cond_dropout_prob``,
-        drawn from ``generator``, or where ``uncond`` (b,) bool says so.
+        drawn from ``generator``, or where ``uncond`` (b,) bool says so; with
+        ``attn_dropout`` or ``ff_dropout`` it draws one dropout seed from
+        ``generator`` too, and the text encoder's and the decoder's layers
+        take seeds derived from it.
         """
         text = self._ids(text)
         b = text.shape[0]
         text_mask = text != 0
-        text_embeds = self.embed_text(text, text_mask, train=train)
+        text_seed, dec_seed = dropout_seeds(self, train, generator, 2)
+        text_embeds = self.embed_text(text, text_mask, train=train, seed=text_seed)
         frame_indices = self._frame_indices(video, b)
         inp = frame_indices[:, :-1] if return_loss else frame_indices
         if train and uncond is None and cond_dropout_prob > 0:
@@ -172,7 +195,7 @@ class NUWA(nn.Module):
                                     device=self.device)
         if train and uncond is not None:
             text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
-        logits = self._decode_logits(inp, text_embeds, text_mask, train=train)
+        logits = self._decode_logits(inp, text_embeds, text_mask, train=train, seed=dec_seed)
         if not return_loss:
             return logits
         return cross_entropy(logits, frame_indices)

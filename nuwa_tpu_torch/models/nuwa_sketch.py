@@ -16,7 +16,9 @@ kernels' backward on the card, with the AdamW of ``train.get_optimizer``,
 as the JAX package trains it (no trainer class). The model lives on one
 device, ``cuda`` unless the caller names another.
 
-Not taken: ``method="full"``, the parallel meshes, and attention dropout.
+Not taken: ``method="full"``, the parallel meshes, and dropout: an
+``attn_dropout`` or ``ff_dropout`` above 0 raises, until the dropout mode of
+the SparseCross2DNA kernels is ported.
 """
 from __future__ import annotations
 
@@ -49,8 +51,12 @@ class NUWASketch(nn.Module):
                  embed_gradient_frac=0.2, shift_video_tokens=True,
                  cross_2dna_kernel_size=3, cross_2dna_dilation=1,
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
-                 compute_dtype=None, device=None, seed=0):
+                 attn_dropout=0.0, ff_dropout=0.0, compute_dtype=None, device=None, seed=0):
         super().__init__()
+        if attn_dropout > 0 or ff_dropout > 0:
+            raise NotImplementedError(
+                "NUWASketch dropout: the SparseCross2DNA kernels' dropout mode "
+                "(nuwa_tpu/kernels/nda_pallas.py:2759, :2844, :2906) is not ported yet")
         device = resolve_device(device)
         fmap = image_size // 2**vae.num_layers
         if image_size // 2**sketch_vae.num_layers != fmap:

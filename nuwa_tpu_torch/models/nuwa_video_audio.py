@@ -10,11 +10,14 @@ cached ``generate`` and ``generate_long``, which alternate one video frame's
 tokens and one frame's worth of audio tokens. Pixels go in through the
 frozen codec under no grad and samples come out through it.
 
-Left out: ``method="full"`` (the per-token re-forward oracle), int8 weights
-(``dequant``), context and pipeline parallelism, dropout, the rotary and
-reversible text encoders (``text_rotary_pos_emb``, ``enc_reversible``: no
-caller of the JAX model sets them). The model lives on one device, ``cuda``
-unless the caller names another.
+``attn_dropout`` and ``ff_dropout`` act in training only (``forward(...,
+train=True)``), in the text encoder and both decoder towers; ``generate``
+and ``generate_long`` never drop. Left out: ``method="full"`` (the
+per-token re-forward oracle), int8 weights (``dequant``), context and
+pipeline parallelism, the rotary and reversible text encoders
+(``text_rotary_pos_emb``, ``enc_reversible``: no caller of the JAX model
+sets them). The model lives on one device, ``cuda`` unless the caller names
+another.
 
 Training is ``forward(..., return_loss=True, train=True)``, its
 ``backward()``, ``train.clip_by_global_norm_`` and a ``train.get_optimizer``
@@ -36,7 +39,7 @@ from ..ops.utils import resolve_device
 from ..transformer import Transformer
 from ..vqgan_vae import VQGanVAE
 from .common import ids_to_output
-from .nuwa import cross_entropy
+from .nuwa import cross_entropy, dropout_seeds
 
 
 def _dilations(d):
@@ -54,7 +57,7 @@ class NUWAVideoAudio(nn.Module):
                  sparse_3dna_rel_pos_bias=True, sparse_2dna_kernel_size=7,
                  sparse_2dna_dilation=1, sparse_2dna_rel_pos_bias=True,
                  audio_loss_weight=1.0, cross_modality_attn_every=3, dec_remat=False,
-                 compute_dtype=None, device=None, seed=0):
+                 attn_dropout=0.0, ff_dropout=0.0, compute_dtype=None, device=None, seed=0):
         super().__init__()
         device = resolve_device(device)
         self.vae = vae.to(device).requires_grad_(False)  # frozen codec
@@ -66,6 +69,7 @@ class NUWAVideoAudio(nn.Module):
         self.audio_tokens_per_frame = num_audio_tokens_per_video_frame
         self.text_max_seq_len = text_max_seq_len
         self.audio_loss_weight = audio_loss_weight
+        self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         self.dtype = getattr(torch, compute_dtype) if compute_dtype else None
         video_shape = (max_video_frames, self.fmap, self.fmap)
         H = audio_tokens_per_timestep
@@ -74,7 +78,7 @@ class NUWAVideoAudio(nn.Module):
             self.text_embedding = Embedding(text_num_tokens, dim, embed_gradient_frac)
             self.text_transformer = Transformer(
                 dim=dim, depth=text_enc_depth, heads=text_enc_heads,
-                dim_head=text_enc_dim_head,
+                dim_head=text_enc_dim_head, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             )
             self.text_abs_pos_emb = Embedding(text_max_seq_len, dim)
             self.video_bos = nn.Parameter(torch.empty(dim))
@@ -99,6 +103,7 @@ class NUWAVideoAudio(nn.Module):
                 shift_video_tokens=shift_video_tokens, shift_audio_tokens=shift_audio_tokens,
                 audio_tokens_per_timestep=H,
                 cross_modality_attn_every=cross_modality_attn_every, remat=dec_remat,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             )
             self.to_video_logits = nn.Parameter(torch.empty(dim, vae.codebook_size))
             self.to_audio_logits = nn.Parameter(torch.empty(dim, num_audio_tokens))
@@ -133,13 +138,13 @@ class NUWAVideoAudio(nn.Module):
 
     # ---- text encoder -----------------------------------------------------
 
-    def embed_text(self, text, mask=None, *, train=False):
+    def embed_text(self, text, mask=None, *, train=False, seed=None):
         seq_len = text.shape[1]
         if seq_len > self.text_max_seq_len:
             raise ValueError(f"text of {seq_len} tokens > {self.text_max_seq_len}")
         tokens = self.text_embedding(text, train=train)
         tokens = tokens + self.text_abs_pos_emb(torch.arange(seq_len, device=self.device))
-        return self.text_transformer(self._cast(tokens), mask=mask)
+        return self.text_transformer(self._cast(tokens), mask=mask, seed=seed)
 
     def _text_context(self, text, use_cfg):
         """Text embeddings and mask, doubled for classifier-free guidance
@@ -162,10 +167,11 @@ class NUWAVideoAudio(nn.Module):
         emb = self.audio_embedding(indices, train=train) + self.audio_pos_emb()[:n][None]
         return self._cast(torch.cat([self.audio_bos.expand(b, 1, self.dim), emb], dim=1))
 
-    def _decode(self, video_inp, audio_inp, text_embeds, text_mask, *, train=False):
+    def _decode(self, video_inp, audio_inp, text_embeds, text_mask, *, train=False, seed=None):
         v = self._embed_video_tokens(video_inp, train)
         a = self._embed_audio_tokens(audio_inp, train)
-        v, a = self.video_audio_transformer(v, a, context=text_embeds, context_mask=text_mask)
+        v, a = self.video_audio_transformer(v, a, context=text_embeds, context_mask=text_mask,
+                                            seed=seed)
         return v @ self.to_video_logits.to(v.dtype), a @ self.to_audio_logits.to(a.dtype)
 
     def forward(self, text, video, audio, *, return_loss=False, cond_dropout_prob=0.2,
@@ -177,11 +183,15 @@ class NUWAVideoAudio(nn.Module):
         pixels (b, max_video_frames, c, h, w), tokenized by the frozen
         codec; ``audio`` is token ids (b, n). ``train`` scales the
         embeddings' gradients and applies condition dropout, drawn from
-        ``generator`` or where ``uncond`` (b,) bool says so."""
+        ``generator`` or where ``uncond`` (b,) bool says so, and with
+        ``attn_dropout`` or ``ff_dropout`` draws one dropout seed from
+        ``generator``, from which the encoder's and the decoder's layers
+        take theirs."""
         text = self._ids(text)
         b = text.shape[0]
         text_mask = text != 0
-        text_embeds = self.embed_text(text, text_mask, train=train)
+        text_seed, dec_seed = dropout_seeds(self, train, generator, 2)
+        text_embeds = self.embed_text(text, text_mask, train=train, seed=text_seed)
         frame_indices = self._frame_indices(video, b)
         audio = self._ids(audio).reshape(b, -1)
         video_inp = frame_indices[:, :-1] if return_loss else frame_indices
@@ -192,7 +202,7 @@ class NUWAVideoAudio(nn.Module):
         if train and uncond is not None:
             text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
         video_logits, audio_logits = self._decode(video_inp, audio_inp, text_embeds,
-                                                  text_mask, train=train)
+                                                  text_mask, train=train, seed=dec_seed)
         if not return_loss:
             return video_logits, audio_logits
         return (cross_entropy(video_logits, frame_indices)

@@ -8,7 +8,13 @@ causal (the video decoder) and centered (the sketch encoder's
 ``sketch_enc_use_sparse_3dna``). The attention itself is
 ``kernels.nda.sparse_3dna``, differentiable: the Hopper kernels (forward,
 query-side and key-side backward) on CUDA tensors, their plain gather
-versions on CPU tensors.
+versions on CPU tensors. Both modules take the JAX modules' ``dropout``
+(the attention dropout rate) and draw its mask in the kernels from the seed
+that ``forward(x, seed=...)`` gives (no seed: no dropout, inference). The
+mask is the JAX gather path's coordinate-keyed one (``_coord_keep_mask``):
+for Sparse3DNA the JAX module's own CPU path with dropout, for
+SparseCausal2DNA its ``_nda_attend`` with ``drop_ids`` (its gather path
+draws ``jax.random`` bits instead, which torch cannot draw).
 
 ``SparseCausal2DNA`` is the counterpart of the JAX module of that name
 without its ``use_pallas`` and ``backend`` options and the gates that pick
@@ -101,13 +107,15 @@ class Sparse3DNA(nn.Module):
     bos, whatever it holds (in the sketch encoder, the first sketch token).
     Keys at or past the sequence end, which centered windows reach in a
     ragged last frame, are masked. A token mask is not taken: every token is
-    attended, as in the JAX module."""
+    attended, as in the JAX module. ``dropout`` is the attention dropout
+    rate, applied with a seed."""
 
     def __init__(self, dim, video_shape, kernel_size=3, dilation=1, heads=8,
-                 dim_head=64, causal=False, rel_pos_bias=False):
+                 dim_head=64, causal=False, rel_pos_bias=False, dropout=0.0):
         super().__init__()
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
         self.causal = causal
+        self.dropout = dropout
         self.video_shape = tuple(video_shape)
         self.kernel = _cast_tuple(kernel_size, 3)
         if not all(n % 2 == 1 for n in self.kernel):
@@ -130,7 +138,7 @@ class Sparse3DNA(nn.Module):
         """(heads, Kn) bias over window positions, or None."""
         return None if self.rel_pos_bias is None else self.rel_pos_bias().T
 
-    def forward(self, x, **_):
+    def forward(self, x, *, seed=None, **_):
         b, n, _ = x.shape
         h = self.heads
         t = n - 1  # video tokens after bos
@@ -147,7 +155,7 @@ class Sparse3DNA(nn.Module):
         out = sparse_3dna(
             q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
             fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
-            mode="causal" if self.causal else "centered",
+            mode="causal" if self.causal else "centered", dropout=(self.dropout, seed),
         )
         out = torch.cat([bos_v_out, out], dim=2)
         return self.to_out(merge_heads(out))
@@ -161,12 +169,14 @@ class SparseCausal2DNA(nn.Module):
     heads and an optional (kernel_size, height) axial bias. One fused qkv
     projection; bos adopts its own value. A ragged last timestep's missing
     tokens are masked: the JAX module pads the sequence to whole timesteps
-    and masks the padding, the kernels mask every token at or past t."""
+    and masks the padding, the kernels mask every token at or past t.
+    ``dropout`` is the attention dropout rate, applied with a seed."""
 
     def __init__(self, dim, height=1, heads=8, dim_head=64, kernel_size=5, dilation=1,
-                 rel_pos_bias=False):
+                 rel_pos_bias=False, dropout=0.0):
         super().__init__()
         self.dim, self.height, self.heads, self.dim_head = dim, height, heads, dim_head
+        self.dropout = dropout
         self.kernel_size, self.dilation = kernel_size, dilation
         inner = heads * dim_head
         self.inner_dim = inner
@@ -185,7 +195,7 @@ class SparseCausal2DNA(nn.Module):
         """(heads, kernel_size * height) bias over window slots, or None."""
         return None if self.rel_pos_bias is None else self.rel_pos_bias().T
 
-    def forward(self, x, **_):
+    def forward(self, x, *, seed=None, **_):
         b, n, _ = x.shape
         h = self.heads
         t = n - 1  # audio tokens after bos
@@ -201,7 +211,8 @@ class SparseCausal2DNA(nn.Module):
         H = self.height
         out = sparse_3dna(q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
                           fmap=(1, H), kernel=(self.kernel_size, 1, H),
-                          dilation=(self.dilation, 1, 1), mode="audio")
+                          dilation=(self.dilation, 1, 1), mode="audio",
+                          dropout=(self.dropout, seed))
         out = torch.cat([bos_v_out, out], dim=2)
         return self.to_out(merge_heads(out))
 

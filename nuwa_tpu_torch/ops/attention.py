@@ -4,16 +4,20 @@ self-attention and the video decoder's cross-attention.
 
 Counterpart of ``nuwa_tpu/ops/attention.py`` without the causal mode (no
 dense causal self-attention is on the ported path); heads are
-``(b, h, n, d)``.
+``(b, h, n, d)``. Attention dropout comes after the talking-heads mix, as
+there; its mask is keyed by (seed, batch row, head, query, key), the null
+column's key id being -1 (``NULL_KEY``), the keys' their positions.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..core.layers import Dense, kaiming_uniform_, normal_
+from ..core.layers import Dense, dropout, kaiming_uniform_, normal_
 from .embeddings import apply_rotary_pos_emb
 from .utils import masked_fill, max_neg_value, stable_softmax
+
+NULL_KEY = -1  # the null key/value column's key id in the dropout mask
 
 
 def split_heads(t, heads):
@@ -31,10 +35,16 @@ def talking_heads(attn, w):
     return torch.einsum("bhij,gh->bgij", attn, w.to(attn.dtype))
 
 
+def key_ids(n, device):
+    """(1, 1 + n) dropout key ids of [null, keys 0..n-1]."""
+    return torch.arange(NULL_KEY, n, device=device)[None]
+
+
 class Attention(nn.Module):
-    def __init__(self, dim, heads=8, dim_head=64):
+    def __init__(self, dim, heads=8, dim_head=64, dropout=0.0):
         super().__init__()
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.dropout = dropout
         inner = heads * dim_head
         self.inner_dim = inner
         self.to_q = Dense(dim, inner)
@@ -63,7 +73,7 @@ class Attention(nn.Module):
         return q, k, v
 
     def forward(self, x, *, mask=None, context=None, context_mask=None,
-                rotary_pos_emb=None):
+                rotary_pos_emb=None, seed=None):
         b = x.shape[0]
         q, k, v = self._qkv(x, context, rotary_pos_emb)
 
@@ -80,5 +90,8 @@ class Attention(nn.Module):
             sim = masked_fill(sim, ~key_mask[:, None, None, :], neg)
 
         attn = talking_heads(stable_softmax(sim), self.talking_heads)
+        n, m = sim.shape[-2], sim.shape[-1] - 1
+        attn = dropout(attn, self.dropout, seed,
+                       ids=(torch.arange(n, device=x.device), key_ids(m, x.device)))
         out = torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype), v)
         return self.to_out(merge_heads(out))

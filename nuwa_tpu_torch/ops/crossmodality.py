@@ -8,6 +8,12 @@ frame's tokens of the other modality (the first chunk sees only the
 context's start token). Dense within a chunk, plain PyTorch: no TPU kernel
 stands behind it.
 
+Attention dropout comes *before* the talking-heads mix here, as the JAX
+module has it (``Attention`` drops after its mix); its mask is keyed by
+(seed, batch row, head, query, key), the query's id its position in the
+chunked sequence, a key's its position in the left-padded context, the null
+column's -1.
+
 The JAX module's documented deviation from the reference is kept: the
 context's zero padding positions are always masked (the null key/value
 leaves every row a valid target). Its options that no caller sets are not
@@ -20,14 +26,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.layers import Dense, kaiming_uniform_, normal_
+from ..core.layers import Dense, dropout, kaiming_uniform_, normal_
+from .attention import NULL_KEY
 from .utils import masked_fill, max_neg_value, padding_to_multiple_of, stable_softmax
 
 
 class CrossModalityCrossAttention(nn.Module):
-    def __init__(self, dim, chunk_size, context_chunk_size, heads=8, dim_head=64):
+    def __init__(self, dim, chunk_size, context_chunk_size, heads=8, dim_head=64,
+                 dropout=0.0):
         super().__init__()
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.dropout = dropout
         self.chunk_size, self.context_chunk_size = chunk_size, context_chunk_size
         inner = heads * dim_head
         self.inner_dim = inner
@@ -47,7 +56,7 @@ class CrossModalityCrossAttention(nn.Module):
         kaiming_uniform_(self.talking_heads, generator, self.heads)
         self.talking_heads_b.zero_()
 
-    def forward(self, seq, context, *, mask=None, context_mask=None, **_):
+    def forward(self, seq, context, *, mask=None, context_mask=None, seed=None, **_):
         """seq (b, 1 + n, dim) and context (b, 1 + nc, dim), each with its
         start token first; masks (b, 1 + n) and (b, 1 + nc) bool."""
         b, seq_total, _ = seq.shape
@@ -86,7 +95,7 @@ class CrossModalityCrossAttention(nn.Module):
         sim = torch.einsum("bhncd,bhnjd->bhncj", q, k)
         cvalid = F.pad(ctx_valid, (1, 0), value=True)
         sim = masked_fill(sim, ~cvalid[:, None, :, None, :], max_neg_value(sim.dtype))
-        attn = stable_softmax(sim)
+        attn = self._dropout(stable_softmax(sim), seed)
         attn = torch.einsum("bhncj,gh->bgncj", attn, self.talking_heads.to(attn.dtype))
         attn = attn + self.talking_heads_b.to(attn.dtype)[None, :, None, None, None]
 
@@ -99,3 +108,17 @@ class CrossModalityCrossAttention(nn.Module):
         if mask is not None:
             out = out.masked_fill(~mask[:, :, None], 0.0)
         return out
+
+    def _dropout(self, attn, seed):
+        """Dropout of the (b, h, chunks, cs, 1 + ccs) probabilities: query
+        chunk*cs + i, key NULL_KEY, then chunk*ccs + j."""
+        if seed is None or self.dropout <= 0:
+            return attn
+        b, h, n, cs, slots = attn.shape
+        dev = attn.device
+        ctx_ids = torch.arange(n * (slots - 1), device=dev).view(n, 1, slots - 1)
+        k_ids = torch.cat([torch.full((n, 1, 1), NULL_KEY, device=dev), ctx_ids], dim=-1)
+        k_ids = k_ids.expand(n, cs, slots).reshape(n * cs, slots)
+        flat = attn.reshape(b, h, n * cs, slots)
+        out = dropout(flat, self.dropout, seed, ids=(torch.arange(n * cs, device=dev), k_ids))
+        return out.view(attn.shape)

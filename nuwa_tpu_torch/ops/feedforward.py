@@ -1,11 +1,13 @@
-"""GEGLU feed-forward. Counterpart of ``nuwa_tpu/ops/feedforward.py``
-(no dropout and no sequence chunking: no caller on the ported paths sets them)."""
+"""GEGLU feed-forward. Counterpart of ``nuwa_tpu/ops/feedforward.py``:
+dropout after the GEGLU, before ``w_out``, its mask keyed by (seed, flat
+element index); no sequence chunking (``chunk_size``: no caller on the
+ported paths sets it)."""
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.layers import Dense
+from ..core.layers import Dense, dropout
 
 
 def geglu(x):
@@ -15,11 +17,12 @@ def geglu(x):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim):
+    def __init__(self, dim, dropout=0.0):
         super().__init__()
         inner = (dim * 4 * 2) // 3  # mult 4: no JAX caller sets another
+        self.dropout = dropout
         self.w_in = Dense(dim, inner * 2)
         self.w_out = Dense(inner, dim)
 
-    def forward(self, x):
-        return self.w_out(geglu(self.w_in(x)))
+    def forward(self, x, *, seed=None):
+        return self.w_out(dropout(geglu(self.w_in(x)), self.dropout, seed))

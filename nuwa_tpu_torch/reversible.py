@@ -11,6 +11,11 @@ re-runs f and g with grad enabled to get their input and parameter
 gradients, which it returns through autograd (so each parameter's gradient
 is accumulated once, by autograd). ``reverse=False`` runs the same math
 under plain autograd, which keeps every activation.
+
+Each couple carries the dropout seeds of its f and g, which every call of
+them gets (``seed=``), the recompute's too, as the JAX package hands each
+sub-function its key (``key{i}f`` / ``key{i}g``): the masks are counter
+hashes of the seed, so the recompute drops what the forward dropped.
 """
 from __future__ import annotations
 
@@ -55,9 +60,9 @@ class _Reversible(torch.autograd.Function):
         values = tensors[: len(names)]  # the parameters follow, for their gradients
         kwargs = dict(zip(names, values))
         x1 = x2 = x
-        for f, f_route, g, g_route in couples:
-            x1 = x1 + f(x2, **_route(kwargs, f_route))
-            x2 = x2 + g(x1, **_route(kwargs, g_route))
+        for f, f_route, g, g_route, (fs, gs) in couples:
+            x1 = x1 + f(x2, seed=fs, **_route(kwargs, f_route))
+            x2 = x2 + g(x1, seed=gs, **_route(kwargs, g_route))
         ctx.couples, ctx.names = couples, names
         ctx.save_for_backward(x1, x2, *values)
         return x1, x2
@@ -69,11 +74,11 @@ class _Reversible(torch.autograd.Function):
         kwargs = _detached(dict(zip(ctx.names, values)))
         dkwargs = {}
         dparams = []
-        for f, f_route, g, g_route in reversed(ctx.couples):
+        for f, f_route, g, g_route, (fs, gs) in reversed(ctx.couples):
             with torch.enable_grad():
                 y1_ = y1.detach().requires_grad_()
                 g_kw = _route(kwargs, g_route)
-                g_out = g(y1_, **g_kw)
+                g_out = g(y1_, seed=gs, **g_kw)
                 (dgy1,), dpg, dkw_g = _grads(g_out, dy2, [y1_], g, g_kw)
             x2 = y2 - g_out.detach()
             dy1 = dy1 + dgy1
@@ -81,7 +86,7 @@ class _Reversible(torch.autograd.Function):
             with torch.enable_grad():
                 x2_ = x2.detach().requires_grad_()
                 f_kw = _route(kwargs, f_route)
-                f_out = f(x2_, **f_kw)
+                f_out = f(x2_, seed=fs, **f_kw)
                 (dfx2,), dpf, dkw_f = _grads(f_out, dy1, [x2_], f, f_kw)
             x1 = y1 - f_out.detach()
 
@@ -96,16 +101,17 @@ class _Reversible(torch.autograd.Function):
 
 def reversible_sequence(couples, x, kwargs, *, reverse=True):
     """Run the two-stream stack of ``couples``, each ``(f, f_route, g,
-    g_route)``: modules called as ``module(x, **kw)`` with the entries of
-    ``kwargs`` that their route names. Returns the mean of the two streams."""
+    g_route, (f_seed, g_seed))``: modules called as ``module(x, seed=s,
+    **kw)`` with their dropout seed (or None) and the entries of ``kwargs``
+    that their route names. Returns the mean of the two streams."""
     kwargs = {n: v for n, v in kwargs.items() if v is not None}
     if not reverse:
         y1 = y2 = x
-        for f, f_route, g, g_route in couples:
-            y1 = y1 + f(y2, **_route(kwargs, f_route))
-            y2 = y2 + g(y1, **_route(kwargs, g_route))
+        for f, f_route, g, g_route, (fs, gs) in couples:
+            y1 = y1 + f(y2, seed=fs, **_route(kwargs, f_route))
+            y2 = y2 + g(y1, seed=gs, **_route(kwargs, g_route))
         return (y1 + y2) * 0.5
     names = tuple(kwargs)
-    params = [p for f, _, g, _ in couples for p in (*f.parameters(), *g.parameters())]
+    params = [p for f, _, g, *_ in couples for p in (*f.parameters(), *g.parameters())]
     y1, y2 = _Reversible.apply(couples, names, x, *kwargs.values(), *params)
     return (y1 + y2) * 0.5

@@ -22,7 +22,9 @@ and j. It re-runs each module with grad enabled on detached inputs to get
 its input, parameter and routed-tensor cotangents (the text ``context``
 among them), and returns them through autograd, so each parameter's
 gradient is accumulated once. ``reverse=False`` runs the same math under
-plain autograd, which keeps every activation.
+plain autograd, which keeps every activation. Each block carries the
+dropout seeds of its four modules, which every call of them gets, the
+recompute's too (the JAX package's ``key{i}f`` ... ``key{i}k``).
 """
 from __future__ import annotations
 
@@ -44,9 +46,10 @@ def _route(kwargs, names):
 
 
 def _run(blocks, x1, x2, m1, m2, kwargs):
-    """The quad-stream stack: ``blocks`` of (type, (f, g, j, k), routes)."""
-    for btype, (f, g, j, k), routes in blocks:
-        kw = {name: _route(kwargs, names) for name, names in routes.items()}
+    """The quad-stream stack: ``blocks`` of (type, (f, g, j, k), routes,
+    seeds)."""
+    for btype, (f, g, j, k), routes, seeds in blocks:
+        kw = {name: dict(_route(kwargs, routes[name]), seed=s) for name, s in zip("fgjk", seeds)}
         if btype == "xmod":
             x1 = x1 + f(x2, m2, **kw["f"])
             x2 = x2 + k(x1, **kw["k"])
@@ -60,9 +63,10 @@ def _run(blocks, x1, x2, m1, m2, kwargs):
     return x1, x2, m1, m2
 
 
-def _vjp(module, inputs, kwargs, names, cotangent, dkwargs):
-    """Re-run ``module(*inputs, **kw)``, ``kw`` the entries of ``kwargs``
-    that ``names`` routes, with grad on detached copies of the inputs; add
+def _vjp(module, inputs, kwargs, names, seed, cotangent, dkwargs):
+    """Re-run ``module(*inputs, seed=seed, **kw)``, ``kw`` the entries of
+    ``kwargs`` that ``names`` routes, with grad on detached copies of the
+    inputs; add
     the routed tensors' cotangents into ``dkwargs`` under their names in
     ``kwargs``. Returns the output (detached) and the cotangents of the
     inputs and of the module's parameters, None where the output does not
@@ -70,7 +74,7 @@ def _vjp(module, inputs, kwargs, names, cotangent, dkwargs):
     kw = _route(kwargs, names)
     with torch.enable_grad():
         inputs = [x.detach().requires_grad_() for x in inputs]
-        out = module(*inputs, **kw)
+        out = module(*inputs, seed=seed, **kw)
         dinputs, dparams, dkw = _grads(out, cotangent, inputs, module, kw)
     for entry in names:
         src, dst = entry if isinstance(entry, tuple) else (entry, entry)
@@ -94,39 +98,41 @@ class _DualReversible(torch.autograd.Function):
         y1, y2, n1, n2, *values = ctx.saved_tensors
         kwargs = _detached(dict(zip(ctx.names, values)))
         dkwargs, dparams = {}, []
-        for btype, (f, g, j, k), routes in reversed(ctx.blocks):
+        for btype, (f, g, j, k), routes, (sf, sg, sj, sk) in reversed(ctx.blocks):
             if btype == "xmod":
-                out, (dgn1,), dpg = _vjp(g, (n1,), kwargs, routes["g"], dn2, dkwargs)
+                out, (dgn1,), dpg = _vjp(g, (n1,), kwargs, routes["g"], sg, dn2, dkwargs)
                 m2 = n2 - out
                 dn1 = dn1 + dgn1
 
-                out, (djm2, djy2), dpj = _vjp(j, (m2, y2), kwargs, routes["j"], dn1, dkwargs)
+                out, (djm2, djy2), dpj = _vjp(j, (m2, y2), kwargs, routes["j"], sj, dn1,
+                                              dkwargs)
                 m1 = n1 - out
                 dm2 = dn2 + djm2
                 dy2 = dy2 + djy2
 
-                out, (dky1,), dpk = _vjp(k, (y1,), kwargs, routes["k"], dy2, dkwargs)
+                out, (dky1,), dpk = _vjp(k, (y1,), kwargs, routes["k"], sk, dy2, dkwargs)
                 x2 = y2 - out
                 dy1 = dy1 + dky1
 
-                out, (dfx2, dfm2), dpf = _vjp(f, (x2, m2), kwargs, routes["f"], dy1, dkwargs)
+                out, (dfx2, dfm2), dpf = _vjp(f, (x2, m2), kwargs, routes["f"], sf, dy1,
+                                              dkwargs)
                 x1 = y1 - out
                 dx2 = dy2 + dfx2
                 dm2 = dm2 + dfm2
             else:
-                out, (dgy1,), dpg = _vjp(g, (y1,), kwargs, routes["g"], dy2, dkwargs)
+                out, (dgy1,), dpg = _vjp(g, (y1,), kwargs, routes["g"], sg, dy2, dkwargs)
                 x2 = y2 - out
                 dy1 = dy1 + dgy1
 
-                out, (dfx2,), dpf = _vjp(f, (x2,), kwargs, routes["f"], dy1, dkwargs)
+                out, (dfx2,), dpf = _vjp(f, (x2,), kwargs, routes["f"], sf, dy1, dkwargs)
                 x1 = y1 - out
                 dx2 = dy2 + dfx2
 
-                out, (dkn1,), dpk = _vjp(k, (n1,), kwargs, routes["k"], dn2, dkwargs)
+                out, (dkn1,), dpk = _vjp(k, (n1,), kwargs, routes["k"], sk, dn2, dkwargs)
                 m2 = n2 - out
                 dn1 = dn1 + dkn1
 
-                out, (djm2,), dpj = _vjp(j, (m2,), kwargs, routes["j"], dn1, dkwargs)
+                out, (djm2,), dpj = _vjp(j, (m2,), kwargs, routes["j"], sj, dn1, dkwargs)
                 m1 = n1 - out
                 dm2 = dn2 + djm2
             # the forward's parameter order: f, g, j, k per block
@@ -139,12 +145,13 @@ class _DualReversible(torch.autograd.Function):
 
 def dual_reversible_sequence(blocks, video, audio, kwargs, *, reverse=True):
     """Run the twin towers over ``video`` and ``audio``; ``blocks`` are
-    (type, (f, g, j, k), routes) with routes {"f": names, ...} into
-    ``kwargs``. Returns the mean of each tower's two streams."""
+    (type, (f, g, j, k), routes, seeds) with routes {"f": names, ...} into
+    ``kwargs`` and seeds the four modules' dropout seeds (f, g, j, k).
+    Returns the mean of each tower's two streams."""
     kwargs = {n: v for n, v in kwargs.items() if v is not None}
     if reverse:
         names = tuple(kwargs)
-        params = [p for _, mods, _ in blocks for m in mods for p in m.parameters()]
+        params = [p for _, mods, *_ in blocks for m in mods for p in m.parameters()]
         y1, y2, n1, n2 = _DualReversible.apply(
             blocks, names, video, audio, *kwargs.values(), *params
         )

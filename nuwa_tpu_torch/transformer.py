@@ -3,13 +3,17 @@ feed-forward], each block in a sandwich norm, and a final StableLayerNorm.
 
 Counterpart of ``Transformer`` (a residual around every block) and
 ``ReversibleTransformer`` (the blocks run as reversible couples) of
-``nuwa_tpu/transformer.py``.
+``nuwa_tpu/transformer.py``, with their ``attn_dropout`` and ``ff_dropout``.
+A stack's ``forward(..., seed=...)`` gives each layer a dropout seed of its
+own, as the JAX stacks split one key a layer: one a menu entry in
+``Transformer``, one for f and one for g of each couple in
+``ReversibleTransformer`` (``core.layers.split_seed``). No seed: no dropout.
 """
 from __future__ import annotations
 
 from torch import nn
 
-from .core.layers import LayerNorm, StableLayerNorm
+from .core.layers import LayerNorm, StableLayerNorm, split_seed
 from .nda import Sparse3DNA, SparseCross2DNA
 from .ops.attention import Attention
 from .ops.feedforward import FeedForward
@@ -64,7 +68,7 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                       sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
                       sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
                       sparse_3dna_rel_pos_bias=False, shift_video_tokens=False,
-                      include_cross_ff=False):
+                      include_cross_ff=False, attn_dropout=0.0, ff_dropout=0.0):
     """(kind, Sandwich) entries in the order of the JAX package's menu: per
     depth a self block, a cross block when cross-attending (followed by its
     own "ff_cross" when ``include_cross_ff``, the reversible layout), and one
@@ -72,13 +76,19 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
     (the sketch encoder), or bidirectional dense attention (the text and
     sketch encoders); the cross block is dense attention (to text) or
     SparseCross2DNA (to sketch frames, dilation
-    ``cross_2dna_dilations[depth % len]``)."""
+    ``cross_2dna_dilations[depth % len]``). Every attention takes
+    ``attn_dropout`` and every feed-forward ``ff_dropout``, except
+    SparseCross2DNA, whose kernels' dropout mode is not ported yet."""
     if sparse_3dna_attn and sparse_3dna_video_shape is None:
         raise ValueError("sparse_3dna_attn needs sparse_3dna_video_shape")
     if cross_2dna_attn and cross_2dna_image_size is None:
         raise ValueError("cross_2dna_attn needs cross_2dna_image_size")
     if causal and not sparse_3dna_attn:
         raise NotImplementedError("causal dense self-attention is not ported")
+    if cross_2dna_attn and attn_dropout > 0:
+        raise NotImplementedError(
+            "attn_dropout with SparseCross2DNA: the cross kernels' dropout mode "
+            "(nuwa_tpu/kernels/nda_pallas.py:2759, :2844, :2906) is not ported yet")
     shift = sparse_3dna_attn and shift_video_tokens
     fmap = sparse_3dna_video_shape[-1] if shift else None
     entries = []
@@ -89,11 +99,11 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                 kernel_size=sparse_3dna_kernel_size,
                 dilation=sparse_3dna_dilations[ind % len(sparse_3dna_dilations)],
                 video_shape=sparse_3dna_video_shape,
-                rel_pos_bias=sparse_3dna_rel_pos_bias,
+                rel_pos_bias=sparse_3dna_rel_pos_bias, dropout=attn_dropout,
             )
         else:
-            self_attn = Attention(dim=dim, heads=heads, dim_head=dim_head)
-        ff = FeedForward(dim=dim)
+            self_attn = Attention(dim=dim, heads=heads, dim_head=dim_head, dropout=attn_dropout)
+        ff = FeedForward(dim=dim, dropout=ff_dropout)
         if shift:
             self_attn = ShiftVideo(self_attn, image_size=fmap)
             ff = ShiftVideo(ff, image_size=fmap)
@@ -107,10 +117,11 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                     dilation=cross_2dna_dilations[ind % len(cross_2dna_dilations)],
                 )
             else:
-                cross = Attention(dim=dim, heads=heads, dim_head=dim_head)
+                cross = Attention(dim=dim, heads=heads, dim_head=dim_head,
+                                  dropout=attn_dropout)
             entries.append(("cross", Sandwich(dim, cross)))
             if include_cross_ff:
-                ff_cross = FeedForward(dim=dim)
+                ff_cross = FeedForward(dim=dim, dropout=ff_dropout)
                 if shift:
                     ff_cross = ShiftVideo(ff_cross, image_size=fmap)
                 entries.append(("ff_cross", Sandwich(dim, ff_cross)))
@@ -126,7 +137,8 @@ class Transformer(nn.Module):
                  cross_2dna_kernel_size=3, cross_2dna_dilations=(1,),
                  sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
                  sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
-                 sparse_3dna_rel_pos_bias=False, shift_video_tokens=False):
+                 sparse_3dna_rel_pos_bias=False, shift_video_tokens=False,
+                 attn_dropout=0.0, ff_dropout=0.0):
         super().__init__()
         self.dim = dim
         self._assemble(_build_layer_menu(
@@ -142,6 +154,7 @@ class Transformer(nn.Module):
             sparse_3dna_rel_pos_bias=sparse_3dna_rel_pos_bias,
             shift_video_tokens=shift_video_tokens,
             include_cross_ff=self.include_cross_ff,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout,
         ))
         self.norm = StableLayerNorm(dim)
 
@@ -150,15 +163,16 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList([m for _, m in menu])
 
     def forward(self, x, *, mask=None, context=None, context_mask=None,
-                rotary_pos_emb=None):
-        for kind, layer in zip(self.kinds, self.layers):
+                rotary_pos_emb=None, seed=None):
+        seeds = split_seed(seed, len(self.layers))
+        for kind, layer, s in zip(self.kinds, self.layers, seeds):
             if kind == "self":
                 kw = dict(mask=mask, rotary_pos_emb=rotary_pos_emb)
             elif kind == "cross":
                 kw = dict(context=context, context_mask=context_mask)
             else:
                 kw = {}
-            x = layer(x, **kw) + x
+            x = layer(x, seed=s, **kw) + x
         return self.norm(x)
 
 
@@ -198,8 +212,10 @@ class ReversibleTransformer(Transformer):
         self.layers = nn.ModuleList(couples)
 
     def forward(self, x, *, mask=None, context=None, context_mask=None,
-                rotary_pos_emb=None, reverse=True):
-        couples = [(c.f, _ROUTES[kind], c.g, ()) for kind, c in zip(self.kinds, self.layers)]
+                rotary_pos_emb=None, reverse=True, seed=None):
+        seeds = split_seed(seed, 2 * len(self.layers))  # f0, g0, f1, g1, ...
+        couples = [(c.f, _ROUTES[kind], c.g, (), (seeds[2 * i], seeds[2 * i + 1]))
+                   for i, (kind, c) in enumerate(zip(self.kinds, self.layers))]
         kwargs = dict(mask=mask, context=context, context_mask=context_mask,
                       rotary_pos_emb=rotary_pos_emb)
         return self.norm(reversible_sequence(couples, x, kwargs, reverse=reverse))

@@ -23,3 +23,24 @@ def test_library_name_follows_the_headers(tmp_path, monkeypatch):
     names.append(build._target("k").name)
     assert len(set(names)) == 3
     assert all(n.startswith("libk-") and n.endswith(".so") for n in names)
+
+
+
+def test_the_dropout_sources_include_the_one_hash_header(tmp_path, monkeypatch):
+    """The forward and the query-side kernel draw their dropout mask from one
+    hash in ``sparse3dna_dropout.cuh``, and an edit of that header renames
+    every Sparse3DNA library; the key side needs no mask (it reads the
+    dropped mix)."""
+    for name in ("sparse3dna_fwd", "sparse3dna_bwd_q"):
+        source = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "sparse3dna_dropout.cuh"' in source, name
+        assert "0x7FEB352D" not in source, name  # the hash lives in the header only
+    names = ("sparse3dna_fwd", "sparse3dna_bwd_q", "sparse3dna_bwd_kv")
+    for path in build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = [build._target(name).name for name in names]
+    header = tmp_path / "sparse3dna_dropout.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = [build._target(name).name for name in names]
+    assert all(a != b for a, b in zip(before, after))

@@ -443,3 +443,67 @@ def test_sparse3dna_audio_backward_kernels_match_plain(dtype, tol, height, kerne
             assert _rel_err(a, b) <= 1e-5, name
     with pytest.raises(ValueError):
         knda.sparse_3dna_bwd_kv(q, g, want[1], want[2], **dict(geo, kernel=(kernel, 1, 2)))
+
+
+DROPOUT_GEOMETRIES = {
+    "causal": (dict(fmap=(4, 4), kernel=(3, 5, 3), dilation=(2, 1, 2)), 45, 37),
+    "centered": (dict(fmap=(4, 4), kernel=(3, 3, 3), dilation=(1, 2, 1), mode="centered"),
+                 27, 47),
+    "fmap 32": (dict(fmap=(32, 32), kernel=(5, 3, 3), dilation=(1, 2, 2)), 45, 2047),
+    "audio H=4": (dict(fmap=(1, 4), kernel=(7, 1, 4), dilation=(1, 1, 1), mode="audio"),
+                  28, 38),
+    "audio H=1": (dict(fmap=(1, 1), kernel=(7, 1, 1), dilation=(2, 1, 1), mode="audio"),
+                  7, 40),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("geometry", list(DROPOUT_GEOMETRIES))
+def test_sparse3dna_dropout_kernels_match_plain(dtype, tol, geometry):
+    """The three kernels with attention dropout at rate 0.1 against their
+    plain versions (the same counter-hash mask) in every geometry: every
+    output within the causal test's tolerances, every backward output equal
+    bit for bit across two calls, each launch counted as a dropout one; the
+    autograd function with dropout against autograd of the plain forward in
+    fp32 (1e-5 of each gradient's max abs); a rate of 0, or no seed, gives
+    the output of the launch without dropout bit for bit."""
+    _needs_cuda()
+    geo, kn, t = DROPOUT_GEOMETRIES[geometry]
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, kn=kn, seed=t + 2)
+    drop = (0.1, 1234567)
+    fns = (knda.sparse_3dna_fwd, knda.sparse_3dna_bwd_q, knda.sparse_3dna_bwd_kv)
+    before = [fn.mode_launches["dropout"] for fn in fns]
+    out, lse = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, dropout=drop, **geo)
+    ref, ref_lse = knda.sparse_3dna_fwd_plain(q, k, v, kb, vb, th, rel, dropout=drop, **geo)
+    runs = []
+    for _ in range(2):
+        got = knda.sparse_3dna_bwd_q(q, k, v, kb, vb, th, rel, g, lse, dropout=drop, **geo)
+        runs.append(got + knda.sparse_3dna_bwd_kv(q, g, got[1], got[2], dropout=drop, **geo))
+    want = knda.sparse_3dna_bwd_q_plain(q, k, v, kb, vb, th, rel, g, lse, dropout=drop, **geo)
+    want += knda.sparse_3dna_bwd_kv_plain(q, g, want[1], want[2], **geo)
+    torch.cuda.synchronize()
+    assert [fn.mode_launches["dropout"] for fn in fns] == [before[0] + 1, before[1] + 2,
+                                                            before[2] + 2]
+    names = ("out", "lse", "dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk", "dv")
+    for name, a, a2, b in zip(names, (out, lse, *runs[0]), (out, lse, *runs[1]),
+                              (ref, ref_lse, *want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, a2), name
+        err = _rel_err(a, b)
+        assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"
+    # about a tenth of the valid pairs' mixed probabilities dropped
+    valid = knda.sparse_3dna_bwd_q_plain(q, k, v, kb, vb, th, rel, g, lse, **geo)[2] != 0
+    share = ((runs[0][2] == 0) & valid).sum().item() / valid.sum().item()
+    assert abs(share - 0.1) < 0.03, share
+    plain_out, _ = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, **geo)
+    for off in ((0.0, 7), (0.1, None), None):
+        again, _ = knda.sparse_3dna_fwd(q, k, v, kb, vb, th, rel, dropout=off, **geo)
+        assert torch.equal(again, plain_out)
+    if dtype == torch.float32:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, kb, vb, th, rel)]
+        out, _ = knda.sparse_3dna_fwd_plain(*leaves, dropout=drop, **geo)
+        wants = torch.autograd.grad(out, leaves, g)
+        gots = torch.autograd.grad(knda.sparse_3dna(*leaves, dropout=drop, **geo), leaves, g)
+        for a, b in zip(gots, wants):
+            assert _rel_err(a, b) <= 1e-5

@@ -162,12 +162,17 @@ def jax_params(jmodel, tmodel):
     (a NUWA or a NUWASketch) takes the params and state of each of its
     codecs."""
     key = jax.random.PRNGKey(0)
-    codecs = {}
-    for name in ("vae", "sketch_vae"):
-        vae = getattr(jmodel, name, None)
-        if vae is not None:
-            codecs.update({f"{name}_params": vae.init(key), f"{name}_state": vae.init_state(key)})
-    shapes = jax.eval_shape(lambda: jmodel.init(key, **codecs))
+
+    def init():  # traced only: the codecs' inits give shapes, not values
+        codecs = {}
+        for name in ("vae", "sketch_vae"):
+            vae = getattr(jmodel, name, None)
+            if vae is not None:
+                codecs.update({f"{name}_params": vae.init(key),
+                               f"{name}_state": vae.init_state(key)})
+        return jmodel.init(key, **codecs)
+
+    shapes = jax.eval_shape(init)
     tensors = _tensors(tmodel)
 
     def leaf(path, shape):

@@ -42,7 +42,7 @@ from test_torch_sketch import jax_params
 import test_torch_video_audio as base
 
 torch.set_num_threads(1)
-REL, LOSS_ATOL, STEP_ATOL, PROB = 1e-4, 1e-5, 1e-5, 0.5
+REL, LOSS_ATOL, STEP_ATOL, PROB, STEP_LR = 1e-4, 1e-5, 1e-5, 0.5, 1e-2
 VIDEO = np.random.default_rng(3).integers(0, 16, (2, 2 * 4))
 
 
@@ -59,7 +59,10 @@ def dropout_key():
 def jax_loss_and_grads(name, dropout, **options):
     """The port's model ``name`` of test_torch_video_audio.py (with
     ``options``), its weights as the JAX params tree, JAX's loss and
-    gradients, and the condition-dropout mask (None without dropout)."""
+    gradients, the condition-dropout mask (None without dropout), and the
+    params after one step of the JAX package's optax chain (clip 0.5, AdamW
+    at STEP_LR, weight decay 0.01) from those gradients: the loss, its
+    gradients and the step in one jitted call."""
     cfg = dict(base.CFG, **base.CONFIGS[name], **options)
     tmodel = NUWAVideoAudio(vae=VQGanVAE(**base.VAE, device="cpu", seed=1), **cfg,
                             device="cpu", seed=0)
@@ -71,8 +74,14 @@ def jax_loss_and_grads(name, dropout, **options):
         return jmodel.forward(p, text=base.TEXT, video=VIDEO, audio=base.AUDIO,
                               return_loss=True, cond_dropout_prob=PROB, key=key, train=True)
 
-    value, grads = jax.jit(jax.value_and_grad(loss))(params)
-    return tmodel, params, uncond, float(value), grads
+    tx = jopt.get_optimizer(lr=STEP_LR, wd=0.01, params=params, max_grad_norm=0.5)
+
+    def loss_grads_and_step(p):
+        value, grads = jax.value_and_grad(loss)(p)
+        return value, grads, jax.tree.map(jnp.add, p, tx.update(grads, tx.init(p), p)[0])
+
+    value, grads, stepped = jax.jit(loss_grads_and_step)(params)
+    return tmodel, stepped, uncond, float(value), grads
 
 
 def trainable(tmodel):
@@ -102,12 +111,10 @@ def check_step(case):
     """One step of the port's global-norm clip (0.5) and AdamW (weight decay
     0.01 on parameters of ndim >= 2, the frozen codec left out) against the
     JAX package's optax chain, from JAX's gradients of the loss."""
-    tmodel, params, _, _, grads = case
+    tmodel, stepped, _, _, grads = case
     jgrads = flatten_params(jax.tree.map(np.asarray, grads))
-    kw = dict(lr=1e-2, wd=0.01)
-    tx = jopt.get_optimizer(**kw, params=params, max_grad_norm=0.5)
-    step = jax.jit(lambda g, p: jax.tree.map(jnp.add, p, tx.update(g, tx.init(p), p)[0]))
-    want = flatten_params(jax.tree.map(np.asarray, step(grads, params)))
+    kw = dict(lr=STEP_LR, wd=0.01)
+    want = flatten_params(jax.tree.map(np.asarray, stepped))
     trained = trainable(tmodel)
     before = {n: p.detach().clone() for n, p in trained.items()}
     try:
