@@ -115,7 +115,14 @@ Phases, each of which exits non-zero on failure:
    from the same CPU generator); the depth-64 flagship's train step with
    the same dropout (4 steps, launches, step ms and peak memory beside the
    step without), and at depth 2 its fp32 loss and gradients against the
-   CPU;
+   CPU; then the three SparseCross2DNA kernels with dropout against their
+   plain versions at the sketch forward's shapes (b = 2, t = 1280, one and
+   two context frames) and the sketch training step's (t = 2559, Lc 256 and
+   512, the second frame masked in row 1), fp32 and bf16, the same checks,
+   each timed with and without dropout beside its plain version; the two
+   NUWASketch training models with the same dropout (4 steps each, every
+   launch a dropout one, step ms and busy share beside the step without)
+   and model (b)'s fp32 loss and gradients with dropout against the CPU;
 12. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, median after warm-up), and the device's busy share of a
    generate of each model.
@@ -545,8 +552,9 @@ def serve(NUWA, knda):
 
 KERNELS = ("fwd", "bwd_q", "bwd_kv", "cross", "cross_bwd_q", "cross_bwd_kv")
 # the Sparse3DNA wrappers also count their launches per mode, centered and
-# audio among them
+# audio among them; the cross wrappers their dropout launches
 CENTERED = ("fwd", "bwd_q", "bwd_kv")
+CROSS = ("cross", "cross_bwd_q", "cross_bwd_kv")
 
 
 def kernel_wrappers(knda):
@@ -560,9 +568,10 @@ def kernel_wrappers(knda):
 
 
 def reset_launches(knda):
+    from nuwa_tpu_torch.kernels import cross as kcross
+
     knda.reset_launches()
-    for fn in kernel_wrappers(knda).values():
-        fn.launches = 0
+    kcross.reset_launches()
 
 
 COUNTED_MODES = ("centered", "audio", "dropout")
@@ -571,18 +580,21 @@ COUNTED_MODES = ("centered", "audio", "dropout")
 def launch_counts(knda):
     """Each wrapper's launches since the reset, and the Sparse3DNA wrappers'
     centered ones as "<name>_centered", audio ones as "<name>_audio" and
-    those with attention dropout as "<name>_dropout"."""
+    those with attention dropout as "<name>_dropout", the cross wrappers'
+    too."""
     fns = kernel_wrappers(knda)
     counts = {name: fn.launches for name, fn in fns.items()}
     counts.update({f"{name}_{mode}": fns[name].mode_launches[mode] for name in CENTERED
                    for mode in COUNTED_MODES})
+    counts.update({f"{name}_dropout": fns[name].mode_launches["dropout"] for name in CROSS})
     return counts
 
 
 def expect_launches(**nonzero):
     """The launch counts of a run that launches the named kernels that many
     times and no other."""
-    keys = (*KERNELS, *(f"{name}_{mode}" for mode in COUNTED_MODES for name in CENTERED))
+    keys = (*KERNELS, *(f"{name}_{mode}" for mode in COUNTED_MODES for name in CENTERED),
+            *(f"{name}_dropout" for name in CROSS))
     return {key: nonzero.get(key, 0) for key in keys}
 
 
@@ -1268,12 +1280,15 @@ def time_cross_bwd(kcross):
 
 
 def sketch_train_model(NUWASketch, VQGanVAE, variant, device="cuda", dtype="bfloat16",
-                       seed=SEED):
+                       seed=SEED, dropout=0.0):
+    """Model (a) or (b) from a seed, ``dropout`` its ``attn_dropout`` and
+    ``ff_dropout``."""
     vae = VQGanVAE(**SKETCH_VAE, device=device, seed=seed + 20)
     sketch_vae = (VQGanVAE(**SKETCH_VAE, channels=5, device=device, seed=seed + 21)
                   if variant == "b" else vae)
     return NUWASketch(vae=vae, sketch_vae=sketch_vae, **SKETCH_TRAIN_VARIANTS[variant],
-                      compute_dtype=dtype, device=device, seed=seed)
+                      attn_dropout=dropout, ff_dropout=dropout, compute_dtype=dtype,
+                      device=device, seed=seed)
 
 
 def sketch_train_batch(variant, gen):
@@ -1289,7 +1304,7 @@ def sketch_train_batch(variant, gen):
     return sketch, video, mask
 
 
-def train_sketch(NUWASketch, VQGanVAE, knda):
+def train_sketch(NUWASketch, VQGanVAE, knda, dropout=0.0):
     """NUWASketch training at full width, bf16, both variants: forward with
     the loss (condition dropout 0.2, drawn from a seeded generator), the
     backward, global-norm clipping at 0.5 and an AdamW step, SKETCH_TRAIN_STEPS
@@ -1297,18 +1312,25 @@ def train_sketch(NUWASketch, VQGanVAE, knda):
     after it. Per step the reversible decoder launches the cross forward and
     B1 2 x depth times (the forward, then each couple's recompute in the
     backward) and each backward kernel depth times; model (b)'s centered
-    encoder adds one centered B1, B2 and B3 per layer."""
+    encoder adds one centered B1, B2 and B3 per layer. With ``dropout`` (the
+    models' ``attn_dropout`` and ``ff_dropout``) every one of those launches
+    is a dropout launch. Returns the launches of all steps by context frames
+    and each variant's median step ms."""
     from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
 
     depth, enc = SKETCH_TRAIN["dec_depth"], SKETCH_TRAIN["sketch_enc_depth"]
     total = {frames: expect_launches() for frames in (1, 2)}  # by context frames
+    step_ms = {}
     for variant in ("a", "b"):
         c = enc if variant == "b" else 0
+        counts = dict(fwd=2 * depth + c, bwd_q=depth + c, bwd_kv=depth + c, cross=2 * depth,
+                      cross_bwd_q=depth, cross_bwd_kv=depth)
         expect = expect_launches(
-            fwd=2 * depth + c, bwd_q=depth + c, bwd_kv=depth + c, cross=2 * depth,
-            cross_bwd_q=depth, cross_bwd_kv=depth, fwd_centered=c, bwd_q_centered=c,
-            bwd_kv_centered=c)
-        model = sketch_train_model(NUWASketch, VQGanVAE, variant)
+            **counts, fwd_centered=c, bwd_q_centered=c, bwd_kv_centered=c,
+            **({f"{k}_dropout": n for k, n in counts.items()} if dropout else {}))
+        label = f"sketch train ({variant}, dropout {dropout})" if dropout else (
+            f"sketch train ({variant})")
+        model = sketch_train_model(NUWASketch, VQGanVAE, variant, dropout=dropout)
         params = [p for p in model.parameters() if p.requires_grad]
         opt = get_optimizer(params, lr=3e-4, wd=0.01)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
@@ -1337,50 +1359,53 @@ def train_sketch(NUWASketch, VQGanVAE, knda):
             losses.append(loss.item())
             got = launch_counts(knda)
             if got != expect:
-                fail(f"sketch train ({variant}) step {i}: launches {got}, expected {expect}")
+                fail(f"{label} step {i}: launches {got}, expected {expect}")
             frames = 2 if variant == "b" else 1
             total[frames] = {k: total[frames][k] + got[k] for k in got}
         peak = torch.cuda.max_memory_allocated() / 2**30
         if not all(map(math.isfinite, losses)):
-            fail(f"sketch train ({variant}) losses not finite: {losses}")
+            fail(f"{label} losses not finite: {losses}")
         if not losses[-1] < losses[0]:
-            fail(f"sketch train ({variant}) loss did not fall: {losses}")
-        ms = statistics.median(times[1:])
+            fail(f"{label} loss did not fall: {losses}")
+        ms = step_ms[variant] = statistics.median(times[1:])
         tokens = SKETCH_TRAIN_BATCH * SKETCH_TRAIN["max_video_frames"] * SKETCH_FMAP**2
         shown = {k: v for k, v in expect.items() if v}
-        print(f"sketch train ({variant}): losses {', '.join(f'{x:.4f}' for x in losses)} "
+        print(f"{label}: losses {', '.join(f'{x:.4f}' for x in losses)} "
               f"(finite, falling); launches per step {shown} (as expected, every step)",
               flush=True)
-        print(f"sketch train step ({variant}, b={SKETCH_TRAIN_BATCH}, {tokens} video tokens): "
+        print(f"{label} step (b={SKETCH_TRAIN_BATCH}, {tokens} video tokens): "
               f"{ms:.1f} ms median of steps 1-{SKETCH_TRAIN_STEPS - 1} (step 0: "
               f"{times[0]:.1f} ms), {tokens / (ms / 1e3):.0f} video tokens/s, peak memory "
               f"{peak:.2f} GiB", flush=True)
-        share(step, f"sketch train step ({variant})", wall=ms)
+        share(step, f"{label} step", wall=ms)
         del model, opt, params
         torch.cuda.empty_cache()
-    return total
+    return total, step_ms
 
 
-def sketch_train_against_cpu(NUWASketch, VQGanVAE):
+def sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=0.0):
     """Model (b)'s weights in fp32, one batch with a fixed condition-dropout
     mask (row 0 unconditional: its context all masked; row 1 with its
     second sketch frame padded): the GPU path (kernels) against the CPU
     plain path, the loss and every parameter's gradient, reported by group
     (the sketch encoder, the cross layers, their null key/value and the
-    talking-heads matrices)."""
+    talking-heads matrices). With ``dropout`` (the model's ``attn_dropout``
+    and ``ff_dropout``) both draw their one dropout seed from the same CPU
+    generator, so they drop the same pairs."""
     sketch, video, mask = sketch_train_batch("b", torch.Generator().manual_seed(SEED + 27))
     uncond = torch.tensor([True, False])
+    what = f"sketch train, dropout {dropout}," if dropout else "sketch train"
     grads = []
     for device in ("cuda", "cpu"):
         model = sketch_train_model(NUWASketch, VQGanVAE, "b", device=device, dtype=None,
-                                   seed=SEED + 28)
+                                   seed=SEED + 28, dropout=dropout)
         start = time.perf_counter()
         loss = model(sketch, video, sketch_mask=mask, return_loss=True, train=True,
-                     uncond=uncond)
+                     uncond=uncond, generator=torch.Generator().manual_seed(SEED + 29))
         loss.backward()
         grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
                                     if p.requires_grad}))
-        print(f"fp32 sketch train forward and backward on {device}: "
+        print(f"fp32 {what} forward and backward on {device}: "
               f"{time.perf_counter() - start:.1f} s", flush=True)
     cross = [n for n, m in model.named_modules() if type(m).__name__ == "SparseCross2DNA"]
     groups = {
@@ -1397,18 +1422,18 @@ def sketch_train_against_cpu(NUWASketch, VQGanVAE):
         for group, member in groups.items():
             if member(name) and rel >= worst.get(group, (-1.0, None))[0]:
                 worst[group] = (rel, name)
-    print(f"fp32 sketch train GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
+    print(f"fp32 {what} GPU vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} (tolerance "
           f"{LOSS_ATOL:.0e}); {len(g_cpu)} gradients, each within {GRAD_REL:.0e} of its max "
           f"abs:", flush=True)
     if set(worst) != set(groups):
-        fail(f"sketch train gradients: groups {sorted(set(groups) - set(worst))} are empty")
+        fail(f"{what} gradients: groups {sorted(set(groups) - set(worst))} are empty")
     for group in groups:
         rel, name = worst[group]
         print(f"  {group}: largest error {rel:.3e} of the max abs at {name}", flush=True)
     if not abs(loss_gpu - loss_cpu) <= LOSS_ATOL:
-        fail("the sketch training loss differs between GPU and CPU")
+        fail(f"the {what} loss differs between GPU and CPU")
     if not worst["all"][0] <= GRAD_REL:
-        fail("sketch training gradients differ between GPU and CPU")
+        fail(f"{what} gradients differ between GPU and CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -2403,7 +2428,8 @@ def dropout_rows(knda):
     fp32's for the fp32 ones), every backward output equal bit for bit
     across two calls, and the dropped share of the valid pairs' mixed
     probabilities; then, in bf16, each kernel's device time with and
-    without dropout beside its plain version's with dropout. Returns
+    without dropout beside its plain version's with dropout; then the same
+    for the three cross kernels (``cross_dropout_rows``). Returns
     {(kernel, shape): row}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
     rows = {}
@@ -2486,6 +2512,121 @@ def dropout_rows(knda):
                   f"{bound:.6f} ms ({by})", flush=True)
         del args, g, lse, ds, mix
         torch.cuda.empty_cache()
+    return {**rows, **cross_dropout_rows()}
+
+
+# the cross kernels' shapes on the main path, (b, t, context frames), the
+# second context frame masked in row 1: the sketch forward's and the sketch
+# training step's, at one and two context frames
+CROSS_DROPOUT_SHAPES = {
+    "forward, Lc 256": (2, SKETCH_T, 1),
+    "forward, Lc 512": (2, SKETCH_T, 2),
+    "train, Lc 256": (SKETCH_TRAIN_BATCH, SKETCH_TRAIN_T, 1),
+    "train, Lc 512": (SKETCH_TRAIN_BATCH, SKETCH_TRAIN_T, 2),
+}
+CROSS_NAMES = ("out", "lse", *CROSS_BWD_NAMES)
+CROSS_WRAPPERS = dict(zip(CROSS, ("sparse_cross_2dna_fwd", "sparse_cross_2dna_bwd_q",
+                                  "sparse_cross_2dna_bwd_kv")))
+
+
+def cross_dropout_rows():
+    """The cross forward and both backward kernels with attention dropout
+    at DROP_RATE and a seed, at each shape of CROSS_DROPOUT_SHAPES, fp32 and
+    bf16, as ``dropout_rows`` holds the Sparse3DNA kernels: against their
+    plain versions on the same inputs (each backward given the lse of its
+    own forward, as the autograd function gives it), every backward output
+    equal bit for bit across two calls, the dropped share of the valid
+    pairs' mixed probabilities within 4 binomial standard deviations of the
+    rate; then, in bf16, each kernel's device time with and without dropout
+    beside its plain version's with dropout and its bound. Returns
+    {(kernel, shape): row}."""
+    from nuwa_tpu_torch.kernels import cross as kcross
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    rows = {}
+    kw = dict(fmap=SKETCH_FMAP, kernel_size=3, dilation=1)
+    dkw = dict(kw, dropout=(DROP_RATE, DROP_SEED))
+    for name, (b, t, frames) in CROSS_DROPOUT_SHAPES.items():
+        mask = torch.ones(b, frames * SKETCH_FMAP**2, dtype=torch.bool, device="cuda")
+        mask[1, SKETCH_FMAP**2:] = False  # no-op at one frame
+        for dtype in (torch.float32, torch.bfloat16):
+            args = cross_inputs(b, t, frames, SKETCH_FMAP, dtype, gen)
+            g = torch.randn(args[0].shape, generator=gen, device="cuda").to(dtype)
+            out, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **dkw)
+            ref, ref_lse = kcross.sparse_cross_2dna_fwd_plain(*args, mask, **dkw)
+            want = kcross.sparse_cross_2dna_bwd_q_plain(*args, mask, g, ref_lse, **dkw)
+            want += kcross.sparse_cross_2dna_bwd_kv_plain(args[0], g, *want[1:3], **dkw)
+            runs = []
+            for _ in range(2):
+                got = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **dkw)
+                runs.append(got + kcross.sparse_cross_2dna_bwd_kv(args[0], g, *want[1:3],
+                                                                  **dkw))
+            torch.cuda.synchronize()
+            errs = {}
+            for oname, a, a2, w in zip(CROSS_NAMES, (out, lse, *runs[0]), (out, lse, *runs[1]),
+                                       (ref, ref_lse, *want)):
+                if a.dtype != w.dtype or a.shape != w.shape:
+                    fail(f"cross dropout {name} {oname}: {a.dtype} {tuple(a.shape)} != "
+                         f"{w.dtype} {tuple(w.shape)}")
+                if not torch.equal(a, a2):
+                    fail(f"cross dropout {name} {oname} {dtype}: two calls differ")
+                err = (a.float() - w.float()).abs().max().item()
+                rel = err / max(1.0, w.float().abs().max().item())
+                tol = TOL[dtype if oname in ROUNDED else torch.float32]
+                if not rel <= tol:
+                    fail(f"cross dropout {name} {oname} {dtype}: error {rel} of the max abs "
+                         f"> {tol}")
+                kname = ("cross" if oname in ("out", "lse") else
+                         "cross_bwd_kv" if oname in ("dk", "dv") else "cross_bwd_q")
+                old = errs.get(kname, (0.0, 0.0))
+                errs[kname] = max(old[0], rel), max(old[1], err)
+            nodrop_mix = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw)[2]
+            valid = nodrop_mix != 0
+            n = valid.sum().item()
+            share = ((runs[0][2] == 0) & valid).sum().item() / n
+            if not abs(share - DROP_RATE) <= 4 * (DROP_RATE * (1 - DROP_RATE) / n) ** 0.5:
+                fail(f"cross dropout {name} {dtype}: dropped share {share} of {n} pairs is "
+                     f"more than 4 binomial standard deviations from the rate {DROP_RATE}")
+            print(f"cross dropout {DROP_RATE} {name} b={b} t={t} {dtype} vs plain: "
+                  + ", ".join(f"{CROSS_WRAPPERS[k]} max error {rel:.3e} of the max abs"
+                              for k, (rel, _) in errs.items())
+                  + f" (tolerances {TOL[dtype]:.0e} for outputs in {dtype}, 1e-05 for fp32 "
+                  f"ones); backward equal bit for bit across two calls; {share:.4f} of "
+                  f"{n} valid pairs dropped (within 4 binomial standard deviations)",
+                  flush=True)
+            del out, lse, ref, ref_lse, want, runs, got, nodrop_mix, valid
+            for kname, (_, err) in errs.items():
+                row = rows.setdefault((kname, name), dict(b=b, t=t, context_frames=frames,
+                                                          max_abs_err=0.0))
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+        # times, bf16: with and without dropout, and the plain version with it
+        args = cross_inputs(b, t, frames, SKETCH_FMAP, torch.bfloat16, gen)
+        g = torch.randn(args[0].shape, generator=gen, device="cuda").to(torch.bfloat16)
+        _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **dkw)
+        _, ds, mix, *_ = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **dkw)
+        bwd_bounds = cross_bwd_bounds(kcross, b, t, frames, mask, torch.bfloat16)
+        bounds = {"cross": cross_bound(kcross, b, t, frames, mask, torch.bfloat16),
+                  "cross_bwd_q": bwd_bounds["bwd_q"], "cross_bwd_kv": bwd_bounds["bwd_kv"]}
+        for kname, call, plain, plain_args in (
+            ("cross", lambda k, **o: k.sparse_cross_2dna_fwd(*args, mask, **o),
+             kcross.sparse_cross_2dna_fwd_plain, (*args, mask)),
+            ("cross_bwd_q", lambda k, **o: k.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **o),
+             kcross.sparse_cross_2dna_bwd_q_plain, (*args, mask, g, lse)),
+            ("cross_bwd_kv", lambda k, **o: k.sparse_cross_2dna_bwd_kv(args[0], g, ds, mix, **o),
+             kcross.sparse_cross_2dna_bwd_kv_plain, (args[0], g, ds, mix)),
+        ):
+            ms = device_ms(lambda: call(kcross, **dkw))
+            base = device_ms(lambda: call(kcross, **kw))
+            plain_ms = device_ms(lambda: plain(*plain_args, **dkw), iters=5)
+            bound, by = bounds[kname]
+            rows[kname, name].update(ms=ms, no_dropout_ms=base, plain_ms=plain_ms,
+                                     bound_ms=bound, bound_by=by)
+            print(f"{CROSS_WRAPPERS[kname]} dropout {DROP_RATE} {name} "
+                  f"bf16 b={b} t={t}: kernel {ms:.4f} ms (device), {base:.4f} ms without "
+                  f"dropout ({100 * (ms / base - 1):+.1f}%), plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.6f} ms ({by})", flush=True)
+        del args, g, lse, ds, mix
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2545,7 +2686,7 @@ def main():
     sketch, short, inputs, cross_launches, sketch_fwd = serve_sketch(NUWASketch, VQGanVAE, knda)
     sketch_against_cpu(NUWASketch, VQGanVAE)
     phase("NUWASketch serving")
-    sketch_train_launches = train_sketch(NUWASketch, VQGanVAE, knda)
+    sketch_train_launches, sketch_train_ms = train_sketch(NUWASketch, VQGanVAE, knda)
     sketch_train_against_cpu(NUWASketch, VQGanVAE)
     phase("NUWASketch training")
     rb_errs = check_rb(knda)
@@ -2584,6 +2725,14 @@ def main():
           f"({100 * (drop_dual['ms'] / dual_train['ms'] - 1):+.1f}%), peak memory "
           f"{drop_dual['peak_gib']:.2f} against {dual_train['peak_gib']:.2f} GiB", flush=True)
     dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=DROP_RATE)
+    drop_sketch_launches, drop_sketch_ms = train_sketch(NUWASketch, VQGanVAE, knda,
+                                                        dropout=DROP_RATE)
+    for variant, ms in drop_sketch_ms.items():
+        base = sketch_train_ms[variant]
+        print(f"sketch train step ({variant}) with attn_dropout = ff_dropout = {DROP_RATE}: "
+              f"{ms:.1f} ms against {base:.1f} ms without ({100 * (ms / base - 1):+.1f}%)",
+              flush=True)
+    sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=DROP_RATE)
     phase("training with attention and feed-forward dropout")
     throughput(model, texts)
     device_share(model, texts)
@@ -2604,6 +2753,8 @@ def main():
                     "bwd_kv": 0}
     sketch_train_total = {k: sketch_train_launches[1][k] + sketch_train_launches[2][k]
                           for k in sketch_train_launches[1]}
+    drop_sketch_total = {k: drop_sketch_launches[1][k] + drop_sketch_launches[2][k]
+                         for k in drop_sketch_launches[1]}
     fmap32_launches = {"fwd": serve128_launches, "bwd_q": 0, "bwd_kv": 0}
     entries = []
     for name, source, line, rb_line, err in (
@@ -2623,7 +2774,7 @@ def main():
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
             "launches": (serve_counts[name] + train_launches[name] + sketch_train_total[name]
                          + rb_launches + dual_train_launches[name] + drop128_launches[name]
-                         + drop_dual_launches[name]),
+                         + drop_dual_launches[name] + drop_sketch_total[name]),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             # causal windows (the video decoder), centered ones (the sketch encoder)
@@ -2680,25 +2831,47 @@ def main():
         row = drop_rows[name, "causal, fmap 16"]
         entry["dropout"] = {
             "rate": DROP_RATE,
-            "launches": drop128_launches[f"{name}_dropout"] + drop_dual_launches[f"{name}_dropout"],
-            "max_abs_err": max(drop_rows[name, shape]["max_abs_err"] for shape in DROPOUT_SHAPES),
+            "launches": (drop128_launches[f"{name}_dropout"]
+                         + drop_dual_launches[f"{name}_dropout"]
+                         + drop_sketch_total[f"{name}_dropout"]),
+            "max_abs_err": max(drop_rows[name, shape]["max_abs_err"]
+                               for shape in DROPOUT_SHAPES),
             **{k: row[k] for k in timed_keys}, "library_ms": None,
             "shapes": {shape: {k: drop_rows[name, shape][k]
                                for k in ("b", "t", "max_abs_err", *timed_keys)}
                        for shape in DROPOUT_SHAPES},
         }
+    # the cross kernels' dropout (the sketch training runs with attn_dropout =
+    # ff_dropout = DROP_RATE): its launches there, the times at the entry's
+    # own shape and under "shapes" at the others of CROSS_DROPOUT_SHAPES
+    def cross_dropout(kname, timed_at, shapes, launches):
+        return {
+            "rate": DROP_RATE, "launches": launches,
+            "max_abs_err": max(drop_rows[kname, shape]["max_abs_err"] for shape in shapes),
+            **{k: drop_rows[kname, timed_at][k] for k in timed_keys}, "library_ms": None,
+            "shapes": {shape: {k: drop_rows[kname, shape][k]
+                               for k in ("b", "t", "context_frames", "max_abs_err",
+                                         *timed_keys)}
+                       for shape in shapes},
+        }
+
     # one CUDA kernel replaces both fused TPU kernels: at two context frames
     # (_xfused_kernel) and at one (_xfused1_kernel)
     for frames, line in ((2, 2731), (1, 2810)):
         row = cross_rows[frames]
+        lc = f"Lc {frames * SKETCH_FMAP**2}"
         entries.append({
             "name": "sparse_cross_2dna_fwd", "context_frames": frames, "route": "cuda",
             "source": "nuwa_tpu_torch/kernels/csrc/sparse_cross2dna_fwd.cu",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
-            "launches": cross_launches[frames] + sketch_train_launches[frames]["cross"],
+            "launches": (cross_launches[frames] + sketch_train_launches[frames]["cross"]
+                         + drop_sketch_launches[frames]["cross"]),
             "max_abs_err": cross_err[frames],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
+            "dropout": cross_dropout("cross", f"forward, {lc}", (f"forward, {lc}",
+                                                                 f"train, {lc}"),
+                                     drop_sketch_launches[frames]["cross_dropout"]),
         })
     # two CUDA kernels replace the fused cross backward; times at Lc 256
     # (model (a), one context frame), and at Lc 512 (model (b)) beside them
@@ -2709,12 +2882,14 @@ def main():
             "name": f"sparse_cross_2dna_{name}", "route": "cuda",
             "source": f"nuwa_tpu_torch/kernels/csrc/{source}",
             "replaces": "nuwa_tpu/kernels/nda_pallas.py:2879",
-            "launches": sketch_train_total[f"cross_{name}"],
+            "launches": sketch_train_total[f"cross_{name}"] + drop_sketch_total[f"cross_{name}"],
             "max_abs_err": cross_bwd_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "context_frames": 1, "backward_bound_ms": row["backward_bound_ms"],
             "at_context_frames_2": {k: row2[k] for k in ("ms", "plain_ms", "bound_ms",
                                                          "backward_bound_ms")},
+            "dropout": cross_dropout(f"cross_{name}", "train, Lc 256", CROSS_DROPOUT_SHAPES,
+                                     drop_sketch_total[f"cross_{name}_dropout"]),
         })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,21 @@ tensor it runs its ``*_plain`` version, the gather math of the JAX package's
 the differentiable op: a ``torch.autograd.Function`` whose forward is
 ``sparse_cross_2dna_fwd`` and whose backward runs the query side and then
 the key side, as ``_xfused_core_op`` does with its two Pallas kernels.
+
+Attention dropout: every function here takes ``dropout=(rate, seed)``
+(None, a rate of 0 or a seed of None: no dropout, the launch that runs
+without it). The mask is the Sparse3DNA kernels' (``kernels.nda``): inverted
+dropout on the mixed probabilities of the non-bos video queries, after the
+talking-heads mix and before PV, keyed by the counter hash of (seed, batch
+row, head, query, key), the query being the video token after bos (0..t-1),
+the key the context token (frame * HW + y * fmap + x) and the null column's
+key -2, as the fused Pallas kernels key it (``_keep_mask_abs`` at
+nda_pallas.py:2759, :2844 and :2906, the backward's query ids absolute in
+every chunk of query frames). The forward's ``lse`` is the undropped
+softmax's; the query-side backward masks the cotangent of the mix and
+returns the dropped mix, so the key side is the same function with or
+without dropout (its ``dropout`` argument only counts the launch). A
+dropout launch adds one to its wrapper's ``mode_launches["dropout"]``.
 """
 from __future__ import annotations
 
@@ -41,7 +56,7 @@ import functools
 
 import torch
 
-from .nda import _DTYPES, _QUERIES_PER_BLOCK, _gathered, _launch
+from .nda import _DTYPES, _QUERIES_PER_BLOCK, _drop_args, _dropout, _dropped, _gathered, _launch
 
 
 @functools.lru_cache(maxsize=64)
@@ -99,20 +114,22 @@ def _scores(q, k, null_k, tokens, ok):
 
 
 def sparse_cross_2dna_fwd_plain(q, k, v, null_k, null_v, talking_heads, cmask=None,
-                                *, fmap, kernel_size, dilation):
+                                *, fmap, kernel_size, dilation, dropout=None):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
     results as ``sparse_cross_2dna_fwd``."""
+    dropout = _dropout(dropout)
     tokens, ok = _slots(q, fmap, kernel_size, dilation, k.shape[2], cmask)
     sim, _ = _scores(q, k, null_k, tokens, ok)
     lse = torch.logsumexp(sim, dim=-1)
     attn = torch.softmax(sim, dim=-1)
-    attn = torch.einsum("bhij,gh->bgij", attn, talking_heads.float())
+    attn = _dropped(torch.einsum("bhij,gh->bgij", attn, talking_heads.float()), dropout,
+                    tokens)
     out = torch.einsum("bhij,bhijd->bhid", attn, _gathered(v, tokens, null_v))
     return out.to(q.dtype), lse
 
 
 def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
-                          *, fmap, kernel_size, dilation):
+                          *, fmap, kernel_size, dilation, dropout=None):
     """SparseCross2DNA attention of t video queries (the bos query left out)
     over their centered 2D neighbourhoods in every context frame, plus the
     null key/value.
@@ -121,13 +138,15 @@ def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
     whole number of fmap x fmap context frames; null_k, null_v: (b, h, 1, d);
     talking_heads: (h, h); cmask: (b, Lc) bool, True where a context token
     may be attended, or None for all; fmap: the frames' side; kernel_size,
-    dilation: the window's side and step. Returns out (b, h, t, d) in q's
-    dtype and lse (b, h, t) in fp32.
+    dilation: the window's side and step; dropout: (rate, seed) or None.
+    Returns out (b, h, t, d) in q's dtype and lse (b, h, t) in fp32, the
+    undropped softmax's.
     """
+    dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_cross_2dna_fwd_plain(
             q, k, v, null_k, null_v, talking_heads, cmask,
-            fmap=fmap, kernel_size=kernel_size, dilation=dilation,
+            fmap=fmap, kernel_size=kernel_size, dilation=dilation, dropout=dropout,
         )
     th, mask = _check_cuda("sparse_cross_2dna_fwd", q, k, v, null_k, null_v, talking_heads,
                            cmask, fmap=fmap, kernel_size=kernel_size)
@@ -141,13 +160,21 @@ def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
     _launch("sparse_cross2dna_fwd", q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), out.data_ptr(),
              lse.data_ptr()],
-            [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
-    sparse_cross_2dna_fwd.launches += 1
+            [b, h, t, d, lc, fmap, kernel_size, dilation, *_drop_args(dropout)], q.device)
+    _count(sparse_cross_2dna_fwd, dropout)
     return out, lse
 
 
 def _ptr(x):
     return x.data_ptr() if x is not None else None
+
+
+def _count(fn, dropout):
+    """One launch of ``fn``'s kernel: its count and, with dropout, its
+    dropout count."""
+    fn.launches += 1
+    if dropout is not None:
+        fn.mode_launches["dropout"] += 1
 
 
 def _check_cuda(name, q, k, v, null_k, null_v, talking_heads, cmask, *, fmap, kernel_size,
@@ -185,17 +212,19 @@ def _check_cuda(name, q, k, v, null_k, null_v, talking_heads, cmask, *, fmap, ke
 
 
 def sparse_cross_2dna_bwd_q_plain(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
-                                  *, fmap, kernel_size, dilation):
+                                  *, fmap, kernel_size, dilation, dropout=None):
     """Plain PyTorch version of the query-side backward kernel (fp32 math);
     same arguments and results as ``sparse_cross_2dna_bwd_q``."""
+    dropout = _dropout(dropout)
     tokens, ok = _slots(q, fmap, kernel_size, dilation, k.shape[2], cmask)
     qf, gf, th = q.float(), grad.float(), talking_heads.float()
     sim, keys = _scores(q, k, null_k, tokens, ok)
     vals = _gathered(v, tokens, null_v)
     p = torch.exp(sim - lse[..., None])
-    da = torch.einsum("bhid,bhijd->bhij", gf, vals)
+    # the cotangent of the (undropped) mix, and the mix that weighted the values
+    da = _dropped(torch.einsum("bhid,bhijd->bhij", gf, vals), dropout, tokens)
     dp = torch.einsum("bgij,gh->bhij", da, th)  # through the talking-heads mix
-    mix = torch.einsum("bhij,gh->bgij", p, th)
+    mix = _dropped(torch.einsum("bhij,gh->bgij", p, th), dropout, tokens)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))  # through the softmax
     dq = torch.einsum("bhij,bhijd->bhid", ds, keys)
     dth = torch.einsum("bgij,bhij->gh", da, p)
@@ -204,9 +233,11 @@ def sparse_cross_2dna_bwd_q_plain(q, k, v, null_k, null_v, talking_heads, cmask,
     return dq.to(q.dtype), ds, mix, dnull_k, dnull_v, dth
 
 
-def sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel_size, dilation):
+def sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel_size, dilation,
+                                   dropout=None):
     """Plain PyTorch version of the key-side backward kernel (fp32 math);
-    same arguments and results as ``sparse_cross_2dna_bwd_kv``."""
+    same arguments and results as ``sparse_cross_2dna_bwd_kv`` (the ``mix``
+    it is given is the dropped one, so ``dropout`` changes nothing)."""
     b, h, t, d = q.shape
     frames = (ds.shape[-1] - 1) // kernel_size**2
     lc = frames * fmap * fmap
@@ -221,19 +252,21 @@ def sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel_size, dilat
 
 
 def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
-                            *, fmap, kernel_size, dilation):
+                            *, fmap, kernel_size, dilation, dropout=None):
     """Query side of the SparseCross2DNA backward.
 
-    Takes the forward's arguments, its output cotangent ``grad`` (b, h, t, d,
-    q's dtype) and its ``lse``. Returns dq (q's dtype), dS and the mixed
-    probabilities mix (both (b, h, t, Fc * k * k + 1) fp32, slot 0 being the
-    null key, a masked or out-of-frame slot 0 in both), dnull_k and dnull_v
-    (b, h, 1, d) fp32, one sum per batch row, and dth (h, h) fp32.
+    Takes the forward's arguments (its dropout too), its output cotangent
+    ``grad`` (b, h, t, d, q's dtype) and its ``lse``. Returns dq (q's dtype),
+    dS and the mixed probabilities mix, dropped with dropout (both (b, h, t,
+    Fc * k * k + 1) fp32, slot 0 being the null key, a masked or
+    out-of-frame slot 0 in both), dnull_k and dnull_v (b, h, 1, d) fp32, one
+    sum per batch row, and dth (h, h) fp32.
     """
+    dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_cross_2dna_bwd_q_plain(
             q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
-            fmap=fmap, kernel_size=kernel_size, dilation=dilation,
+            fmap=fmap, kernel_size=kernel_size, dilation=dilation, dropout=dropout,
         )
     b, h, t, d = q.shape
     lc = k.shape[2]
@@ -257,8 +290,8 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  partial.data_ptr()],
-                [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
-        sparse_cross_2dna_bwd_q.launches += 1
+                [b, h, t, d, lc, fmap, kernel_size, dilation, *_drop_args(dropout)], q.device)
+        _count(sparse_cross_2dna_bwd_q, dropout)
     sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
     dth = sums[:, :hh].sum(dim=0).view(h, h)
     dnull_k = sums[:, hh:hh + hd].reshape(b, h, 1, d)
@@ -266,11 +299,15 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
     return dq, ds, mix, dnull_k, dnull_v, dth
 
 
-def sparse_cross_2dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel_size, dilation):
+def sparse_cross_2dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel_size, dilation,
+                             dropout=None):
     """Key side of the SparseCross2DNA backward: dk and dv (b, h, Lc, d,
     q's dtype) from q, the output cotangent ``grad`` and the ``ds`` and
     ``mix`` that ``sparse_cross_2dna_bwd_q`` returned (Lc follows from their
-    slots)."""
+    slots). Those carry the forward's dropout, so the function is the same
+    with or without it; ``dropout`` only counts the launch as a dropout
+    launch."""
+    dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_cross_2dna_bwd_kv_plain(
             q, grad, ds, mix, fmap=fmap, kernel_size=kernel_size, dilation=dilation
@@ -302,22 +339,27 @@ def sparse_cross_2dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel_size, dilation):
         _launch("sparse_cross2dna_bwd_kv", q.dtype,
                 [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
                 [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
-        sparse_cross_2dna_bwd_kv.launches += 1
+        _count(sparse_cross_2dna_bwd_kv, dropout)
     return dk, dv
 
 
-# kernel launches since each count was last reset
-sparse_cross_2dna_fwd.launches = 0
-sparse_cross_2dna_bwd_q.launches = 0
-sparse_cross_2dna_bwd_kv.launches = 0
+def reset_launches():
+    """Set every kernel's launch count, and its count with dropout, to 0."""
+    for fn in (sparse_cross_2dna_fwd, sparse_cross_2dna_bwd_q, sparse_cross_2dna_bwd_kv):
+        fn.launches = 0
+        fn.mode_launches = {"dropout": 0}
+
+
+# kernel launches since the counts were last reset, in all and with dropout
+reset_launches()
 
 
 def sparse_cross_2dna_bwd(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
-                          *, fmap, kernel_size, dilation):
+                          *, fmap, kernel_size, dilation, dropout=None):
     """The whole SparseCross2DNA backward: the query side, then the key side.
     Returns dq, dk, dv (q's dtype), dnull_k, dnull_v ((b, h, 1, d), one sum
     per batch row) and dth (h, h), the last three in fp32."""
-    geo = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation)
+    geo = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation, dropout=dropout)
     dq, ds, mix, dnull_k, dnull_v, dth = sparse_cross_2dna_bwd_q(
         q, k, v, null_k, null_v, talking_heads, cmask, grad, lse, **geo
     )
@@ -326,9 +368,9 @@ def sparse_cross_2dna_bwd(q, k, v, null_k, null_v, talking_heads, cmask, grad, l
 
 
 def sparse_cross_2dna_bwd_plain(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
-                                *, fmap, kernel_size, dilation):
+                                *, fmap, kernel_size, dilation, dropout=None):
     """``sparse_cross_2dna_bwd`` from the plain versions of its two kernels."""
-    geo = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation)
+    geo = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation, dropout=dropout)
     dq, ds, mix, dnull_k, dnull_v, dth = sparse_cross_2dna_bwd_q_plain(
         q, k, v, null_k, null_v, talking_heads, cmask, grad, lse, **geo
     )
@@ -341,30 +383,33 @@ class SparseCross2DNAFunction(torch.autograd.Function):
     beside its inputs; the backward recomputes the probabilities query-side
     and gathers dk and dv key-side. The null key/value gradients come back
     per batch row, and autograd sums them through the ``expand`` that made
-    the (b, h, 1, d) null rows from the parameters."""
+    the (b, h, 1, d) null rows from the parameters. The dropout (rate, seed)
+    is kept beside the geometry: the backward draws the forward's mask again
+    from it."""
 
     @staticmethod
-    def forward(ctx, q, k, v, null_k, null_v, talking_heads, cmask, geometry):
+    def forward(ctx, q, k, v, null_k, null_v, talking_heads, cmask, geometry, dropout):
         out, lse = sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask,
-                                         **geometry)
+                                         dropout=dropout, **geometry)
         ctx.save_for_backward(q, k, v, null_k, null_v, talking_heads, cmask, lse)
-        ctx.geometry = geometry
+        ctx.geometry, ctx.dropout = geometry, dropout
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, null_k, null_v, th, cmask, lse = ctx.saved_tensors
         dq, dk, dv, dnull_k, dnull_v, dth = sparse_cross_2dna_bwd(
-            q, k, v, null_k, null_v, th, cmask, grad.to(q.dtype), lse, **ctx.geometry
+            q, k, v, null_k, null_v, th, cmask, grad.to(q.dtype), lse, dropout=ctx.dropout,
+            **ctx.geometry
         )
         return (dq, dk, dv, dnull_k.to(null_k.dtype), dnull_v.to(null_v.dtype),
-                dth.to(th.dtype), None, None)
+                dth.to(th.dtype), None, None, None)
 
 
 def sparse_cross_2dna(q, k, v, null_k, null_v, talking_heads, cmask=None,
-                      *, fmap, kernel_size, dilation):
+                      *, fmap, kernel_size, dilation, dropout=None):
     """``sparse_cross_2dna_fwd``'s output, differentiable in every tensor
-    argument but the mask."""
+    argument but the mask, with or without dropout ((rate, seed) or None)."""
     geometry = dict(fmap=fmap, kernel_size=kernel_size, dilation=dilation)
     return SparseCross2DNAFunction.apply(q, k, v, null_k, null_v, talking_heads, cmask,
-                                         geometry)
+                                         geometry, _dropout(dropout))

@@ -1,5 +1,7 @@
 // Attention dropout of the Sparse3DNA kernels (sparse3dna_fwd.cu and
-// sparse3dna_bwd_q.cu), one counter hash for both.
+// sparse3dna_bwd_q.cu) and of the SparseCross2DNA kernels
+// (sparse_cross2dna_fwd.cu and sparse_cross2dna_bwd_q.cu), one counter hash
+// for all four.
 //
 // The mask is inverted dropout on the mixed probabilities (after the
 // talking-heads mix, before PV): a (head, query, slot) factor that is the
@@ -17,8 +19,13 @@
 //
 // with h the splitmix32 avalanche of `_hash_u32` (nda_pallas.py:63-67),
 // query and key the token ids after bos (0..t-1) and the bos column's key
-// id the sentinel -2 as uint32. The wrapper computes thresh =
-// round((1 - keep) * 2^32) and the scale in Python, as the JAX package does.
+// id the sentinel -2 as uint32. In the cross kernels the query is the video
+// token after bos (0..t-1) and the key the context token, frame * HW +
+// y * fmap + x, which is what their neighbour list holds, so `slot_key`
+// serves them too; their null column takes the bos column's -2, as the
+// Pallas kernels key it (nda_pallas.py:2759, :2844, :2906). The wrapper
+// computes thresh = round((1 - keep) * 2^32) and the scale in Python, as
+// the JAX package does.
 #pragma once
 
 #include <cstdint>
@@ -52,8 +59,9 @@ __device__ __forceinline__ float keep_factor(const Dropout& dp, uint32_t stream,
   return avalanche(e ^ stream) >= dp.thresh ? dp.scale : 0.f;
 }
 
-// The key id of slot j of a query whose neighbours are nb (slot 0 is bos; a
-// neighbour of -1, outside the grid, has probability 0, so its id is moot).
+// The key id of slot j of a query whose neighbours are nb (slot 0 is bos, or
+// the cross kernels' null column; a neighbour of -1, outside the grid or
+// masked, has probability 0, so its id is moot).
 __device__ __forceinline__ uint32_t slot_key(const int* nb, int j) {
   return j == 0 ? kBosKey : static_cast<uint32_t>(nb[j - 1]);
 }

@@ -1,4 +1,5 @@
-// SparseCross2DNA backward, key side (no dropout) for Hopper, sm_90a.
+// SparseCross2DNA backward, key side (with or without attention dropout)
+// for Hopper, sm_90a.
 //
 // With sparse_cross2dna_bwd_q.cu, replaces the fused cross backward
 // `_xfused_bwd_kernel` of nuwa_tpu/kernels/nda_pallas.py (launched by
@@ -9,7 +10,12 @@
 //   dV = sum A[query, slot] * g[query]
 //
 // per head, from the fp32 (b, h, t, Fc*k*k + 1) tensors dS and A (the mixed
-// probabilities) that the query-side kernel wrote. The TPU kernel summed dk
+// probabilities) that the query-side kernel wrote. With attention dropout
+// that kernel writes the dropped A, the probabilities that weighted the
+// values, and a dS that already carries the mask, so this kernel is the same
+// function with or without dropout and takes no dropout argument (the fused
+// Pallas backward masks its recomputed mix for dv instead:
+// nda_pallas.py:3012). The TPU kernel summed dk
 // and dv in VMEM scratch over its sequential chunks of query frames, one
 // grid step per batch row; Hopper's blocks run in no order, so each key
 // gathers its own sums instead, and no atomics are needed.

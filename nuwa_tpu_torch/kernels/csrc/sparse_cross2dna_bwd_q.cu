@@ -1,4 +1,5 @@
-// SparseCross2DNA backward, query side (no dropout) for Hopper, sm_90a.
+// SparseCross2DNA backward, query side (with or without attention dropout)
+// for Hopper, sm_90a.
 //
 // With sparse_cross2dna_bwd_kv.cu, replaces the fused cross backward
 // `_xfused_bwd_kernel` of nuwa_tpu/kernels/nda_pallas.py (launched by
@@ -16,6 +17,19 @@
 //   rho[b]   = sum_j P[b, j] * dP[b, j]
 //   dS[b, j] = P[b, j] * (dP[b, j] - rho[b]) (through the softmax)
 //   A[a, j]  = sum_b th[a, b] * P[b, j]      (the forward's mixed probs)
+//
+// With attention dropout the forward weighted the values by the dropped
+// mixed probabilities D[a, j] = A[a, j] * z[a, j], z the keep factor of
+// sparse3dna_dropout.cuh (the fp32 scale 1 / keep or 0, keyed by the seed,
+// the batch row, the head, the absolute query and the context token, the
+// null column's key -2), so the cotangent of the mix is dA[a, j] * z[a, j]:
+// the kernel multiplies dA by z as it forms it, and every term above that
+// reads dA (dP, hence rho and dS; dth) follows, dq and the null-key
+// cotangent through dS. The A it writes, and dnull_v and the key side's dv
+// read, is D: the probabilities that weighted the values. (The Pallas
+// kernel masks dA and the recomputed mix the same way, nda_pallas.py:2983,
+// :2994, :3012, :3026, with the query ids of each chunk offset by its first
+// row.)
 //
 // It writes dq = sum_j dS[., j] k_j (null included), and dS and A as fp32
 // (b, h, t, Fc*k*k + 1) tensors for the key-side kernel, which gathers them
@@ -52,6 +66,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sparse3dna_dropout.cuh"
 
 namespace {
 
@@ -93,15 +109,16 @@ __device__ __forceinline__ float row_dot(const float (&x)[kMaxR], const T* row, 
 }
 
 // grid (ceil(t / kQueriesPerBlock), b), block 32 * heads: warp w handles
-// head w of each of the block's queries in turn.
-template <typename T>
+// head w of each of the block's queries in turn. kDrop: with attention
+// dropout (false compiles none of the dropout code).
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ null_k, const T* __restrict__ null_v,
     const float* __restrict__ th, const unsigned char* __restrict__ cmask,
     const T* __restrict__ gout, const float* __restrict__ lse, T* __restrict__ dq,
     float* __restrict__ ds_out, float* __restrict__ mix_out, float* __restrict__ partial,
-    int heads, int d, Geometry g) {
+    int heads, int d, Geometry g, Dropout drop) {
   extern __shared__ float smem[];
   const int hw = g.fmap * g.fmap;
   const int kk = g.k * g.k;
@@ -113,7 +130,8 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
   float* s_da = s_p + heads * slots;         // (heads, slots) dA
   float* s_ds = s_da + heads * slots;        // (heads, slots) dP, then dS
   float* s_mix = s_ds + heads * slots;       // (heads, slots) mixed probs
-  int* s_nb = reinterpret_cast<int*>(s_mix + heads * slots);  // (kn) token or -1
+  float* s_keep = s_mix + heads * slots;     // (heads, slots) keep factors, with dropout
+  int* s_nb = reinterpret_cast<int*>(s_keep + (kDrop ? heads * slots : 0));  // (kn)
 
   const int bi = blockIdx.y;
   const int warp = threadIdx.x >> 5;
@@ -124,6 +142,8 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
   const T* vplane = v + row * g.lc * d;
   const T* nk = null_k + row * d;
   const T* nv = null_v + row * d;
+  const uint32_t row_stream = kDrop ? drop_stream(drop, bi) : 0u;
+  float* keep = s_keep + h * slots;  // this head's keep factors, with dropout
 
   for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) {
     s_th[x] = th[x];
@@ -164,6 +184,11 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
       gr[r] = e < d ? to_f(gout[qoff + e]) : 0.f;
     }
     const float m = lse[row * g.t + i];
+    if (kDrop) {
+      for (int j = lane; j < slots; j += 32)
+        keep[j] = keep_factor(drop, row_stream, h, i, slot_key(s_nb, j));
+      __syncwarp();
+    }
 
     // ---- P and dA of this head, one warp-wide dot product each ----------
     float* p = s_p + h * slots;
@@ -173,7 +198,7 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
       const float a = row_dot(gr, nv, lane, d);
       if (lane == 0) {
         p[0] = expf(sc - m);
-        da[0] = a;
+        da[0] = kDrop ? a * keep[0] : a;
       }
     }
     for (int j = 0; j < kn; ++j) {
@@ -185,7 +210,7 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
       }
       if (lane == 0) {
         p[1 + j] = pj;
-        da[1 + j] = aj;
+        da[1 + j] = kDrop ? aj * keep[1 + j] : aj;
       }
     }
     __syncthreads();  // every head's P and dA
@@ -201,7 +226,7 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_q_kernel(
         mx += s_th[h * heads + a] * s_p[a * slots + j];
       }
       dsr[j] = dp;
-      mixr[j] = mx;
+      mixr[j] = kDrop ? mx * keep[j] : mx;
       rho += p[j] * dp;
     }
     rho = warp_sum(rho);
@@ -270,23 +295,26 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* null_k,
            const void* null_v, const float* th, const unsigned char* cmask, const void* gout,
            const float* lse, void* dq, float* ds, float* mix, float* partial, int b,
-           int heads, int d, Geometry g, cudaStream_t stream) {
+           int heads, int d, Geometry g, Dropout drop, cudaStream_t stream) {
   const int kn = (g.lc / (g.fmap * g.fmap)) * g.k * g.k;
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(heads) * heads +
-                                       4 * static_cast<size_t>(heads) * (kn + 1)) +
-                      sizeof(int) * kn;
+  const size_t smem =
+      sizeof(float) * (2 * static_cast<size_t>(heads) * heads +
+                       (drop.on ? 5 : 4) * static_cast<size_t>(heads) * (kn + 1)) +
+      sizeof(int) * kn;
+  const auto kernel = drop.on ? sparse_cross2dna_bwd_q_kernel<T, true>
+                              : sparse_cross2dna_bwd_q_kernel<T, false>;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(sparse_cross2dna_bwd_q_kernel<T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((g.t + kQueriesPerBlock - 1) / kQueriesPerBlock, b);
   const dim3 block(32 * heads);
-  sparse_cross2dna_bwd_q_kernel<T><<<grid, block, smem, stream>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(null_k), static_cast<const T*>(null_v), th, cmask,
-      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g);
+      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g,
+      drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -301,22 +329,26 @@ extern "C" {
 // (b, heads, t, lc / (fmap * fmap) * ksize * ksize + 1) fp32; partial
 // (b, ceil(t / 4), heads*heads + 2*heads*d) fp32, every slot written: per
 // block [dth | dnull_k | dnull_v] over its 4 queries, for the caller to sum
-// over the block axis.
+// over the block axis; drop 1 for the forward's attention dropout with its
+// seed, threshold and fp32 scale (sparse3dna_dropout.cuh), 0 for none: mix
+// is then the dropped mix.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse_cross2dna_bwd_q(int dtype, const void* q, const void* k, const void* v,
                                 const void* null_k, const void* null_v, const float* th,
                                 const unsigned char* cmask, const void* gout,
                                 const float* lse, void* dq, float* ds, float* mix,
                                 float* partial, int b, int heads, int t, int d, int lc,
-                                int fmap, int ksize, int dil, void* stream) {
+                                int fmap, int ksize, int dil, int drop, unsigned int seed,
+                                unsigned int thresh, float scale, void* stream) {
   const Geometry g{t, lc, fmap, ksize, dil};
+  const Dropout dp{drop, seed, thresh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, null_k, null_v, th, cmask, gout, lse, dq, ds, mix, partial,
-                         b, heads, d, g, s);
+                         b, heads, d, g, dp, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, null_k, null_v, th, cmask, gout, lse, dq, ds, mix,
-                                 partial, b, heads, d, g, s);
+                                 partial, b, heads, d, g, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

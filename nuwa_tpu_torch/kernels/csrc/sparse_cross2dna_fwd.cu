@@ -1,4 +1,5 @@
-// SparseCross2DNA forward (no dropout) for Hopper, sm_90a.
+// SparseCross2DNA forward (with or without attention dropout) for Hopper,
+// sm_90a.
 //
 // Replaces the fused cross kernels of nuwa_tpu/kernels/nda_pallas.py:
 // `_xfused_kernel` (two or more context frames) and `_xfused1_kernel` (one
@@ -10,9 +11,18 @@
 // k x k window of step `dil` around (y, x), where the window lies inside the
 // frame and the runtime context mask allows the key; the softmax is fp32;
 // the normalised probabilities are mixed across heads by the talking-heads
-// matrix (null column included) before they weight the values. It writes
-// `out` (in the inputs' type) and the per-row logsumexp `lse` (fp32), the
-// residual a flash-style backward consumes.
+// matrix (null column included) before they weight the values. With
+// dropout on, each mixed probability, the null column's included, is
+// multiplied by its keep factor (sparse3dna_dropout.cuh: the fp32 scale
+// 1 / keep or 0, hashed from the seed, the batch row, the head, the query
+// and the context token, the null column's key -2) before PV, as the Pallas
+// kernels drop after the mix (nda_pallas.py:2759, :2844). Every value row
+// is still read: skipping those of pairs a head drops, as the Sparse3DNA
+// forward does, puts a shared-memory test before each value row's load,
+// which measured slower here on an H100 (dropout cost +14-20% of the time
+// without it, against +4-7% reading every row). It writes `out` (in the
+// inputs' type) and the per-row logsumexp `lse` (fp32, the undropped
+// softmax's), the residual a flash-style backward consumes.
 //
 // What bounds it on the card: memory. Per query and head it does about
 // 4*(Fc*k*k+1)*d operations (19 keys at Fc = 2, k = 3), while the bytes that
@@ -43,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "sparse3dna_dropout.cuh"
 
 namespace {
 
@@ -76,12 +88,14 @@ struct Geometry {
 };
 
 // grid (t, b), block 32 * heads: warp w handles head w of one query token.
-template <typename T>
+// kDrop: with attention dropout (false compiles none of the dropout code).
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(1024) sparse_cross2dna_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ null_k, const T* __restrict__ null_v,
     const float* __restrict__ th, const unsigned char* __restrict__ cmask,
-    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g) {
+    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g,
+    Dropout drop) {
   extern __shared__ float smem[];
   const int hw = g.fmap * g.fmap;
   const int kk = g.k * g.k;
@@ -174,11 +188,13 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_fwd_kernel(
   if (lane == 0) lse[row * g.t + i] = m + logf(den);
   __syncthreads();
 
-  // ---- talking heads: mixed[h, j] = sum_h2 th[h, h2] * p[h2, j] --------
+  // ---- talking heads: mixed[h, j] = sum_h2 th[h, h2] * p[h2, j], dropped
   float* mix = s_mix + h * slots;
+  const uint32_t row_stream = kDrop ? drop_stream(drop, bi) : 0u;
   for (int j = lane; j < slots; j += 32) {
     float acc = 0.f;
     for (int h2 = 0; h2 < heads; ++h2) acc += s_th[h * heads + h2] * s_p[h2 * slots + j];
+    if (kDrop) acc *= keep_factor(drop, row_stream, h, i, slot_key(s_nb, j));
     mix[j] = acc;
   }
   __syncwarp();
@@ -216,23 +232,25 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_fwd_kernel(
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* null_k,
            const void* null_v, const float* th, const unsigned char* cmask, void* out,
-           float* lse, int b, int heads, int d, Geometry g, cudaStream_t stream) {
+           float* lse, int b, int heads, int d, Geometry g, Dropout drop,
+           cudaStream_t stream) {
   const int kn = (g.lc / (g.fmap * g.fmap)) * g.k * g.k;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(heads) * heads + 2 * heads * (kn + 1)) +
       sizeof(int) * kn;
+  const auto kernel = drop.on ? sparse_cross2dna_fwd_kernel<T, true>
+                              : sparse_cross2dna_fwd_kernel<T, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        sparse_cross2dna_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(g.t, b);
   const dim3 block(32 * heads);
-  sparse_cross2dna_fwd_kernel<T><<<grid, block, smem, stream>>>(
+  kernel<<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(null_k), static_cast<const T*>(null_v), th, cmask,
-      static_cast<T*>(out), lse, heads, d, g);
+      static_cast<T*>(out), lse, heads, d, g, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -243,20 +261,25 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, out
 // (b, heads, t, d); k, v (b, heads, lc, d); null_k, null_v (b, heads, 1, d);
 // th (heads, heads) fp32; cmask (b, lc) bytes, nonzero where a context token
-// may be attended, or null for all; lse (b, heads, t) fp32.
+// may be attended, or null for all; lse (b, heads, t) fp32; drop 1 for
+// attention dropout with the hash's seed, its threshold and the fp32 scale
+// 1 / keep (sparse3dna_dropout.cuh), 0 for none.
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse_cross2dna_fwd(int dtype, const void* q, const void* k, const void* v,
                               const void* null_k, const void* null_v, const float* th,
                               const unsigned char* cmask, void* out, float* lse, int b,
                               int heads, int t, int d, int lc, int fmap, int ksize,
-                              int dil, void* stream) {
+                              int dil, int drop, unsigned int seed, unsigned int thresh,
+                              float scale, void* stream) {
   const Geometry g{t, lc, fmap, ksize, dil};
+  const Dropout dp{drop, seed, thresh, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, null_k, null_v, th, cmask, out, lse, b, heads, d, g, s);
+    return launch<float>(q, k, v, null_k, null_v, th, cmask, out, lse, b, heads, d, g, dp,
+                         s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, null_k, null_v, th, cmask, out, lse, b, heads,
-                                 d, g, s);
+                                 d, g, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -291,8 +291,8 @@ def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="
 def _library(name):
     """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
     an int dtype, pointers, then ints (b, heads, t, d and the geometry), the
-    Sparse3DNA forward's and query side's dropout (on, seed, threshold,
-    scale), then the stream."""
+    forward's and the query side's dropout (on, seed, threshold, scale),
+    then the stream."""
     pointers, ints = {
         "sparse3dna_fwd": (9, 13),
         "sparse3dna_bwd_q": (13, 13),
@@ -302,7 +302,7 @@ def _library(name):
         "sparse_cross2dna_bwd_kv": (6, 8),
     }[name]
     drop = ([ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
-            if name in ("sparse3dna_fwd", "sparse3dna_bwd_q") else [])
+            if not name.endswith("_bwd_kv") else [])
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")
     fn.argtypes = (

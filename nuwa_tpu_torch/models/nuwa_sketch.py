@@ -13,12 +13,12 @@ sees (the JAX package's fix of the reference). Entry points: ``forward``
 ``generate_long``, with classifier-free guidance. Training is ``forward``
 with ``return_loss=True, train=True`` and ``loss.backward()``, through the
 kernels' backward on the card, with the AdamW of ``train.get_optimizer``,
-as the JAX package trains it (no trainer class). The model lives on one
-device, ``cuda`` unless the caller names another.
+as the JAX package trains it (no trainer class); ``attn_dropout`` and
+``ff_dropout`` act in every attention and feed-forward of both stacks in
+training only. The model lives on one device, ``cuda`` unless the caller
+names another.
 
-Not taken: ``method="full"``, the parallel meshes, and dropout: an
-``attn_dropout`` or ``ff_dropout`` above 0 raises, until the dropout mode of
-the SparseCross2DNA kernels is ported.
+Not taken: ``method="full"`` and the parallel meshes.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
 from .common import cached_ar_rollout, ids_to_output, long_frame_decoder
-from .nuwa import cross_entropy
+from .nuwa import cross_entropy, dropout_seeds
 
 
 def _dilations(d):
@@ -53,10 +53,6 @@ class NUWASketch(nn.Module):
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
                  attn_dropout=0.0, ff_dropout=0.0, compute_dtype=None, device=None, seed=0):
         super().__init__()
-        if attn_dropout > 0 or ff_dropout > 0:
-            raise NotImplementedError(
-                "NUWASketch dropout: the SparseCross2DNA kernels' dropout mode "
-                "(nuwa_tpu/kernels/nda_pallas.py:2759, :2844, :2906) is not ported yet")
         device = resolve_device(device)
         fmap = image_size // 2**vae.num_layers
         if image_size // 2**sketch_vae.num_layers != fmap:
@@ -75,11 +71,13 @@ class NUWASketch(nn.Module):
         self.tokens_per_frame = fmap * fmap
         self.max_video_tokens = max_video_frames * self.tokens_per_frame
         self.dtype = getattr(torch, compute_dtype) if compute_dtype else None
+        self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         video_shape = (max_video_frames, fmap, fmap)
-        sparse_3dna = dict(
+        stack = dict(  # both stacks' Sparse3DNA, token shift and dropout
             shift_video_tokens=shift_video_tokens,
             sparse_3dna_kernel_size=sparse_3dna_kernel_size,
             sparse_3dna_dilations=_dilations(sparse_3dna_dilation),
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout,
         )
 
         with torch.device(device):
@@ -90,7 +88,7 @@ class NUWASketch(nn.Module):
             self.sketch_transformer = (ReversibleTransformer if enc_reversible else Transformer)(
                 dim=dim, depth=sketch_enc_depth, heads=sketch_enc_heads,
                 dim_head=sketch_enc_dim_head, sparse_3dna_attn=sketch_enc_use_sparse_3dna,
-                sparse_3dna_video_shape=(sketch_max_video_frames, fmap, fmap), **sparse_3dna,
+                sparse_3dna_video_shape=(sketch_max_video_frames, fmap, fmap), **stack,
             )
             self.video_bos = nn.Parameter(torch.empty(dim))
             self.image_embedding = Embedding(vae.codebook_size, dim, embed_gradient_frac)
@@ -100,7 +98,7 @@ class NUWASketch(nn.Module):
                 causal=True, cross_attend=True, cross_2dna_attn=True,
                 cross_2dna_image_size=fmap, cross_2dna_kernel_size=cross_2dna_kernel_size,
                 cross_2dna_dilations=_dilations(cross_2dna_dilation),
-                sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape, **sparse_3dna,
+                sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape, **stack,
             )
             self.to_logits = nn.Parameter(torch.empty(dim, vae.codebook_size))
         init_weights_(self, seed, skip=(self.vae, self.sketch_vae))
@@ -118,10 +116,11 @@ class NUWASketch(nn.Module):
 
     # ---- sketch encoder ---------------------------------------------------
 
-    def embed_sketch(self, sketch, mask=None, *, train=False):
+    def embed_sketch(self, sketch, mask=None, *, train=False, seed=None):
         """sketch (b, f, c, h, w) pixels, or (b, c, h, w) for one frame;
-        mask (b, f) bool, False for a padded sketch frame. Returns the
-        encoded sketch tokens (b, f * HW, dim) and their mask (b, f * HW)."""
+        mask (b, f) bool, False for a padded sketch frame; seed: the sketch
+        encoder's dropout seed, or None. Returns the encoded sketch tokens
+        (b, f * HW, dim) and their mask (b, f * HW)."""
         sketch = self._pixels(sketch)
         if sketch.ndim == 4:
             sketch = sketch[:, None]
@@ -142,7 +141,7 @@ class NUWASketch(nn.Module):
             token_mask = mask.repeat_interleave(n // frames, dim=1)
         else:
             token_mask = torch.ones(b, n, dtype=torch.bool, device=self.device)
-        return self.sketch_transformer(tokens, mask=token_mask), token_mask
+        return self.sketch_transformer(tokens, mask=token_mask, seed=seed), token_mask
 
     def _sketch_context(self, sketch, sketch_mask, use_cfg):
         """The decoder's context and its mask; under classifier-free guidance
@@ -154,16 +153,19 @@ class NUWASketch(nn.Module):
 
     # ---- decoder core -----------------------------------------------------
 
-    def _decode_logits(self, frame_indices_input, sketch_embeds, context_mask, *, train=False):
+    def _decode_logits(self, frame_indices_input, sketch_embeds, context_mask, *, train=False,
+                       seed=None):
         """frame_indices_input: (b, n) video tokens, already shifted for
-        teacher forcing; returns (b, n + 1, vocab) logits."""
+        teacher forcing; seed: the decoder's dropout seed, or None. Returns
+        (b, n + 1, vocab) logits."""
         b, n = frame_indices_input.shape
         emb = self.image_embedding(frame_indices_input, train=train)
         emb = emb + self.video_pos_emb()[:n][None]
         emb = torch.cat([self.video_bos.expand(b, 1, self.dim), emb], dim=1)
         if self.dtype is not None:
             emb = emb.to(self.dtype)
-        out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask)
+        out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask,
+                                     seed=seed)
         return out @ self.to_logits.to(out.dtype)
 
     def forward(self, sketch, video, *, sketch_mask=None, return_loss=False,
@@ -174,11 +176,16 @@ class NUWASketch(nn.Module):
         each token from the ones before it. ``train`` scales the embeddings'
         gradients and applies condition dropout to the sketch tokens' mask:
         each sample's sketch is masked out with ``cond_dropout_prob``, drawn
-        from ``generator``, or where ``uncond`` (b,) bool says so."""
+        from ``generator``, or where ``uncond`` (b,) bool says so. With an
+        ``attn_dropout`` or ``ff_dropout`` it draws one dropout seed from
+        ``generator`` first, and the sketch encoder and the decoder take
+        seeds derived from it."""
         video = self._pixels(video)
         if video.shape[1] != self.max_video_frames:
             raise ValueError(f"video needs all {self.max_video_frames} frames")
-        sketch_embeds, context_mask = self.embed_sketch(sketch, sketch_mask, train=train)
+        sketch_seed, dec_seed = dropout_seeds(self, train, generator, 2)
+        sketch_embeds, context_mask = self.embed_sketch(sketch, sketch_mask, train=train,
+                                                        seed=sketch_seed)
         b = video.shape[0]
         with torch.no_grad():
             frame_indices = self.vae.get_video_indices(video).reshape(b, -1)
@@ -189,7 +196,8 @@ class NUWASketch(nn.Module):
         if train and uncond is not None:
             uncond = torch.as_tensor(uncond, device=self.device)
             context_mask = context_mask & ~uncond[:, None]
-        logits = self._decode_logits(inp, sketch_embeds, context_mask, train=train)
+        logits = self._decode_logits(inp, sketch_embeds, context_mask, train=train,
+                                     seed=dec_seed)
         if not return_loss:
             return logits
         return cross_entropy(logits, frame_indices)

@@ -223,13 +223,18 @@ class SparseCross2DNA(nn.Module):
     any frame attends the centered ``kernel_size`` window around (y, x) in
     every context frame, with talking heads; bos attends the whole context
     (no talking heads). ``context_mask`` (b, Lc) bool leaves context tokens
-    out: padded sketch frames, and the unconditional half of a CFG batch."""
+    out: padded sketch frames, and the unconditional half of a CFG batch.
+    ``dropout`` is the attention dropout rate of the video queries, applied
+    with a seed; the bos query's attention is not dropped, as in the JAX
+    module."""
 
-    def __init__(self, dim, image_size, heads=8, dim_head=64, kernel_size=3, dilation=1):
+    def __init__(self, dim, image_size, heads=8, dim_head=64, kernel_size=3, dilation=1,
+                 dropout=0.0):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("kernel size must be odd")
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.dropout = dropout
         self.image_size, self.kernel_size, self.dilation = image_size, kernel_size, dilation
         inner = heads * dim_head
         self.inner_dim = inner
@@ -245,7 +250,7 @@ class SparseCross2DNA(nn.Module):
         normal_(self.null_v, generator)
         kaiming_uniform_(self.talking_heads, generator, self.heads)
 
-    def forward(self, x, *, context, context_mask=None, **_):
+    def forward(self, x, *, context, context_mask=None, seed=None, **_):
         b = x.shape[0]
         h, dh = self.heads, self.dim_head
         if context_mask is None:
@@ -267,6 +272,7 @@ class SparseCross2DNA(nn.Module):
             out_nb = sparse_cross_2dna(
                 q[:, :, 1:], k, v, null_k, null_v, self.talking_heads, context_mask,
                 fmap=self.image_size, kernel_size=self.kernel_size, dilation=self.dilation,
+                dropout=(self.dropout, seed),
             )
             out = torch.cat([out, out_nb.to(out.dtype)], dim=2)
         return self.to_out(merge_heads(out))

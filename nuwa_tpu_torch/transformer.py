@@ -77,18 +77,13 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
     sketch encoders); the cross block is dense attention (to text) or
     SparseCross2DNA (to sketch frames, dilation
     ``cross_2dna_dilations[depth % len]``). Every attention takes
-    ``attn_dropout`` and every feed-forward ``ff_dropout``, except
-    SparseCross2DNA, whose kernels' dropout mode is not ported yet."""
+    ``attn_dropout`` and every feed-forward ``ff_dropout``."""
     if sparse_3dna_attn and sparse_3dna_video_shape is None:
         raise ValueError("sparse_3dna_attn needs sparse_3dna_video_shape")
     if cross_2dna_attn and cross_2dna_image_size is None:
         raise ValueError("cross_2dna_attn needs cross_2dna_image_size")
     if causal and not sparse_3dna_attn:
         raise NotImplementedError("causal dense self-attention is not ported")
-    if cross_2dna_attn and attn_dropout > 0:
-        raise NotImplementedError(
-            "attn_dropout with SparseCross2DNA: the cross kernels' dropout mode "
-            "(nuwa_tpu/kernels/nda_pallas.py:2759, :2844, :2906) is not ported yet")
     shift = sparse_3dna_attn and shift_video_tokens
     fmap = sparse_3dna_video_shape[-1] if shift else None
     entries = []
@@ -115,6 +110,7 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                     image_size=cross_2dna_image_size,
                     kernel_size=cross_2dna_kernel_size,
                     dilation=cross_2dna_dilations[ind % len(cross_2dna_dilations)],
+                    dropout=attn_dropout,
                 )
             else:
                 cross = Attention(dim=dim, heads=heads, dim_head=dim_head,

@@ -44,3 +44,22 @@ def test_the_dropout_sources_include_the_one_hash_header(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "// edited\n")
     after = [build._target(name).name for name in names]
     assert all(a != b for a, b in zip(before, after))
+
+
+def test_the_cross_dropout_sources_include_the_one_hash_header(tmp_path, monkeypatch):
+    """The SparseCross2DNA forward and query-side kernel draw their dropout
+    mask from the same hash header as the Sparse3DNA kernels, and an edit
+    of that header renames every cross library."""
+    for name in ("sparse_cross2dna_fwd", "sparse_cross2dna_bwd_q"):
+        source = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "sparse3dna_dropout.cuh"' in source, name
+        assert "0x7FEB352D" not in source, name  # the hash lives in the header only
+    names = ("sparse_cross2dna_fwd", "sparse_cross2dna_bwd_q", "sparse_cross2dna_bwd_kv")
+    for path in build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = [build._target(name).name for name in names]
+    header = tmp_path / "sparse3dna_dropout.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = [build._target(name).name for name in names]
+    assert all(a != b for a, b in zip(before, after))

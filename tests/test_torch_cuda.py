@@ -507,3 +507,77 @@ def test_sparse3dna_dropout_kernels_match_plain(dtype, tol, geometry):
         gots = torch.autograd.grad(knda.sparse_3dna(*leaves, dropout=drop, **geo), leaves, g)
         for a, b in zip(gots, wants):
             assert _rel_err(a, b) <= 1e-5
+
+
+# (context frames, fmap, dilation, video queries): Fc = 1 and 2, each ragged;
+# fmap 16 at two context frames is the sketch training shape's geometry
+CROSS_DROPOUT_CASES = {"Fc=1": (1, 4, 1, 37), "Fc=2": (2, 4, 2, 45),
+                       "Fc=2, fmap 16": (2, 16, 1, 700)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(CROSS_DROPOUT_CASES))
+def test_sparse_cross2dna_dropout_kernels_match_plain(dtype, tol, case):
+    """The cross forward and both backward kernels with attention dropout at
+    rate 0.1 against their plain versions (the same counter-hash mask), the
+    context masks of the test without dropout, each backward given the lse
+    of its own forward as there: every output within that test's
+    tolerances, every backward output equal bit for bit across two
+    calls, each launch counted as a dropout one; the autograd function with
+    dropout against autograd of the plain forward in fp32 (1e-5 of each
+    gradient's max abs); a rate of 0, or no seed, gives the output of the
+    launch without dropout bit for bit."""
+    _needs_cuda()
+    frames, fmap, dilation, t = CROSS_DROPOUT_CASES[case]
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, t, frames, fmap, seed=t)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda").to(dtype)
+    geo = dict(fmap=fmap, kernel_size=3, dilation=dilation)
+    drop = (0.1, 1234567)
+    fns = (kcross.sparse_cross_2dna_fwd, kcross.sparse_cross_2dna_bwd_q,
+           kcross.sparse_cross_2dna_bwd_kv)
+    names = ("out", "lse", "dq", "ds", "mix", "dnull_k", "dnull_v", "dth", "dk", "dv")
+    for mname, mask in _cross_masks(2, frames, fmap).items():
+        before = [fn.mode_launches["dropout"] for fn in fns]
+        out, lse = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo, dropout=drop)
+        ref, ref_lse = kcross.sparse_cross_2dna_fwd_plain(q, k, v, nk, nv, th, mask, **geo,
+                                                          dropout=drop)
+        runs = []
+        for _ in range(2):
+            got = kcross.sparse_cross_2dna_bwd_q(q, k, v, nk, nv, th, mask, g, lse, **geo,
+                                                 dropout=drop)
+            runs.append(got + kcross.sparse_cross_2dna_bwd_kv(q, g, got[1], got[2], **geo,
+                                                              dropout=drop))
+        want = kcross.sparse_cross_2dna_bwd_q_plain(q, k, v, nk, nv, th, mask, g, ref_lse,
+                                                    **geo, dropout=drop)
+        want += kcross.sparse_cross_2dna_bwd_kv_plain(q, g, want[1], want[2], **geo)
+        torch.cuda.synchronize()
+        assert [fn.mode_launches["dropout"] - n for fn, n in zip(fns, before)] == [1, 2, 2]
+        for name, a, a2, b in zip(names, (out, lse, *runs[0]), (out, lse, *runs[1]),
+                                  (ref, ref_lse, *want)):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, a2), name
+            err = _rel_err(a, b)
+            assert err <= (tol if b.dtype == dtype else 1e-5), f"{name} {mname}: {err}"
+        plain_out, _ = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo)
+        for off in ((0.0, 7), (0.1, None), None):
+            again, _ = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo,
+                                                    dropout=off)
+            assert torch.equal(again, plain_out), mname
+    # about a tenth of the valid pairs' mixed probabilities dropped
+    mask = _cross_masks(2, frames, fmap)["padded"]
+    _, lse = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, **geo)
+    valid = kcross.sparse_cross_2dna_bwd_q(q, k, v, nk, nv, th, mask, g, lse, **geo)[2] != 0
+    dropped = kcross.sparse_cross_2dna_bwd_q(q, k, v, nk, nv, th, mask, g, lse, **geo,
+                                             dropout=drop)[2] == 0
+    share = (dropped & valid).sum().item() / valid.sum().item()
+    assert abs(share - 0.1) < 0.03, share
+    if dtype == torch.float32:
+        leaves = [x.detach().requires_grad_() for x in (q, k, v, nk, nv, th)]
+        out, _ = kcross.sparse_cross_2dna_fwd_plain(*leaves, mask, **geo, dropout=drop)
+        wants = torch.autograd.grad(out, leaves, g)
+        gots = torch.autograd.grad(kcross.sparse_cross_2dna(*leaves, mask, **geo, dropout=drop),
+                                   leaves, g)
+        for a, b in zip(gots, wants):
+            assert _rel_err(a, b) <= 1e-5

@@ -40,17 +40,14 @@ SKETCH_MASK = np.array([[True, True], [True, False]])  # row 1's second frame is
 
 
 def _models(reversible):
+    """The JAX model and the port's, the port's seeded weights written into
+    the JAX params tree (``jax_params``, no JAX init compiled) and read
+    back by ``load_jax_params``."""
     cfg = dict(CFG, dec_reversible=reversible)
-    jvae, jsvae = JVQGanVAE(**VAE), JVQGanVAE(**VAE, channels=5)
-    jmodel = JNUWASketch(vae=jvae, sketch_vae=jsvae, **cfg)
-    key = jax.random.PRNGKey(0)
-    init = jax.jit(lambda key: jmodel.init(
-        key, vae_params=jvae.init(jax.random.PRNGKey(1)), vae_state=jvae.init_state(key),
-        sketch_vae_params=jsvae.init(jax.random.PRNGKey(2)),
-        sketch_vae_state=jsvae.init_state(jax.random.PRNGKey(3)),
-    ))
-    params = jax.tree.map(np.asarray, init(key))
-    return jmodel, params, load_jax_params(_port(cfg), params)
+    jmodel = JNUWASketch(vae=JVQGanVAE(**VAE), sketch_vae=JVQGanVAE(**VAE, channels=5), **cfg)
+    tmodel = _port(cfg)
+    params = jax_params(jmodel, tmodel)
+    return jmodel, params, load_jax_params(tmodel, params)
 
 
 def _port(cfg):
