@@ -124,8 +124,8 @@ Phases, each of which exits non-zero on failure:
    launch a dropout one, step ms and busy share beside the step without)
    and model (b)'s fp32 loss and gradients with dropout against the CPU;
 12. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
-   (CUDA events, median after warm-up), and the device's busy share of a
-   generate of each model.
+   (CUDA events, one more run after the serving phase's warm one), and the
+   device's busy share of a generate of each model.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -255,6 +255,21 @@ def bound_ms(nbytes, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def tiles_text(knda, q, kw, names=("fwd", "bwd_q")):
+    """The query tile, block and shared memory with which B1 and B2 launch on
+    q in the geometry ``kw`` (``kernels.nda.tile_plan``): staged (each
+    head's window union of uy x ux positions a frame in shared memory) or
+    read through L1."""
+    parts = []
+    geometry = {k: kw[k] for k in ("fmap", "kernel", "dilation", "mode", "tiles") if k in kw}
+    for which in names:
+        p = knda.launch_plan(which, q, **geometry)
+        how = f"staged union {p['uy']}x{p['ux']}" if p["stage"] else "read through L1"
+        parts.append(f"{which} {p['ty']}x{p['tx']} queries a block, {how}, {p['threads']} "
+                     f"threads, {p['group']} lanes a row, {p['smem']} B shared")
+    return "tiles: " + "; ".join(parts)
+
+
 def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="causal"):
     """{kernel: (least time, what bounds it)} for the work this input needs:
     each input read once, each output written once; operations (multiply and
@@ -335,7 +350,8 @@ def time_nda(knda):
             print(f"sparse_3dna_fwd bf16 b={b} t={t} dilation={dil}: kernel "
                   f"{ms:.4f} ms (device; {call_ms:.4f} ms a call with the "
                   f"wrapper's host work), plain {plain:.4f} ms, bound "
-                  f"{bound:.5f} ms ({by})", flush=True)
+                  f"{bound:.5f} ms ({by}); {tiles_text(knda, args[0], kw, ('fwd',))}",
+                  flush=True)
     return rows
 
 
@@ -458,6 +474,7 @@ def time_train_kernels(knda, fmap=TRAIN_FMAP, t=TRAIN_T, plain_iters=5, mode="ca
         _, lse = knda.sparse_3dna_fwd(*args, **kw)
         _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
         bounds = nda_bounds(knda, b, t, dil, dtype, bias, fmap, TRAIN_KERNEL, mode)
+        print(f"dilation={dil} {mode} t={t}: {tiles_text(knda, args[0], kw)}", flush=True)
         for name, kernel, plain in (
             ("fwd", lambda: knda.sparse_3dna_fwd(*args, **kw),
              lambda: knda.sparse_3dna_fwd_plain(*args, **kw)),
@@ -778,8 +795,8 @@ def check_against_cpu(NUWA):
 
 
 def throughput(model, texts):
-    """tokens/s of each NUWA request, the median of 3 (serve() ran each once
-    already)."""
+    """tokens/s of each NUWA request, timed once more (serve() ran each once
+    already, warm)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     n, nf = model.max_video_tokens, 2 * model.max_video_frames
     rates = {}
@@ -789,7 +806,7 @@ def throughput(model, texts):
         (f"generate_long b=1 ({nf} frames)", 1, 2 * n,
          lambda: model.generate_long(texts[1], num_frames=nf, generator=gen)),
     ):
-        ms = cuda_ms(call, iters=1, reps=3, warmup=0)
+        ms = cuda_ms(call, iters=1, reps=1, warmup=0)
         rates[name] = tokens / (ms / 1e3)
         print(f"{name}: {ms:.1f} ms per request, {rates[name]:.1f} tokens/s", flush=True)
     return rates
@@ -1077,7 +1094,7 @@ def sketch_against_cpu(NUWASketch, VQGanVAE):
 
 
 def sketch_throughput(model, short, inputs):
-    """tokens/s of each sketch request, median of 3 (the serving phase ran
+    """tokens/s of each sketch request, timed once more (the serving phase ran
     each once at these shapes, so no further warm-up), and the device's busy
     share of the b = 1 generate."""
     sketch1, sketch2, mask2, req4, mask4 = inputs
@@ -1095,7 +1112,7 @@ def sketch_throughput(model, short, inputs):
         ("sketch generate_long b=1, 3 frames", 3 * tpf,
          lambda: short.generate_long(sketch2[:1], generator=g, num_frames=3)),
     ):
-        walls[name] = ms = cuda_ms(call, iters=1, reps=3, warmup=0)
+        walls[name] = ms = cuda_ms(call, iters=1, reps=1, warmup=0)
         print(f"{name}: {ms:.1f} ms per request, {tokens / (ms / 1e3):.1f} tokens/s",
               flush=True)
     name = "sketch generate b=1, 1 frame"
@@ -1919,7 +1936,7 @@ def time_audio(knda):
         print(f"sparse_3dna_fwd audio geometry ({name}) bf16 b={b} t={t} kernel "
               f"({AUDIO_KERNEL}, 1, {height}): kernel {ms:.4f} ms (device), plain "
               f"{plain:.4f} ms, bound {bound:.5f} ms ({by}), kernel / bound "
-              f"{ms / bound:.1f}x", flush=True)
+              f"{ms / bound:.1f}x; {tiles_text(knda, args[0], kw, ('fwd',))}", flush=True)
     return rows
 
 
@@ -2228,6 +2245,8 @@ def time_audio_bwd(knda):
         _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **kw)
         bounds = nda_bounds(knda, b, t, kw["dilation"], dtype, True, kw["fmap"], kw["kernel"],
                             "audio")
+        print(f"audio geometry ({name}) b={b} t={t}: "
+              f"{tiles_text(knda, args[0], kw, ('bwd_q',))}", flush=True)
         for kname, kernel, plain in (
             ("bwd_q", lambda: knda.sparse_3dna_bwd_q(*args, g, lse, **kw),
              lambda: knda.sparse_3dna_bwd_q_plain(*args, g, lse, **kw)),
@@ -2420,7 +2439,7 @@ DROPOUT_SHAPES = {
 }
 
 
-def dropout_rows(knda):
+def dropout_rows(knda, cross=True):
     """The three kernels with attention dropout at DROP_RATE and a seed, at
     each shape of DROPOUT_SHAPES, fp32 and bf16: against their plain versions
     on the same inputs (the same counter-hash mask; errors over each
@@ -2429,8 +2448,8 @@ def dropout_rows(knda):
     across two calls, and the dropped share of the valid pairs' mixed
     probabilities; then, in bf16, each kernel's device time with and
     without dropout beside its plain version's with dropout; then the same
-    for the three cross kernels (``cross_dropout_rows``). Returns
-    {(kernel, shape): row}."""
+    for the three cross kernels (``cross_dropout_rows``) where ``cross``.
+    Returns {(kernel, shape): row}."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
     rows = {}
     drop = (DROP_RATE, DROP_SEED)
@@ -2487,6 +2506,7 @@ def dropout_rows(knda):
                 row["max_abs_err"] = max(row["max_abs_err"], err)
         # times, bf16: with and without dropout, and the plain version with it
         args, g = nda_inputs(b, t, torch.bfloat16, bias, gen, kw["kernel"])
+        print(f"dropout {name} b={b} t={t}: {tiles_text(knda, args[0], kw)}", flush=True)
         _, lse = knda.sparse_3dna_fwd(*args, **dkw)
         _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*args, g, lse, **dkw)
         plain_iters = 2 if t > 4096 else 5
@@ -2512,7 +2532,7 @@ def dropout_rows(knda):
                   f"{bound:.6f} ms ({by})", flush=True)
         del args, g, lse, ds, mix
         torch.cuda.empty_cache()
-    return {**rows, **cross_dropout_rows()}
+    return {**rows, **cross_dropout_rows()} if cross else rows
 
 
 # the cross kernels' shapes on the main path, (b, t, context frames), the

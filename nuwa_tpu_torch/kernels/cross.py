@@ -56,7 +56,9 @@ import functools
 
 import torch
 
-from .nda import _DTYPES, _QUERIES_PER_BLOCK, _drop_args, _dropout, _dropped, _gathered, _launch
+from .nda import _DTYPES, _drop_args, _dropout, _dropped, _gathered, _launch
+
+_QUERIES_PER_BLOCK = 4  # kQueriesPerBlock of csrc/sparse_cross2dna_bwd_q.cu
 
 
 @functools.lru_cache(maxsize=64)

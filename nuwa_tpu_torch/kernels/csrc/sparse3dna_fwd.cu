@@ -17,8 +17,9 @@
 // multiplied by its keep factor (sparse3dna_dropout.cuh: the fp32 scale
 // 1 / keep or 0, hashed from the seed, the batch row, the head, the query
 // and the key token) before PV, as the Pallas kernels drop after the mix
-// (nda_pallas.py:279, :447); `lse` stays the undropped softmax's. The
-// warp of a head reads no value row of a pair that head drops.
+// (nda_pallas.py:279, :447); `lse` stays the undropped softmax's. PV reads
+// every value row, a dropped pair's too: skipping them measured no faster on
+// an H100 once a batch of rows is in flight together.
 //
 // The audio geometry is SparseCausal2DNA's grid of (timesteps, 1, H): the
 // time axis is causal with kernel Kf and dilation df, and on the width
@@ -32,27 +33,32 @@
 // It writes `out` (in the inputs' type) and the per-row logsumexp `lse`
 // (fp32), the residual a flash-style backward consumes.
 //
-// What bounds it on the card: memory. Per query and head it does about
-// 4*(Kn+1)*d operations (scores and PV over Kn = 27 neighbours plus bos),
-// while the bytes that must move are one row each of q, k, v and out: about
-// 14 operations per byte in bf16 and 7 in fp32, under the ~20 at which the
-// H100's fp32 cores stop being bandwidth bound and far under the ~300 of its
-// bf16 tensor cores. Every key and value row is reused by up to Kn queries.
+// What bounds it on the card. Per query and head it does about
+// 4*(Kn+1)*d operations (scores and PV over Kn neighbours plus bos) against
+// one row each of q, k, v and out that must move: about 14 operations a byte
+// in bf16, so the byte bound is the least time, but not what holds the
+// kernel. A first design (one block a query, one warp a head, one 2-byte
+// load a lane per row) ran 26-290x over that bound on an H100: each warp
+// kept one row load in flight and walked its Kn + 1 slots one after
+// another. This one runs about 15x over it at the training shapes, waiting
+// on the key and value rows from L2: each (query, head) reads 2 * (Kn + 1)
+// rows, and neighbouring queries' windows share them only through L1.
 //
-// What the design does about it. The TPU kernel scored whole frames against
-// whole frames (dense HW x HW tiles masked down to the neighbourhood, d
-// padded to 128 lanes, a bf16 probability cache in VMEM) because its matrix
-// unit wants large dense tiles. None of that helps a bandwidth-bound gather
-// on Hopper, so this kernel reads only the neighbours: one block per
-// (query token, batch element) holds all h heads, one warp per head. The
-// neighbour list comes from the query's coordinates, so no table is read.
-// Lanes stride the head dim, so each key or value row is one coalesced
-// read, and the rows shared by neighbouring queries are served from L1/L2:
-// device memory sees each row about once. Scores and softmax stay in
-// registers and shared memory in fp32; the heads meet in shared memory for
-// the talking-heads mix, which couples them after normalisation, so the
-// softmax of all heads completes before any head's PV. Nothing but `out`
-// and `lse` is written.
+// What the design does (sparse3dna_tile.cuh). A block owns a tile of
+// queries of one frame with all heads (the wrapper's `tile_plan` picks it:
+// 2 x 2, 1 x 2 or one query); its threads form groups of lanes that read a
+// row in 16-byte chunks, each group serving a (head, query) unit 8 slots at
+// a time, so the batch's loads are in flight together, and a butterfly of
+// 7 shuffles sums the 8 scores across the group. The rows come straight
+// from global memory, all heads at once: the tile's queries and the
+// neighbouring tiles resident on the same SM read overlapping windows, and
+// L1 serves the rows they share. Scores and the fp32 softmax of every
+// (head, query, slot) stay in shared memory, 8 lanes a row; the
+// talking-heads mix (and the keep factors of dropout) is formed there in
+// place, one (query, slot) column a thread, before PV. Nothing but `out`
+// and `lse` is written. sparse3dna_fwd_staged.cu computes the same function
+// with each head's window union staged in shared memory; it measured 2-4x
+// slower on an H100, and the rule takes none of its tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,180 +66,200 @@
 
 #include "sparse3dna_dropout.cuh"
 #include "sparse3dna_geometry.cuh"
+#include "sparse3dna_tile.cuh"
 
 namespace {
 
-constexpr int kMaxR = 8;  // head dim up to 32 * kMaxR = 256
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// grid (t, b), block 32 * heads: warp w handles head w of one query token.
-// kDrop: with attention dropout (false compiles none of the dropout code).
-template <typename T, bool kDrop>
-__global__ void __launch_bounds__(1024) sparse3dna_fwd_kernel(
+// grid (p.blocks, b), block p.threads: a tile of p.ty x p.tx queries of one
+// frame with all heads. Group gid of `group` lanes serves units (head,
+// query) gid, gid + ngroups, ..., or a share of one unit's slots where there
+// are more groups than units. kVec: rows in 16-byte chunks; kDrop: with
+// attention dropout (false compiles none of the dropout code); kMaxH: at
+// least the heads (8 or 32), the length of a mixed column. At most 256
+// threads and 48 registers a thread: five blocks an SM measured faster on
+// an H100 than four with more registers.
+template <typename T, bool kVec, bool kDrop, int kMaxH>
+__global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ kbos, const T* __restrict__ vbos,
     const float* __restrict__ th, const float* __restrict__ bias,
-    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g,
+    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g, Plan p,
     Dropout drop) {
-  extern __shared__ float smem[];
-  const int kn = g.kf * g.kh * g.kw;
-  const int slots = kn + 1;  // slot 0 is bos
-  float* s_th = smem;                    // (heads, heads)
-  float* s_p = s_th + heads * heads;     // (heads, slots) probabilities
-  float* s_mix = s_p + heads * slots;    // (heads, slots) mixed
-  int* s_nb = reinterpret_cast<int*>(s_mix + heads * slots);  // (kn) token or -1
-
-  const int i = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (dynamic_smem_bytes() < static_cast<unsigned>(p.smem)) __trap();
+  const int kn = g.kf * g.kh * g.kw, slots = kn + 1;  // slot 0 is bos
+  const TileView tv = tile_view(p);
+  const int tq = tv.tq;
+  float* s_s = reinterpret_cast<float*>(smem + p.off_s);        // (heads, tq, slots) scores, P, mix
+  int* s_nb = reinterpret_cast<int*>(smem + p.off_nb);          // (tq, kn) neighbour token or -1
+  int* s_qtok = reinterpret_cast<int*>(smem + p.off_qtok);      // (tq) token or -1
+  float* s_th = reinterpret_cast<float*>(smem + p.off_th);      // (heads, heads)
+  float* s_bias = reinterpret_cast<float*>(smem + p.off_bias);  // (heads, kn), with a bias
+  float* s_red = reinterpret_cast<float*>(smem + p.off_red);    // (units, groups a unit, d) shares
   const int bi = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const size_t bplane = static_cast<size_t>(bi) * heads;  // this batch row's first plane
 
-  for (int x = threadIdx.x; x < heads * heads; x += blockDim.x) s_th[x] = th[x];
-  const int hw = g.fh * g.fw;
-  const int f = i / hw, y = (i % hw) / g.fw, xx = i % g.fw;
-  for (int j = threadIdx.x; j < kn; j += blockDim.x) s_nb[j] = neighbour(g, f, y, xx, j);
+  for (int x = tid; x < heads * heads; x += nt) s_th[x] = th[x];
+  if (bias != nullptr) {
+    for (int x = tid; x < heads * kn; x += nt) s_bias[x] = bias[x];
+  }
+  for (int x = tid; x < tq; x += nt) s_qtok[x] = tile_query(g, p, tv, x);
+  for (int x = tid; x < tq * kn; x += nt) s_nb[x] = tile_neighbour(g, p, tv, x / kn, x % kn);
   __syncthreads();
 
-  const int h = warp;
-  const size_t row = static_cast<size_t>(bi) * heads + h;  // (b, h) plane
-  const T* kplane = k + row * g.t * d;
-  const T* vplane = v + row * g.t * d;
-  const T* qrow = q + (row * g.t + i) * d;
+  const int G = p.group, gid = tid / G, gl = tid % G, ng = nt / G;
+  const unsigned gmask = group_mask(G, lane);
+  const int units = heads * tq;        // unit a * tq + qi: head a, query qi
+  const int gpu = max(1, ng / units);  // groups a unit
+  const int ustep = ng / gpu, first = gid / gpu < ustep ? gid / gpu : units, sub = gid % gpu;
+  const uint32_t row_stream = kDrop ? drop_stream(drop, bi) : 0u;
 
-  float qr[kMaxR];
+  // ---- scores of every unit, kBatch slots at a time ----------------------
+  for (int un = first; un < units; un += ustep) {
+    const int a = un / tq, qi = un % tq, tok = s_qtok[qi];
+    if (tok < 0) continue;  // uniform across the group
+    float xr[8];
+    load_row<T, kVec>(xr, q + ((bplane + a) * g.t + tok) * d, gl, G, d);
+    const T* kplane = k + (bplane + a) * g.t * d;
+    float* srow = s_s + un * slots;
+    for (int j0 = sub; j0 < slots; j0 += kBatch * gpu) {
+      float acc[kBatch];
 #pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    const int e = lane + 32 * r;
-    qr[r] = e < d ? to_f(qrow[e]) : 0.f;
-  }
-
-  // ---- scores: one warp-wide dot product per slot ----------------------
-  float* p = s_p + h * slots;
-  {
-    const T* kr = kbos + row * d;
-    float acc = 0.f;
+      for (int i = 0; i < kBatch; ++i) {
+        const int j = j0 + i * gpu;
+        // the neighbour's token, t for bos, -1 outside the grid or past t
+        const int nb = j >= slots ? -1 : j == 0 ? g.t : s_nb[qi * kn + j - 1];
+        const T* row = nb == g.t ? kbos + (bplane + a) * d
+                                 : kplane + static_cast<size_t>(max(nb, 0)) * d;
+        acc[i] = nb >= 0 ? dot_row<T, kVec>(xr, row, gl, G, d) : 0.f;
+      }
+      const int base = group_sum_spread(acc, G, gl, gmask);
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
-      const int e = lane + 32 * r;
-      if (e < d) acc += qr[r] * to_f(kr[e]);
+      for (int i = 0; i < kBatch; ++i) {
+        if (i >= kBatch / min(G, kBatch)) break;
+        const int j = j0 + (base + i) * gpu;
+        if (j >= slots) continue;
+        const int nb = j == 0 ? g.t : s_nb[qi * kn + j - 1];
+        // the bos column has no bias and no mask
+        srow[j] = nb < 0 ? -CUDART_INF_F
+                  : j > 0 && bias != nullptr ? acc[i] + s_bias[a * kn + j - 1] : acc[i];
+      }
     }
-    acc = warp_sum(acc);
-    if (lane == 0) p[0] = acc;  // the bos column has no bias and no mask
   }
-  for (int j = 0; j < kn; ++j) {
-    const int tok = s_nb[j];  // uniform across the warp
-    float s = -CUDART_INF_F;
-    if (tok >= 0) {
-      const T* kr = kplane + static_cast<size_t>(tok) * d;
+  __syncthreads();
+
+  // ---- fp32 softmax of every (head, query) row of scores, kRowLanes lanes
+  // a row
+  const int rl = lane % kRowLanes, rows_at_once = nt / kRowLanes;
+  const unsigned rmask = group_mask(kRowLanes, lane);
+  for (int r = tid / kRowLanes; r < units; r += rows_at_once) {
+    const int tok = s_qtok[r % tq];
+    if (tok < 0) continue;  // uniform across the row's lanes
+    float* row = s_s + r * slots;
+    float m = -CUDART_INF_F;
+    for (int j = rl; j < slots; j += kRowLanes) m = fmaxf(m, row[j]);
+    m = row_max(m, rmask);  // finite: the bos slot is always present
+    float den = 0.f;
+    for (int j = rl; j < slots; j += kRowLanes) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      den += e;
+    }
+    den = row_sum(den, rmask);
+    const float inv = 1.f / den;
+    for (int j = rl; j < slots; j += kRowLanes) row[j] *= inv;
+    if (rl == 0) lse[(bplane + r / tq) * g.t + tok] = m + logf(den);
+  }
+  __syncthreads();
+
+  // ---- talking heads in place: mix[a, j] = sum_b th[a, b] * p[b, j], each
+  // (query, slot) column by one thread, dropped with dropout
+  for (int x = tid; x < tq * slots; x += nt) {
+    const int qq = x / slots, j = x % slots, tok = s_qtok[qq];
+    if (tok < 0) continue;
+    float pr[kMaxH];
+#pragma unroll
+    for (int b2 = 0; b2 < kMaxH; ++b2) pr[b2] = b2 < heads ? s_s[(b2 * tq + qq) * slots + j] : 0.f;
+    // a slot outside the grid has probability 0 in every head: its key is moot
+    const uint32_t key = j == 0 ? kBosKey : static_cast<uint32_t>(s_nb[qq * kn + j - 1]);
+    for (int a2 = 0; a2 < heads; ++a2) {
       float acc = 0.f;
 #pragma unroll
-      for (int r = 0; r < kMaxR; ++r) {
-        const int e = lane + 32 * r;
-        if (e < d) acc += qr[r] * to_f(kr[e]);
-      }
-      s = warp_sum(acc) + (bias != nullptr ? bias[h * kn + j] : 0.f);
+      for (int b2 = 0; b2 < kMaxH; ++b2)
+        if (b2 < heads) acc += s_th[a2 * heads + b2] * pr[b2];
+      if (kDrop) acc *= keep_factor(drop, row_stream, a2, tok, key);
+      s_s[(a2 * tq + qq) * slots + j] = acc;
     }
-    if (lane == 0) p[1 + j] = s;
   }
-  __syncwarp();
-
-  // ---- fp32 softmax over the slots of this head ------------------------
-  float m = -CUDART_INF_F;
-  for (int j = lane; j < slots; j += 32) m = fmaxf(m, p[j]);
-  m = warp_max(m);  // finite: the bos slot is always present
-  float den = 0.f;
-  for (int j = lane; j < slots; j += 32) den += expf(p[j] - m);
-  den = warp_sum(den);
-  const float inv = 1.f / den;
-  __syncwarp();
-  for (int j = lane; j < slots; j += 32) p[j] = expf(p[j] - m) * inv;
-  if (lane == 0) lse[row * g.t + i] = m + logf(den);
   __syncthreads();
 
-  // ---- talking heads: mixed[h, j] = sum_h2 th[h, h2] * p[h2, j], dropped
-  float* mix = s_mix + h * slots;
-  const uint32_t row_stream = kDrop ? drop_stream(drop, bi) : 0u;
-  for (int j = lane; j < slots; j += 32) {
-    float acc = 0.f;
-    for (int h2 = 0; h2 < heads; ++h2) acc += s_th[h * heads + h2] * s_p[h2 * slots + j];
-    if (kDrop) acc *= keep_factor(drop, row_stream, h, i, slot_key(s_nb, j));
-    mix[j] = acc;
-  }
-  __syncwarp();
-
-  // ---- PV ----------------------------------------------------------------
-  float o[kMaxR];
-  {
-    const T* vr = vbos + row * d;
-    const float w = mix[0];
+  // ---- PV of every unit, kAxpyBatch slots at a time -----------------------
+  for (int un = first; un < units; un += ustep) {
+    const int a = un / tq, qi = un % tq, tok = s_qtok[qi];
+    if (tok < 0) continue;
+    const T* vplane = v + (bplane + a) * g.t * d;
+    const float* mrow = s_s + un * slots;
+    float o[8];
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
-      const int e = lane + 32 * r;
-      o[r] = e < d ? w * to_f(vr[e]) : 0.f;
+    for (int e = 0; e < 8; ++e) o[e] = 0.f;
+    for (int j0 = sub; j0 < slots; j0 += kAxpyBatch * gpu) {
+      float w[kAxpyBatch];
+      int nbs[kAxpyBatch];
+#pragma unroll
+      for (int i = 0; i < kAxpyBatch; ++i) {
+        const int j = j0 + i * gpu;
+        nbs[i] = j >= slots ? -1 : j == 0 ? g.t : s_nb[qi * kn + j - 1];
+        w[i] = nbs[i] < 0 ? 0.f : mrow[j];  // a slot outside the grid: 0 in every head
+      }
+#pragma unroll
+      for (int i = 0; i < kAxpyBatch; ++i) {
+        const int nb = nbs[i];
+        if (nb >= 0)
+          axpy_row<T, kVec>(o, w[i], nb == g.t ? vbos + (bplane + a) * d
+                                               : vplane + static_cast<size_t>(nb) * d, gl, G, d);
+      }
+    }
+    if (gpu == 1) {
+      store_row<T, kVec>(out + ((bplane + a) * g.t + tok) * d, o, gl, G, d);
+    } else {
+      share_row<T, kVec>(s_red, un * gpu + sub, o, gl, G, d);
     }
   }
-  for (int j = 0; j < kn; ++j) {
-    const int tok = s_nb[j];
-    if (tok < 0) continue;  // its probability is 0 in every head
-    const float w = mix[1 + j];
-    if (kDrop && w == 0.f) continue;  // dropped in this head: its value row is not read
-    const T* vr = vplane + static_cast<size_t>(tok) * d;
-#pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
-      const int e = lane + 32 * r;
-      if (e < d) o[r] += w * to_f(vr[e]);
+  if (gpu > 1) {
+    // the groups that share a unit sum their shares in order
+    __syncthreads();
+    for (int x = tid; x < units * d; x += nt) {
+      const int un = x / d, e = x % d, tok = s_qtok[un % tq];
+      if (tok < 0) continue;
+      float sum = 0.f;
+      for (int sb = 0; sb < gpu; ++sb) sum += s_red[(un * gpu + sb) * d + e];
+      out[((bplane + un / tq) * g.t + tok) * d + e] = from_f<T>(sum);
     }
-  }
-  T* orow = out + (row * g.t + i) * d;
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    const int e = lane + 32 * r;
-    if (e < d) orow[e] = from_f<T>(o[r]);
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* kbos,
-           const void* vbos, const float* th, const float* bias, void* out,
-           float* lse, int b, int heads, int d, Geometry g, Dropout drop, cudaStream_t stream) {
-  const int kn = g.kf * g.kh * g.kw;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(heads) * heads + 2 * heads * (kn + 1)) +
-      sizeof(int) * kn;
-  const auto kernel =
-      drop.on ? sparse3dna_fwd_kernel<T, true> : sparse3dna_fwd_kernel<T, false>;
-  // Past the 48 KB default the block's limit is raised to what it asks; past
-  // the card's opt-in maximum that call fails, and its error is returned
-  // (the wrapper raises it).
-  if (smem > 48 * 1024) {
+template <typename T, bool kVec>
+int launch(const void* q, const void* k, const void* v, const void* kbos, const void* vbos,
+           const float* th, const float* bias, void* out, float* lse, int b, int heads, int d,
+           Geometry g, const Plan& p, Dropout drop, cudaStream_t stream) {
+  const auto kernel = heads <= 8 ? (drop.on ? sparse3dna_fwd_kernel<T, kVec, true, 8>
+                                             : sparse3dna_fwd_kernel<T, kVec, false, 8>)
+                                 : (drop.on ? sparse3dna_fwd_kernel<T, kVec, true, 32>
+                                            : sparse3dna_fwd_kernel<T, kVec, false, 32>);
+  // Past the 48 KB default the block's limit is raised to what the plan
+  // asks; past the card's opt-in maximum that call fails, and its error is
+  // returned (the wrapper raises it).
+  if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(g.t, b);
-  const dim3 block(32 * heads);
-  kernel<<<grid, block, smem, stream>>>(
+  const dim3 grid(p.blocks, b);
+  kernel<<<grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
-      static_cast<T*>(out), lse, heads, d, g, drop);
+      static_cast<T*>(out), lse, heads, d, g, p, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,22 +272,30 @@ extern "C" {
 // bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32; mode 1 for
 // causal windows, 0 for centered, 2 for the audio geometry (fh = kh = 1,
 // kw = fw = H); drop 1 for attention dropout with the hash's seed, its
-// threshold and the fp32 scale 1 / keep (sparse3dna_dropout.cuh), 0 for none.
-// Returns the cudaError_t of the launch (0 on success).
+// threshold and the fp32 scale 1 / keep (sparse3dna_dropout.cuh), 0 for none;
+// plan: kPlanInts ints, the wrapper's tile and shared-memory layout
+// (sparse3dna_tile.cuh). Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse3dna_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* kbos, const void* vbos, const float* th,
                         const float* bias, void* out, float* lse, int b,
                         int heads, int t, int d, int fh, int fw, int kf, int kh,
                         int kw, int df, int dh, int dw, int mode, int drop,
-                        unsigned int seed, unsigned int thresh, float scale, void* stream) {
+                        unsigned int seed, unsigned int thresh, float scale, const int* plan,
+                        void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
   const Dropout dp{drop, seed, thresh, scale};
+  const Plan p = read_plan(plan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && p.vec)
+    return launch<float, true>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, p, dp, s);
   if (dtype == 0)
-    return launch<float>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, dp, s);
+    return launch<float, false>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, p, dp, s);
+  if (dtype == 1 && p.vec)
+    return launch<__nv_bfloat16, true>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g,
+                                       p, dp, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, dp,
-                                 s);
+    return launch<__nv_bfloat16, false>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g,
+                                        p, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

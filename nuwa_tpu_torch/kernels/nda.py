@@ -35,12 +35,17 @@ most 256 tokens (``rb_row_block``, ``_rb_geometry``), pads every frame with
 ``prow`` zero rows above and ``brow`` below (``_rb_pad_frames``) and scores
 each block against a window of ``W = R + (Kh - 1) * dh`` key rows, so that
 a block's queries and keys fit VMEM as dense tiles. The Hopper kernels have
-no such tiles: one block
-per (query or key, batch row) finds each neighbour from its coordinates and
-checks each axis against the grid, so a window that reaches past a frame's
-first or last row is masked where the TPU kernel reads a padded row, and
-nothing is sized by the frame. The rel-pos bias is the same (h, Kn) table
-in both families (``_rb_bias_tensors`` builds it from the same axial tables
+no such tiles: each finds every neighbour from its coordinates and checks
+each axis against the grid, so a window that reaches past a frame's first
+or last row is masked where the TPU kernel reads a padded row, and nothing
+is sized by the frame. A block of the forward and query-side kernels owns a
+tile of queries of one frame with all heads (``tile_plan``: the first of
+``TILES`` whose grid still fills the card and whose shared memory fits:
+2 x 2, 1 x 2 or one query, rows read through L1), or, given such a tile
+through the ``tiles`` argument, stages each head's window union of key and
+value rows in shared memory; the key side runs one block per (key, batch
+row). The rel-pos bias is the same
+(h, Kn) table in both families (``_rb_bias_tensors`` builds it from the same axial tables
 as ``_axial_tables``), so ``Sparse3DNA.rel_bias`` serves every frame size.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
@@ -60,9 +65,9 @@ a 128-lane super-frame (``packed_frames``); the kernel reads each query's
 neighbours directly, so packing has no counterpart here.
 
 The query-side kernel's sums over queries (the bos, talking-heads and bias
-cotangents) are written per block and summed here over the block axis in
-one fixed order, so every output of the backward is the same, bit for bit,
-from run to run.
+cotangents) are written per tile and summed here over the tile axis in one
+fixed order, so every output of the backward is the same, bit for bit, from
+run to run.
 
 Attention dropout: every function here takes ``dropout=(rate, seed)``
 (None, a rate of 0 or a seed of None: no dropout, the launch that runs
@@ -93,7 +98,6 @@ from . import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1  # token ids and t are 32-bit ints in the kernels
 _MAX_GRID_Y = 65535  # the batch rows are the grid's second axis
-_QUERIES_PER_BLOCK = 4  # kQueriesPerBlock of the query-side kernels
 # the window geometry: its name and the kernels' mode argument
 MODES = {"centered": 0, "causal": 1, "audio": 2}
 _U32 = 0xFFFFFFFF
@@ -205,6 +209,151 @@ def valid_pairs(t, fmap, kernel, dilation, mode="causal") -> int:
     return int(valid.sum())
 
 
+# ---------------------------------------------------------------------------
+# Query tiles of the forward and query-side kernels (csrc/sparse3dna_tile.cuh)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # shared memory a block may opt into on an H100 (227 KB)
+SMS = 132  # the H100's streaming multiprocessors
+_THREADS = 256  # threads of a block, or more where a tile's groups need them
+_MAX_THREADS = {"fwd": 256, "bwd_q": 512}  # the kernels' __launch_bounds__
+# tile candidates (rows, columns of queries of one frame, buffers of the ring
+# in which each head's window union is staged in shared memory, 2-4, or 0 to
+# read the rows from global memory), first choice first; the last, one query
+# read from global memory, fits wherever the kernels' first design did.
+# Staged tiles measured slower on an H100 than rows read through L1 at every
+# shape of the main path (PERF.md), so the rule takes none; the wrappers'
+# `tiles` argument reaches them.
+TILES = ((2, 2, 0), (1, 2, 0), (1, 1, 0))
+# a tile is taken where its blocks are at least this many times the SMs
+FILL = 2
+PLAN_FIELDS = ("ty", "tx", "tiles_y", "tiles_x", "blocks", "group", "threads", "vec", "stage",
+               "uy", "ux", "off_s", "off_s2", "off_nb", "off_qtok", "off_th", "off_bias",
+               "off_lse", "off_red", "off_aux", "off_utok", "off_buf",
+               "smem")  # kPlanInts, in order
+
+
+def _group(d, elems):
+    """Lanes that read one row: the chunks of a row, rounded up to a power
+    of 2, at most a warp."""
+    chunks = d // elems
+    return min(32, 1 << max(0, chunks - 1).bit_length())
+
+
+def _axis_span(n, k, dl):
+    """Positions of one axis in a tile's window union: n queries along an
+    axis of kernel k and dilation dl read i + m*dl (i < n, m < k), all of
+    0 .. n + (k-1)*dl - 1 where n >= dl, else k runs of n (the kernels'
+    ``axis_index`` numbers them)."""
+    return n + (k - 1) * dl if n >= dl else k * n
+
+
+def _union(ty, tx, kernel, dilation, mode):
+    """(uy, ux): rows and columns of a frame in a tile's window union; in
+    the audio geometry the columns are the whole timestep's."""
+    ux = kernel[2] if mode == "audio" else _axis_span(tx, kernel[2], dilation[2])
+    return _axis_span(ty, kernel[1], dilation[1]), ux
+
+
+def _layout(which, h, d, es, kn, tq, group, threads, ring, rows):
+    """Byte offsets of the kernel's shared arrays and the total, each array
+    16-byte aligned: scores (and, in the backward, dA) of every (head,
+    query, slot) in fp32, every query's slot table, the tile's tokens, the
+    talking-heads matrix, the bias table, the backward's lse of the tile,
+    the shares of a row summed between the groups of a (head, query) unit
+    (and the backward's dth parts), the backward's mix of bos,
+    and where the plan stages (``ring`` buffers of ``rows`` union rows, else
+    0) the union's tokens and the ring of buffers of its rows and bos."""
+    slots = kn + 1
+    units = tq if rows else h * tq  # a stage's units: one head staged, else all
+    gpu = max(1, threads // group // units)  # the groups of a unit
+    # staged: two stages' shares in turn
+    red = (2 if rows else 1) * units * gpu * d if gpu > 1 else 0
+    bwd = which == "bwd_q"
+    if bwd:
+        red = max(red, h * h * max(1, threads // (h * h)))
+    sizes = [
+        ("off_s", 4 * h * tq * slots), ("off_s2", 4 * h * tq * slots if bwd else 0),
+        ("off_nb", 4 * tq * kn), ("off_qtok", 4 * tq), ("off_th", 4 * h * h),
+        ("off_bias", 4 * h * kn), ("off_lse", 4 * h * tq if bwd else 0), ("off_red", 4 * red),
+        ("off_aux", 4 * h * tq if bwd else 0), ("off_utok", 4 * rows),
+        ("off_buf", ring * (rows + 1) * d * es),
+    ]
+    offsets, at = {}, 0
+    for name, size in sizes:
+        offsets[name] = at
+        at += -(-size // 16) * 16
+    return offsets, at
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(which, b, h, t, d, es, fmap, kernel, dilation, mode, vec, *, tiles=TILES,
+              fill=FILL):
+    """The launch plan of the forward (``which="fwd"``) or query-side
+    (``"bwd_q"``) kernel: a dict of ``PLAN_FIELDS``.
+
+    A block owns a tile of ``ty x tx`` queries of one frame with all heads;
+    groups of ``group`` lanes read rows in 16-byte chunks; where ``stage``
+    is not 0 each head's window union (``uy x ux`` positions of each of the
+    window's frames) is staged in shared memory, in a ring of ``stage``
+    buffers. The plan is the first of
+    ``tiles`` (``TILES``) that fits the frame and the shared memory and
+    gives at least ``fill`` (``FILL``) blocks an SM; the last candidate is
+    taken where none is. ``es``: bytes of an element; ``vec``: rows start
+    16-byte aligned and hold a whole number of 16-byte chunks (staging
+    needs it). The forward and query-side wrappers launch a staged plan's
+    kernels from ``csrc/sparse3dna_fwd_staged.cu`` and
+    ``csrc/sparse3dna_bwd_q_staged.cu``."""
+    fh, fw = fmap
+    kn = kernel[0] * kernel[1] * kernel[2]
+    group = _group(d, 16 // es if vec else 1)
+    frames = -(-t // (fh * fw))
+    for i, (ty, tx, stage) in enumerate(tiles):
+        if stage not in (0, 2, 3, 4):
+            raise ValueError(f"a tile stages in a ring of 2-4 buffers, or 0, not {stage}")
+        if stage and not vec:
+            raise ValueError("a staged tile needs rows of whole 16-byte chunks, 16-byte aligned")
+        last = i == len(tiles) - 1
+        tq = ty * tx
+        tiles_y, tiles_x = -(-fh // ty), -(-fw // tx)
+        blocks = frames * tiles_y * tiles_x
+        # threads: a whole number of warps, enough for one group a unit
+        units = tq if stage else h * tq
+        threads = max(_THREADS, -(-min(units, _MAX_THREADS[which] // group) * group // 32) * 32)
+        if not last and (ty > fh or tx > fw or b * blocks < fill * SMS):
+            continue
+        uy, ux = _union(ty, tx, kernel, dilation, mode) if stage else (0, 0)
+        offsets, smem = _layout(which, h, d, es, kn, tq, group, threads, stage,
+                                kernel[0] * uy * ux)
+        if smem <= SMEM_LIMIT or last:
+            return dict(ty=ty, tx=tx, tiles_y=tiles_y, tiles_x=tiles_x, blocks=blocks,
+                        group=group, threads=threads, vec=int(vec), stage=stage, uy=uy, ux=ux,
+                        **offsets, smem=smem)
+    raise ValueError(f"no tile candidates for {which}")
+
+
+def _plan_args(which, q, geometry, tensors, tiles=None):
+    """(plan dict, ctypes int array) for a launch on these tensors in
+    ``geometry`` (fmap, kernel, dilation, mode); ``tiles``: candidates taken
+    in place of the rule's, with its fill rule off (``TILES`` where None)."""
+    b, h, t, d = q.shape
+    es = q.element_size()
+    vec = (d * es) % 16 == 0 and all(x.data_ptr() % 16 == 0 for x in tensors)
+    rule = dict(tiles=tuple(map(tuple, tiles)), fill=0) if tiles else {}
+    plan = tile_plan(which, b, h, t, d, es, *(tuple(geometry[k]) for k in
+                                              ("fmap", "kernel", "dilation")),
+                     geometry["mode"], vec, **rule)
+    return plan, (ctypes.c_int * len(PLAN_FIELDS))(*(plan[f] for f in PLAN_FIELDS))
+
+
+def launch_plan(which, q, *, fmap, kernel, dilation, mode="causal", tiles=None):
+    """The plan (``tile_plan``) with which the forward (``which="fwd"``) or
+    query-side (``"bwd_q"``) wrapper launches on q (b, h, t, d) in the given
+    geometry, given the wrapper's ``tiles`` argument."""
+    geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
+    return _plan_args(which, q, geometry, [q], tiles)[0]
+
+
 def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
                           *, fmap, kernel, dilation, mode="causal", dropout=None):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
@@ -291,11 +440,14 @@ def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="
 def _library(name):
     """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
     an int dtype, pointers, then ints (b, heads, t, d and the geometry), the
-    forward's and the query side's dropout (on, seed, threshold, scale),
+    forward's and the query side's dropout (on, seed, threshold, scale) and
+    the Sparse3DNA forward's and query side's launch plan (``tile_plan``),
     then the stream."""
     pointers, ints = {
         "sparse3dna_fwd": (9, 13),
+        "sparse3dna_fwd_staged": (9, 13),
         "sparse3dna_bwd_q": (13, 13),
+        "sparse3dna_bwd_q_staged": (13, 13),
         "sparse3dna_bwd_kv": (6, 13),
         "sparse_cross2dna_fwd": (9, 8),
         "sparse_cross2dna_bwd_q": (13, 8),
@@ -303,10 +455,11 @@ def _library(name):
     }[name]
     drop = ([ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
             if not name.endswith("_bwd_kv") else [])
+    plan = [ctypes.POINTER(ctypes.c_int)] if name.startswith("sparse3dna_") and drop else []
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + drop
+        [ctypes.c_int] + [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + drop + plan
         + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -315,10 +468,10 @@ def _library(name):
     return lib
 
 
-def _launch(name, dtype, pointers, ints, device):
+def _launch(name, dtype, pointers, ints, device, plan=()):
     lib = _library(name)
     rc = getattr(lib, f"nuwa_{name}")(
-        _DTYPES[dtype], *pointers, *ints, torch.cuda.current_stream(device).cuda_stream
+        _DTYPES[dtype], *pointers, *ints, *plan, torch.cuda.current_stream(device).cuda_stream
     )
     if rc != 0:
         msg = lib.nuwa_cuda_error_string(rc).decode()
@@ -340,12 +493,12 @@ def _check_geometry(fmap, kernel, dilation, mode):
 def _check_cuda(name, q, fmap, kernel, dilation, tensors):
     """Raise on anything the kernels do not take. ``tensors``: (name, tensor,
     shape, dtype) to check beside q (b, h, t, d). A frame of any size is
-    taken: the kernels bound only the heads (one warp each, 32 a block),
-    the head dim (8 registers a lane) and what their 32-bit ints index,
-    t and the token ids of the windows, which reach at most one window's
-    frames past t. The forward's shared memory grows with Kn (K·H in the
-    audio geometry): past the card's opt-in maximum its launch fails, and
-    ``_launch`` raises."""
+    taken: the kernels bound only the heads (32), the head dim (8 elements
+    a lane) and what their 32-bit ints index, t and the token ids of the
+    windows, which reach at most one window's frames past t. The shared
+    memory of the forward and query-side kernels grows with h·Kn (K·H in
+    the audio geometry): past the card's opt-in maximum the launch fails,
+    and ``_launch`` raises."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
     b, h, t, d = q.shape
@@ -391,7 +544,7 @@ def _count(fn, mode, dropout):
 
 
 def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                    *, fmap, kernel, dilation, mode="causal", dropout=None):
+                    *, fmap, kernel, dilation, mode="causal", dropout=None, tiles=None):
     """Sparse3DNA attention of t queries over their dilated neighbourhoods
     (causal windows, centered ones with ``mode="centered"``, or with
     ``mode="audio"`` the whole-timestep windows of SparseCausal2DNA) plus bos.
@@ -400,8 +553,11 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     (b, h, 1, d); talking_heads: (h, h); rel_bias: (h, kf*kh*kw) or None;
     fmap: (height, width) of a frame, (1, H) in the audio geometry; kernel,
     dilation: per-axis triples, (K, 1, H) and (d, 1, 1) in the audio
-    geometry; dropout: (rate, seed) or None. Returns out (b, h, t, d) in q's
-    dtype and lse (b, h, t) in fp32, the undropped softmax's.
+    geometry; dropout: (rate, seed) or None; tiles: (rows, columns, staged)
+    tile candidates taken in place of ``TILES``, the first that fits the
+    frame and the shared memory, else the last (``tile_plan`` with its fill
+    rule off), or None. Returns out (b, h, t, d) in q's dtype and lse (b,
+    h, t) in fp32, the undropped softmax's.
     """
     _check_geometry(fmap, kernel, dilation, mode)
     dropout = _dropout(dropout)
@@ -423,17 +579,19 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
     if t == 0:
         return out, lse
-    _launch("sparse3dna_fwd", q.dtype,
+    geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
+    plan, plan_arg = _plan_args("fwd", q, geometry, [*ins, out], tiles)
+    _launch("sparse3dna_fwd_staged" if plan["stage"] else "sparse3dna_fwd", q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), out.data_ptr(),
              lse.data_ptr()],
             [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], *_drop_args(dropout)],
-            q.device)
+            q.device, [plan_arg])
     _count(sparse_3dna_fwd, mode, dropout)
     return out, lse
 
 
 def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                      *, fmap, kernel, dilation, mode="causal", dropout=None):
+                      *, fmap, kernel, dilation, mode="causal", dropout=None, tiles=None):
     """Query side of the Sparse3DNA backward.
 
     Takes the forward's arguments (its dropout too), its output cotangent
@@ -441,7 +599,7 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     dtype), dS and the mixed probabilities mix, dropped with dropout (both
     (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos and dv_bos ((b, h, 1,
     d), k_bos's dtype), dth (h, h) fp32 and the rel-pos bias cotangent (h,
-    Kn) fp32, or None without a bias.
+    Kn) fp32, or None without a bias. ``tiles``: as ``sparse_3dna_fwd``'s.
     """
     _check_geometry(fmap, kernel, dilation, mode)
     dropout = _dropout(dropout)
@@ -464,19 +622,21 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
     dq = torch.empty_like(ins[0])
     ds = torch.empty(b, h, t, kn + 1, device=q.device, dtype=torch.float32)
     mix = torch.empty_like(ds)
-    # each block's sums over its queries: [dth | dk_bos | dv_bos | dbias];
-    # 30 MB at b = 2, t = 10,239, 8 heads of 64, Kn = 45 (the fmap-32 training shape)
+    # each tile's sums over its queries: [dth | dk_bos | dv_bos | dbias], one
+    # slot a block of the plan's grid
     hh, hd = h * h, h * d
-    blocks = -(-t // _QUERIES_PER_BLOCK)
-    partial = torch.empty(b, blocks, hh + 2 * hd + (h * kn if bias is not None else 0),
+    geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
+    plan, plan_arg = _plan_args("bwd_q", q, geometry, [*ins, grad, dq], tiles)
+    partial = torch.empty(b, plan["blocks"] if t > 0 else 0,
+                          hh + 2 * hd + (h * kn if bias is not None else 0),
                           device=q.device, dtype=torch.float32)
     if t > 0:
-        _launch("sparse3dna_bwd_q", q.dtype,
+        _launch("sparse3dna_bwd_q_staged" if plan["stage"] else "sparse3dna_bwd_q", q.dtype,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  partial.data_ptr()],
                 [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], *_drop_args(dropout)],
-                q.device)
+                q.device, [plan_arg])
         _count(sparse_3dna_bwd_q, mode, dropout)
     sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
     dth = sums[:, :hh].sum(dim=0).view(h, h)

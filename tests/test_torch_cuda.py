@@ -581,3 +581,77 @@ def test_sparse_cross2dna_dropout_kernels_match_plain(dtype, tol, case):
                                    leaves, g)
         for a, b in zip(gots, wants):
             assert _rel_err(a, b) <= 1e-5
+
+
+# (tile candidates (rows, columns, buffers of the ring each head's window
+# union is staged in, or 0 to read through L1), first choice first; fmap, kernel, dilation, mode; t;
+# heads, head dim): each case passes its candidates to the wrappers, so
+# small shapes run the tiles the main path's large ones take. Ragged tiles
+# at a frame's edge (fmap 12, 12 x 9), a ragged last frame, frames narrower
+# than a tile (fmap 4, audio H = 1 and 4, where the candidates fall to 1 x 4
+# and one query), dilation 4 (the widest union) and anisotropic dilations,
+# 32 heads of 256, one head, and the rows read through L1 (17 heads: a
+# block of 288 threads).
+TILE_CASES = {
+    "2x2 causal fmap 12": (((2, 2, 2),), dict(fmap=(12, 12), kernel=(5, 3, 3),
+                                              dilation=(1, 2, 2)), 2 * 144 - 7, 4, 32),
+    "1x2 centered 12x9, ring 3": (((1, 2, 3),), dict(fmap=(12, 9), kernel=(3, 3, 3),
+                                                     dilation=(2, 1, 3), mode="centered"),
+                                  3 * 108 - 50, 4, 32),
+    "4x4 dilation 4": (((4, 4, 2),), dict(fmap=(12, 12), kernel=(5, 3, 3), dilation=(4, 4, 4)),
+                       2 * 144 - 1, 2, 16),
+    "2x2 dilation 4, ring 4": (((2, 2, 4),), dict(fmap=(12, 12), kernel=(5, 3, 3),
+                                                  dilation=(4, 4, 4)), 2 * 144 - 1, 4, 32),
+    "4x8 fmap 12": (((4, 8, 2),), dict(fmap=(12, 12), kernel=(5, 3, 3), dilation=(2, 2, 2)),
+                    2 * 144 - 20, 4, 32),
+    "2x4 fmap 4": (((8, 8, 2), (2, 4, 2)), dict(fmap=(4, 4), kernel=(3, 5, 3),
+                                                dilation=(2, 1, 2)), 37, 4, 32),
+    "audio H=4": (((2, 2, 2), (1, 4, 3)), dict(fmap=(1, 4), kernel=(7, 1, 4), dilation=(1, 1, 1),
+                                               mode="audio"), 38, 4, 32),
+    "audio H=1": (((2, 2, 2), (1, 2, 2), (1, 1, 4)), dict(fmap=(1, 1), kernel=(7, 1, 1),
+                                                          dilation=(2, 1, 1), mode="audio"),
+                  40, 4, 32),
+    "32 heads of 256": (((2, 2, 2),), dict(fmap=(4, 4), kernel=(3, 3, 3), dilation=(1, 1, 1)),
+                        37, 32, 256),
+    "one head": (((2, 2, 2),), dict(fmap=(8, 8), kernel=(3, 3, 3), dilation=(1, 2, 1),
+                                    mode="centered"), 2 * 64 - 3, 1, 64),
+    "2x2 through L1": (((2, 2, 0),), dict(fmap=(12, 12), kernel=(5, 3, 3),
+                                          dilation=(1, 2, 2)), 2 * 144 - 7, 4, 32),
+    "17 heads through L1": (((1, 1, 0),), dict(fmap=(4, 4), kernel=(3, 3, 3),
+                                               dilation=(1, 1, 1)), 37, 17, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("drop", [None, (0.1, 1234567)])
+def test_sparse3dna_tiles_match_plain(dtype, tol, case, drop):
+    """The forward and query-side kernels at the query tiles of
+    ``kernels.nda.tile_plan`` (each case's candidates: the first that fits
+    its frame, else the last) against their plain versions, with and
+    without dropout: out, lse and every query-side output within the
+    causal test's tolerances, every query-side output equal bit for bit
+    across two calls, and the launch planned with the tile the case names."""
+    _needs_cuda()
+    tiles, geo, t, h, d = TILE_CASES[case]
+    kn = geo["kernel"][0] * geo["kernel"][1] * geo["kernel"][2]
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, h=h, d=d, kn=kn, seed=t + 3)
+    args = (q, k, v, kb, vb, th, rel)
+    plan = knda.launch_plan("bwd_q", q, **geo, tiles=tiles)
+    fits = [tile for tile in tiles if tile[0] <= geo["fmap"][0] and tile[1] <= geo["fmap"][1]]
+    assert (plan["ty"], plan["tx"], plan["stage"]) == (fits or tiles[-1:])[0]
+    got = knda.sparse_3dna_fwd(*args, dropout=drop, tiles=tiles, **geo)
+    want = knda.sparse_3dna_fwd_plain(*args, dropout=drop, **geo)
+    lse = want[1]
+    runs = [knda.sparse_3dna_bwd_q(*args, g, lse, dropout=drop, tiles=tiles, **geo)
+            for _ in range(2)]
+    want += knda.sparse_3dna_bwd_q_plain(*args, g, lse, dropout=drop, **geo)
+    torch.cuda.synchronize()
+    for a, a2 in zip(*runs):
+        assert torch.equal(a, a2)
+    names = ("out", "lse", "dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias")
+    for name, a, b in zip(names, (*got, *runs[0]), want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        err = _rel_err(a, b)
+        assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"
