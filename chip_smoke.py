@@ -255,19 +255,29 @@ def bound_ms(nbytes, ops, dtype):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def tiles_text(knda, q, kw, names=("fwd", "bwd_q")):
-    """The query tile, block and shared memory with which B1 and B2 launch on
-    q in the geometry ``kw`` (``kernels.nda.tile_plan``): staged (each
-    head's window union of uy x ux positions a frame in shared memory) or
-    read through L1."""
-    parts = []
+def plan_text(which, p):
+    """One launch plan (``kernels.nda.tile_plan``) in words: its tile, staged
+    (each head's window union of uy x ux positions a frame in shared memory)
+    or read through L1, its block and its shared memory."""
+    tokens = "keys" if which == "bwd_kv" else "queries"
+    how = f"staged union {p['uy']}x{p['ux']}" if p["stage"] else "read through L1"
+    return (f"{which} {p['ty']}x{p['tx']} {tokens} a block, {how}, {p['threads']} threads, "
+            f"{p['group']} lanes a row, {p['smem']} B shared")
+
+
+def tiles_text(knda, q, kw, names=("fwd", "bwd_q", "bwd_kv")):
+    """The tiles with which B1, B2 and B3 launch on q in the geometry
+    ``kw``."""
     geometry = {k: kw[k] for k in ("fmap", "kernel", "dilation", "mode", "tiles") if k in kw}
-    for which in names:
-        p = knda.launch_plan(which, q, **geometry)
-        how = f"staged union {p['uy']}x{p['ux']}" if p["stage"] else "read through L1"
-        parts.append(f"{which} {p['ty']}x{p['tx']} queries a block, {how}, {p['threads']} "
-                     f"threads, {p['group']} lanes a row, {p['smem']} B shared")
-    return "tiles: " + "; ".join(parts)
+    return "tiles: " + "; ".join(plan_text(which, knda.launch_plan(which, q, **geometry))
+                                 for which in names)
+
+
+def cross_tiles_text(kcross, q, lc, kw):
+    """The tile with which the cross query side (B9q) launches on q against
+    Lc context tokens in the geometry ``kw``."""
+    geometry = {k: kw[k] for k in ("fmap", "kernel_size", "dilation", "tiles") if k in kw}
+    return "tiles: " + plan_text("cross_bwd_q", kcross.launch_plan(q, lc, **geometry))
 
 
 def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="causal"):
@@ -1270,6 +1280,8 @@ def time_cross_bwd(kcross):
         _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **kw)
         _, ds, mix, *_ = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw)
         bounds = cross_bwd_bounds(kcross, b, t, frames, mask, dtype)
+        print(f"cross backward b={b} t={t} Lc={frames * SKETCH_FMAP**2}: "
+              f"{cross_tiles_text(kcross, args[0], frames * SKETCH_FMAP**2, kw)}", flush=True)
         fwd_ms = device_ms(lambda: kcross.sparse_cross_2dna_fwd(*args, mask, **kw))
         bound, by = cross_bound(kcross, b, t, frames, mask, dtype)
         print(f"sparse_cross_2dna_fwd bf16 b={b} t={t} Lc={frames * SKETCH_FMAP**2}: kernel "
@@ -2246,7 +2258,7 @@ def time_audio_bwd(knda):
         bounds = nda_bounds(knda, b, t, kw["dilation"], dtype, True, kw["fmap"], kw["kernel"],
                             "audio")
         print(f"audio geometry ({name}) b={b} t={t}: "
-              f"{tiles_text(knda, args[0], kw, ('bwd_q',))}", flush=True)
+              f"{tiles_text(knda, args[0], kw, ('bwd_q', 'bwd_kv'))}", flush=True)
         for kname, kernel, plain in (
             ("bwd_q", lambda: knda.sparse_3dna_bwd_q(*args, g, lse, **kw),
              lambda: knda.sparse_3dna_bwd_q_plain(*args, g, lse, **kw)),
@@ -2622,6 +2634,8 @@ def cross_dropout_rows():
         # times, bf16: with and without dropout, and the plain version with it
         args = cross_inputs(b, t, frames, SKETCH_FMAP, torch.bfloat16, gen)
         g = torch.randn(args[0].shape, generator=gen, device="cuda").to(torch.bfloat16)
+        print(f"cross dropout {name} b={b} t={t}: "
+              f"{cross_tiles_text(kcross, args[0], frames * SKETCH_FMAP**2, kw)}", flush=True)
         _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **dkw)
         _, ds, mix, *_ = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **dkw)
         bwd_bounds = cross_bwd_bounds(kcross, b, t, frames, mask, torch.bfloat16)

@@ -56,9 +56,13 @@ import functools
 
 import torch
 
-from .nda import _DTYPES, _drop_args, _dropout, _dropped, _gathered, _launch
+from .nda import TILES as _NDA_TILES
+from .nda import _DTYPES, _drop_args, _dropout, _dropped, _gathered, _launch, _plan_args
 
-_QUERIES_PER_BLOCK = 4  # kQueriesPerBlock of csrc/sparse_cross2dna_bwd_q.cu
+# the query side's tile candidates, first choice first: 2 x 4 query positions
+# measured 7-9% faster than the Sparse3DNA kernels' first choice, 2 x 2, on an
+# H100 at the sketch shapes (kernel_ab.py tiles), then those kernels' own
+TILES = ((2, 4, 0), *_NDA_TILES)
 
 
 @functools.lru_cache(maxsize=64)
@@ -253,8 +257,24 @@ def sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel_size, dilat
     return out[0].to(q.dtype), out[1].to(q.dtype)
 
 
+def _plan(q, lc, fmap, kernel_size, dilation, tensors, tiles):
+    """(plan dict, ctypes int array) of the query-side kernel: tiles of
+    query positions of one video frame, by the Sparse3DNA kernels' rule
+    (``kernels.nda.tile_plan`` with which = "cross_bwd_q", the window
+    (Fc, k, k) of the Fc context frames and the candidates ``TILES``)."""
+    geometry = dict(fmap=(fmap, fmap), kernel=(lc // (fmap * fmap), kernel_size, kernel_size),
+                    dilation=(1, dilation, dilation), mode="centered")
+    return _plan_args("cross_bwd_q", q, geometry, tensors, tiles, TILES)
+
+
+def launch_plan(q, lc, *, fmap, kernel_size, dilation, tiles=None):
+    """The plan with which ``sparse_cross_2dna_bwd_q`` launches on q
+    (b, h, t, d) against Lc context tokens, given its ``tiles`` argument."""
+    return _plan(q, lc, fmap, kernel_size, dilation, [q], tiles)[0]
+
+
 def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
-                            *, fmap, kernel_size, dilation, dropout=None):
+                            *, fmap, kernel_size, dilation, dropout=None, tiles=None):
     """Query side of the SparseCross2DNA backward.
 
     Takes the forward's arguments (its dropout too), its output cotangent
@@ -262,7 +282,9 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
     dS and the mixed probabilities mix, dropped with dropout (both (b, h, t,
     Fc * k * k + 1) fp32, slot 0 being the null key, a masked or
     out-of-frame slot 0 in both), dnull_k and dnull_v (b, h, 1, d) fp32, one
-    sum per batch row, and dth (h, h) fp32.
+    sum per batch row, and dth (h, h) fp32. ``tiles``: (rows, columns, 0)
+    tiles of query positions taken in place of ``TILES``, the first that
+    fits the frame, else the last.
     """
     dropout = _dropout(dropout)
     if q.device.type == "cpu":
@@ -283,16 +305,19 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
     dq = torch.empty_like(ins[0])
     ds = torch.empty(b, h, t, slots, device=q.device, dtype=torch.float32)
     mix = torch.empty_like(ds)
-    # each block's sums over its queries: [dth | dnull_k | dnull_v]
+    # each tile's sums over its queries: [dth | dnull_k | dnull_v], one slot
+    # a block of the plan's grid
     hh, hd = h * h, h * d
-    partial = torch.empty(b, -(-t // _QUERIES_PER_BLOCK), hh + 2 * hd, device=q.device,
+    plan, plan_arg = _plan(q, lc, fmap, kernel_size, dilation, [*ins, grad, dq], tiles)
+    partial = torch.empty(b, plan["blocks"] if t > 0 else 0, hh + 2 * hd, device=q.device,
                           dtype=torch.float32)
     if t > 0:
         _launch("sparse_cross2dna_bwd_q", q.dtype,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  partial.data_ptr()],
-                [b, h, t, d, lc, fmap, kernel_size, dilation, *_drop_args(dropout)], q.device)
+                [b, h, t, d, lc, fmap, kernel_size, dilation, *_drop_args(dropout)], q.device,
+                [plan_arg])
         _count(sparse_cross_2dna_bwd_q, dropout)
     sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
     dth = sums[:, :hh].sum(dim=0).view(h, h)

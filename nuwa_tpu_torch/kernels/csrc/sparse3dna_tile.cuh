@@ -1,7 +1,8 @@
-// Query tiles of the Sparse3DNA forward and query-side backward kernels
-// (sparse3dna_fwd.cu, sparse3dna_bwd_q.cu, and their staged variants
-// sparse3dna_fwd_staged.cu, sparse3dna_bwd_q_staged.cu): a block owns a
-// tile of queries of one frame with all heads.
+// Tiles of the Sparse3DNA kernels (sparse3dna_fwd.cu, sparse3dna_bwd_q.cu,
+// their staged variants sparse3dna_fwd_staged.cu and
+// sparse3dna_bwd_q_staged.cu, and the key side sparse3dna_bwd_kv.cu) and of
+// the SparseCross2DNA query side (sparse_cross2dna_bwd_q.cu): a block owns a
+// tile of queries (the key side: of keys) of one frame with all heads.
 //
 // The tile is ty x tx queries at (y0, x0) of frame f (tiles_y x tiles_x
 // tiles a frame, the last ones ragged at the frame's edge). The block's
@@ -55,7 +56,7 @@ __host__ inline Plan read_plan(const int* v) {
 }
 
 constexpr int kBatch = 8;  // slots a group scores at once
-constexpr int kAxpyBatch = 4;  // slots a group weights into its output row at once
+constexpr int kAxpyBatch = 4;  // slots (the key side: pairs) a group weights into its row at once
 
 // What a block knows of its tile.
 struct TileView {

@@ -153,9 +153,9 @@ __global__ void __launch_bounds__(1024) sparse_cross2dna_fwd_kernel(
       if (e < d) acc = fmaf(qr[r], to_f(kr[e]), acc);
     }
     acc = warp_sum(acc);
-    // the null column is never masked; the backward kernel recomputes this
-    // score with the same fmaf chain and shuffle order, so a row whose
-    // context is all masked gets P = exp(score - lse) = 1 exactly there
+    // the null column is never masked: a row whose context is all masked
+    // has it alone, P = 1 exactly and lse the score itself, as the
+    // backward kernel takes it
     if (lane == 0) p[0] = acc;
   }
   for (int j = 0; j < kn; ++j) {

@@ -38,13 +38,13 @@ a block's queries and keys fit VMEM as dense tiles. The Hopper kernels have
 no such tiles: each finds every neighbour from its coordinates and checks
 each axis against the grid, so a window that reaches past a frame's first
 or last row is masked where the TPU kernel reads a padded row, and nothing
-is sized by the frame. A block of the forward and query-side kernels owns a
-tile of queries of one frame with all heads (``tile_plan``: the first of
+is sized by the frame. A block of each kernel owns a tile of queries (the
+key side: of keys) of one frame with all heads (``tile_plan``: the first of
 ``TILES`` whose grid still fills the card and whose shared memory fits:
-2 x 2, 1 x 2 or one query, rows read through L1), or, given such a tile
-through the ``tiles`` argument, stages each head's window union of key and
-value rows in shared memory; the key side runs one block per (key, batch
-row). The rel-pos bias is the same
+2 x 2, 1 x 2 or one token, rows read through L1); given such a tile
+through the ``tiles`` argument, the forward and query-side kernels also
+stage each head's window union of key and value rows in shared memory.
+The rel-pos bias is the same
 (h, Kn) table in both families (``_rb_bias_tensors`` builds it from the same axial tables
 as ``_axial_tables``), so ``Sparse3DNA.rel_bias`` serves every frame size.
 
@@ -210,13 +210,16 @@ def valid_pairs(t, fmap, kernel, dilation, mode="causal") -> int:
 
 
 # ---------------------------------------------------------------------------
-# Query tiles of the forward and query-side kernels (csrc/sparse3dna_tile.cuh)
+# Tiles of the kernels (csrc/sparse3dna_tile.cuh): queries of the forward and
+# query-side kernels (the cross query side's too), keys of the key side
 # ---------------------------------------------------------------------------
 
 SMEM_LIMIT = 232_448  # shared memory a block may opt into on an H100 (227 KB)
 SMS = 132  # the H100's streaming multiprocessors
 _THREADS = 256  # threads of a block, or more where a tile's groups need them
-_MAX_THREADS = {"fwd": 256, "bwd_q": 512}  # the kernels' __launch_bounds__
+# the kernels' __launch_bounds__: Sparse3DNA's forward, query side and key
+# side, and SparseCross2DNA's query side (csrc/sparse_cross2dna_bwd_q.cu)
+_MAX_THREADS = {"fwd": 256, "bwd_q": 512, "bwd_kv": 256, "cross_bwd_q": 512}
 # tile candidates (rows, columns of queries of one frame, buffers of the ring
 # in which each head's window union is staged in shared memory, 2-4, or 0 to
 # read the rows from global memory), first choice first; the last, one query
@@ -257,26 +260,33 @@ def _union(ty, tx, kernel, dilation, mode):
 
 def _layout(which, h, d, es, kn, tq, group, threads, ring, rows):
     """Byte offsets of the kernel's shared arrays and the total, each array
-    16-byte aligned: scores (and, in the backward, dA) of every (head,
-    query, slot) in fp32, every query's slot table, the tile's tokens, the
-    talking-heads matrix, the bias table, the backward's lse of the tile,
-    the shares of a row summed between the groups of a (head, query) unit
-    (and the backward's dth parts), the backward's mix of bos,
+    16-byte aligned: scores (and, in the query-side backward, dA) of every
+    (head, query, slot) in fp32, every query's slot table (the key side's:
+    every key's pairs' queries), the tile's tokens, the talking-heads matrix,
+    the bias table (Sparse3DNA's forward and query side), the query side's
+    lse of the tile, the shares of a row summed between the groups of a
+    (head, token) unit (two rows, dk and dv, on the key side; and the query
+    side's dth parts), the query side's mix of bos (or of the null column;
+    the key side's slot of each pair),
     and where the plan stages (``ring`` buffers of ``rows`` union rows, else
     0) the union's tokens and the ring of buffers of its rows and bos."""
     slots = kn + 1
     units = tq if rows else h * tq  # a stage's units: one head staged, else all
     gpu = max(1, threads // group // units)  # the groups of a unit
-    # staged: two stages' shares in turn
-    red = (2 if rows else 1) * units * gpu * d if gpu > 1 else 0
-    bwd = which == "bwd_q"
+    # staged: two stages' shares in turn; the key side: dk's and dv's
+    red = (2 if rows or which == "bwd_kv" else 1) * units * gpu * d if gpu > 1 else 0
+    bwd = which in ("bwd_q", "cross_bwd_q")
     if bwd:
         red = max(red, h * h * max(1, threads // (h * h)))
+    scores = which != "bwd_kv"
     sizes = [
-        ("off_s", 4 * h * tq * slots), ("off_s2", 4 * h * tq * slots if bwd else 0),
-        ("off_nb", 4 * tq * kn), ("off_qtok", 4 * tq), ("off_th", 4 * h * h),
-        ("off_bias", 4 * h * kn), ("off_lse", 4 * h * tq if bwd else 0), ("off_red", 4 * red),
-        ("off_aux", 4 * h * tq if bwd else 0), ("off_utok", 4 * rows),
+        ("off_s", 4 * h * tq * slots if scores else 0),
+        ("off_s2", 4 * h * tq * slots if bwd else 0),
+        ("off_nb", 4 * tq * kn), ("off_qtok", 4 * tq), ("off_th", 4 * h * h if scores else 0),
+        ("off_bias", 4 * h * kn if which in ("fwd", "bwd_q") else 0),
+        ("off_lse", 4 * h * tq if bwd else 0), ("off_red", 4 * red),
+        ("off_aux", 4 * h * tq if bwd else 4 * tq * kn if which == "bwd_kv" else 0),
+        ("off_utok", 4 * rows),
         ("off_buf", ring * (rows + 1) * d * es),
     ]
     offsets, at = {}, 0
@@ -289,14 +299,18 @@ def _layout(which, h, d, es, kn, tq, group, threads, ring, rows):
 @functools.lru_cache(maxsize=256)
 def tile_plan(which, b, h, t, d, es, fmap, kernel, dilation, mode, vec, *, tiles=TILES,
               fill=FILL):
-    """The launch plan of the forward (``which="fwd"``) or query-side
-    (``"bwd_q"``) kernel: a dict of ``PLAN_FIELDS``.
+    """The launch plan of the forward (``which="fwd"``), query-side
+    (``"bwd_q"``) or key-side (``"bwd_kv"``) kernel, or of the
+    SparseCross2DNA query side (``"cross_bwd_q"``, with ``kernel`` (Fc, k,
+    k), ``dilation`` (1, dl, dl), ``fmap`` the square frames and t the
+    video queries): a dict of ``PLAN_FIELDS``.
 
-    A block owns a tile of ``ty x tx`` queries of one frame with all heads;
-    groups of ``group`` lanes read rows in 16-byte chunks; where ``stage``
-    is not 0 each head's window union (``uy x ux`` positions of each of the
-    window's frames) is staged in shared memory, in a ring of ``stage``
-    buffers. The plan is the first of
+    A block owns a tile of ``ty x tx`` queries (the key side: keys) of one
+    frame with all heads; groups of ``group`` lanes read rows in 16-byte
+    chunks; where ``stage`` is not 0 (forward and query side only) each
+    head's window union (``uy x ux`` positions of each of the window's
+    frames) is staged in shared memory, in a ring of ``stage`` buffers. The
+    plan is the first of
     ``tiles`` (``TILES``) that fits the frame and the shared memory and
     gives at least ``fill`` (``FILL``) blocks an SM; the last candidate is
     taken where none is. ``es``: bytes of an element; ``vec``: rows start
@@ -313,13 +327,20 @@ def tile_plan(which, b, h, t, d, es, fmap, kernel, dilation, mode, vec, *, tiles
             raise ValueError(f"a tile stages in a ring of 2-4 buffers, or 0, not {stage}")
         if stage and not vec:
             raise ValueError("a staged tile needs rows of whole 16-byte chunks, 16-byte aligned")
+        if stage and which not in ("fwd", "bwd_q"):
+            raise ValueError(f"the {which} kernel stages no window union")
         last = i == len(tiles) - 1
         tq = ty * tx
         tiles_y, tiles_x = -(-fh // ty), -(-fw // tx)
         blocks = frames * tiles_y * tiles_x
-        # threads: a whole number of warps, enough for one group a unit
+        # threads: a whole number of warps, enough for one group a unit, and at
+        # least _THREADS, whose spare groups share a unit's slots; the key side
+        # takes the spare groups only where its grid does not fill the card
+        # (they measured slower on an H100 where it does)
         units = tq if stage else h * tq
-        threads = max(_THREADS, -(-min(units, _MAX_THREADS[which] // group) * group // 32) * 32)
+        threads = -(-min(units, _MAX_THREADS[which] // group) * group // 32) * 32
+        if which != "bwd_kv" or b * blocks < fill * SMS:
+            threads = max(_THREADS, threads)
         if not last and (ty > fh or tx > fw or b * blocks < fill * SMS):
             continue
         uy, ux = _union(ty, tx, kernel, dilation, mode) if stage else (0, 0)
@@ -332,14 +353,14 @@ def tile_plan(which, b, h, t, d, es, fmap, kernel, dilation, mode, vec, *, tiles
     raise ValueError(f"no tile candidates for {which}")
 
 
-def _plan_args(which, q, geometry, tensors, tiles=None):
+def _plan_args(which, q, geometry, tensors, tiles=None, candidates=TILES):
     """(plan dict, ctypes int array) for a launch on these tensors in
     ``geometry`` (fmap, kernel, dilation, mode); ``tiles``: candidates taken
-    in place of the rule's, with its fill rule off (``TILES`` where None)."""
+    in place of the rule's ``candidates``, with its fill rule off."""
     b, h, t, d = q.shape
     es = q.element_size()
     vec = (d * es) % 16 == 0 and all(x.data_ptr() % 16 == 0 for x in tensors)
-    rule = dict(tiles=tuple(map(tuple, tiles)), fill=0) if tiles else {}
+    rule = dict(tiles=tuple(map(tuple, tiles)), fill=0) if tiles else dict(tiles=candidates)
     plan = tile_plan(which, b, h, t, d, es, *(tuple(geometry[k]) for k in
                                               ("fmap", "kernel", "dilation")),
                      geometry["mode"], vec, **rule)
@@ -347,9 +368,10 @@ def _plan_args(which, q, geometry, tensors, tiles=None):
 
 
 def launch_plan(which, q, *, fmap, kernel, dilation, mode="causal", tiles=None):
-    """The plan (``tile_plan``) with which the forward (``which="fwd"``) or
-    query-side (``"bwd_q"``) wrapper launches on q (b, h, t, d) in the given
-    geometry, given the wrapper's ``tiles`` argument."""
+    """The plan (``tile_plan``) with which the forward (``which="fwd"``),
+    query-side (``"bwd_q"``) or key-side (``"bwd_kv"``) wrapper launches on
+    q (b, h, t, d) in the given geometry, given the wrapper's ``tiles``
+    argument."""
     geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
     return _plan_args(which, q, geometry, [q], tiles)[0]
 
@@ -441,8 +463,8 @@ def _library(name):
     """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
     an int dtype, pointers, then ints (b, heads, t, d and the geometry), the
     forward's and the query side's dropout (on, seed, threshold, scale) and
-    the Sparse3DNA forward's and query side's launch plan (``tile_plan``),
-    then the stream."""
+    the launch plan (``tile_plan``) of every Sparse3DNA kernel and of the
+    SparseCross2DNA query side, then the stream."""
     pointers, ints = {
         "sparse3dna_fwd": (9, 13),
         "sparse3dna_fwd_staged": (9, 13),
@@ -455,7 +477,8 @@ def _library(name):
     }[name]
     drop = ([ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
             if not name.endswith("_bwd_kv") else [])
-    plan = [ctypes.POINTER(ctypes.c_int)] if name.startswith("sparse3dna_") and drop else []
+    tiled = name.startswith("sparse3dna_") or name == "sparse_cross2dna_bwd_q"
+    plan = [ctypes.POINTER(ctypes.c_int)] if tiled else []
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")
     fn.argtypes = (
@@ -647,12 +670,13 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
 
 
 def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal",
-                       dropout=None):
+                       dropout=None, tiles=None):
     """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
     from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
     ``sparse_3dna_bwd_q`` returned. Those carry the forward's dropout, so
     the function is the same with or without it; ``dropout`` only counts
-    the launch as a dropout launch."""
+    the launch as a dropout launch. ``tiles``: key tiles (rows, columns, 0)
+    taken in place of the rule's, as ``sparse_3dna_fwd``'s."""
     _check_geometry(fmap, kernel, dilation, mode)
     dropout = _dropout(dropout)
     if q.device.type == "cpu":
@@ -669,9 +693,11 @@ def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal
     dk = torch.empty_like(ins[0])
     dv = torch.empty_like(ins[0])
     if t > 0:
+        geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
+        _, plan_arg = _plan_args("bwd_kv", q, geometry, [*ins[:2], dk, dv], tiles)
         _launch("sparse3dna_bwd_kv", q.dtype,
                 [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device)
+                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device, [plan_arg])
         _count(sparse_3dna_bwd_kv, mode, dropout)
     return dk, dv
 

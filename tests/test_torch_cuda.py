@@ -655,3 +655,89 @@ def test_sparse3dna_tiles_match_plain(dtype, tol, case, drop):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         err = _rel_err(a, b)
         assert err <= (tol if b.dtype == dtype else 1e-5), f"{name}: {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+@pytest.mark.parametrize("drop", [None, (0.1, 1234567)])
+def test_sparse3dna_bwd_kv_tiles_match_plain(dtype, tol, case, drop):
+    """The key-side kernel at the key tiles of each case (its candidates read
+    through L1: the key side stages nothing), fed the query side's dS and
+    mix with and without dropout, against its plain version: dk and dv
+    within the causal test's tolerance, equal bit for bit across two calls,
+    and the launch planned with the tile the case names."""
+    _needs_cuda()
+    tiles, geo, t, h, d = TILE_CASES[case]
+    tiles = tuple((ty, tx, 0) for ty, tx, _ in tiles)
+    kn = geo["kernel"][0] * geo["kernel"][1] * geo["kernel"][2]
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, h=h, d=d, kn=kn, seed=t + 5)
+    plan = knda.launch_plan("bwd_kv", q, **geo, tiles=tiles)
+    fits = [tile for tile in tiles if tile[0] <= geo["fmap"][0] and tile[1] <= geo["fmap"][1]]
+    assert (plan["ty"], plan["tx"], plan["stage"]) == (fits or tiles[-1:])[0]
+    _, lse = knda.sparse_3dna_fwd_plain(q, k, v, kb, vb, th, rel, dropout=drop, **geo)
+    _, ds, mix, *_ = knda.sparse_3dna_bwd_q_plain(q, k, v, kb, vb, th, rel, g, lse,
+                                                  dropout=drop, **geo)
+    runs = [knda.sparse_3dna_bwd_kv(q, g, ds, mix, dropout=drop, tiles=tiles, **geo)
+            for _ in range(2)]
+    want = knda.sparse_3dna_bwd_kv_plain(q, g, ds, mix, **geo)
+    torch.cuda.synchronize()
+    for name, a, a2, b in zip(("dk", "dv"), *runs, want):
+        assert torch.equal(a, a2), name
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        err = _rel_err(a, b)
+        assert err <= tol, f"{name}: {err}"
+
+
+# (tile candidates, first choice first; context frames, fmap, dilation;
+# video queries; heads, head dim): the cross query side's tiles of query
+# positions forced on small shapes. Ragged tiles at a frame's edge (fmap 5),
+# a ragged last query frame, frames narrower than a tile (fmap 4, where 8 x
+# 8 falls to the next candidate), dilation 2, one query a block, rows not
+# 16-byte aligned (17 heads of 37), 32 heads of 256 and one head. The cross
+# window has one dilation for both axes.
+CROSS_TILE_CASES = {
+    "2x2 fmap 5": (((2, 2, 0),), 2, 5, 1, 2 * 25 - 3, 4, 32),
+    "4x4 fmap 5 dilation 2": (((4, 4, 0),), 1, 5, 2, 3 * 25, 4, 32),
+    "8x8 falls to 1x4": (((8, 8, 0), (1, 4, 0)), 2, 4, 2, 37, 4, 32),
+    "2x4 fmap 16": (((2, 4, 0),), 2, 16, 1, 700, 4, 32),
+    "one query, Fc 3": (((1, 1, 0),), 3, 4, 1, 37, 4, 32),
+    "17 heads of 37": (((2, 2, 0),), 1, 4, 2, 37, 17, 37),
+    "32 heads of 256": (((2, 2, 0),), 1, 4, 1, 37, 32, 256),
+    "one head": (((1, 2, 0),), 2, 5, 1, 40, 1, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(CROSS_TILE_CASES))
+@pytest.mark.parametrize("drop", [None, (0.1, 1234567)])
+def test_sparse_cross2dna_tiles_match_plain(dtype, tol, case, drop):
+    """The cross query side at the tiles of each case, every form of
+    context mask, with and without dropout, given the lse of its own
+    forward: every output within the cross backward test's tolerances,
+    equal bit for bit across two calls, and the launch planned with the
+    tile the case names."""
+    _needs_cuda()
+    tiles, frames, fmap, dilation, t, h, d = CROSS_TILE_CASES[case]
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, t, frames, fmap, h=h, d=d, seed=t)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda").to(dtype)
+    geo = dict(fmap=fmap, kernel_size=3, dilation=dilation)
+    plan = kcross.launch_plan(q, k.shape[2], **geo, tiles=tiles)
+    fits = [tile for tile in tiles if tile[0] <= fmap and tile[1] <= fmap]
+    assert (plan["ty"], plan["tx"]) == (fits or tiles[-1:])[0][:2]
+    names = ("dq", "ds", "mix", "dnull_k", "dnull_v", "dth")
+    for mname, mask in _cross_masks(2, frames, fmap).items():
+        _, lse = kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, dropout=drop, **geo)
+        _, ref_lse = kcross.sparse_cross_2dna_fwd_plain(q, k, v, nk, nv, th, mask, **geo)
+        runs = [kcross.sparse_cross_2dna_bwd_q(q, k, v, nk, nv, th, mask, g, lse, dropout=drop,
+                                               tiles=tiles, **geo) for _ in range(2)]
+        want = kcross.sparse_cross_2dna_bwd_q_plain(q, k, v, nk, nv, th, mask, g, ref_lse,
+                                                    dropout=drop, **geo)
+        torch.cuda.synchronize()
+        for name, a, a2, b in zip(names, *runs, want):
+            assert torch.equal(a, a2), f"{name} {mname}"
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            err = _rel_err(a, b)
+            assert err <= (tol if b.dtype == dtype else 1e-5), f"{name} {mname}: {err}"

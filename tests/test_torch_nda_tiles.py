@@ -1,14 +1,18 @@
-"""The query tiles of the Sparse3DNA forward and query-side kernels, on the CPU.
+"""The tiles of the Sparse3DNA kernels, on the CPU: queries of the forward
+and query-side kernels, keys of the key side.
 
 ``kernels.nda.tile_plan`` chooses each launch's tile, whether each head's
 window union of key and value rows is staged in shared memory, and lays out
-that memory; the kernels find a block's queries and the union from the plan
-(``csrc/sparse3dna_tile.cuh``: ``tile_view``, ``tile_query``,
-``union_index``, ``union_token``). These tests hold the plan against twins
-of those rules written here with numpy: the grid's tiles cover every query
-of the sequence exactly once, the query-side kernel's buffer of per-tile
-sums has one slot a block, every valid neighbour of every query lies in its
-tile's staged union, and the shared memory asked for fits the card. No JAX.
+that memory; the kernels find a block's queries (or keys) and the union from
+the plan (``csrc/sparse3dna_tile.cuh``: ``tile_view``, ``tile_query``,
+``union_index``, ``union_token``), and the key side each key's pairs by
+``reader`` and ``reader_slot`` (``csrc/sparse3dna_geometry.cuh``). These
+tests hold the plan against twins of those rules written here with numpy:
+the grid's tiles cover every query (or key) of the sequence exactly once,
+the query-side kernel's buffer of per-tile sums has one slot a block, every
+valid neighbour of every query lies in its tile's staged union, every valid
+(query, slot) pair lies in its key's pair table exactly once, and the
+shared memory asked for fits the card. No JAX.
 """
 import itertools
 
@@ -110,6 +114,55 @@ def _check_union(plan, t, fmap, kernel, dilation, mode):
         assert np.array_equal(utok[valid], ntok[valid])
 
 
+def _neighbour(f, y, x, j, fmap, kernel, dilation, mode, t):
+    """Token of the neighbour of (f, y, x) through window slot j, or -1: the
+    rule of ``neighbour``."""
+    (fh, fw), (kf, kh, kw), (df, dh, dw) = fmap, kernel, dilation
+    a, r = j // (kh * kw), j % (kh * kw)
+    nf = f + (a - _centre(kf, mode)) * df
+    ny = y + (r // kw - _centre(kh, mode)) * dh
+    nx = r % kw if mode == "audio" else x + (r % kw - _centre(kw, mode)) * dw
+    tok = (nf * fh + ny) * fw + nx
+    return np.where((nf >= 0) & (ny >= 0) & (ny < fh) & (nx >= 0) & (nx < fw) & (tok < t),
+                    tok, -1)
+
+
+def _reader(f, y, x, p, fmap, kernel, dilation, mode, t):
+    """(query token or -1, slot) of pair p of the key (f, y, x): the rules of
+    ``reader`` and ``reader_slot``."""
+    (fh, fw), (kf, kh, kw), (df, dh, dw) = fmap, kernel, dilation
+    a, r = p // (kh * kw), p % (kh * kw)
+    qf = f - (a - _centre(kf, mode)) * df
+    qy = y - (r // kw - _centre(kh, mode)) * dh
+    qx = r % kw if mode == "audio" else x - (r % kw - _centre(kw, mode)) * dw
+    tok = (qf * fh + qy) * fw + qx
+    valid = (qf >= 0) & (qy >= 0) & (qy < fh) & (qx >= 0) & (qx < fw) & (tok < t)
+    return np.where(valid, tok, -1), (p - p % kw + x) if mode == "audio" else p
+
+
+def _check_pairs(plan, t, fmap, kernel, dilation, mode):
+    """The key side's pair tables: each tile key's Kn pairs in reader order
+    name a query that reads that key through the pair's slot, and the
+    tables of all keys hold every valid (query, slot) pair of the sequence
+    exactly once."""
+    fh, fw = fmap
+    kn = kernel[0] * kernel[1] * kernel[2]
+    f, y, x, key = _blocks(plan, t, fmap)
+    pairs = []
+    for p in range(kn):
+        query, slot = _reader(f, y, x, p, fmap, kernel, dilation, mode, t)
+        query = np.where(key >= 0, query, -1)
+        slot = np.broadcast_to(slot, query.shape)
+        ok = query >= 0
+        qf, qy, qx = query // (fh * fw), query // fw % fh, query % fw
+        got = _neighbour(qf, qy, qx, slot, fmap, kernel, dilation, mode, t)
+        assert np.array_equal(got[ok], key[ok])
+        pairs.append(query[ok].astype(np.int64) * kn + slot[ok])
+    pairs = np.concatenate(pairs)
+    assert len(np.unique(pairs)) == len(pairs)
+    assert len(pairs) == knda.valid_pairs(t, fmap, kernel, dilation, mode)
+
+
 def _check_layout(plan, fits=True):
     assert plan["smem"] <= knda.SMEM_LIMIT or not fits
     assert plan["threads"] <= 512 and plan["threads"] % 32 == 0
@@ -119,18 +172,22 @@ def _check_layout(plan, fits=True):
     assert offsets[-1] <= plan["smem"]
 
 
-@pytest.mark.parametrize("which", ["fwd", "bwd_q"])
+@pytest.mark.parametrize("which", ["fwd", "bwd_q", "bwd_kv"])
 def test_tiles_cover_every_query_once(which):
     """Each geometry of the repo's configs, 8 heads of 64: the rule's plan
     (bf16 and fp32) and each staged tile that fits the frame (the forward's:
     both kernels stage the same union) serve every
     query exactly once, every valid neighbour lies in the staged union, and
-    the rule's shared memory fits an H100's 232,448 bytes a block."""
+    the rule's shared memory fits an H100's 232,448 bytes a block; the key
+    side's tiles serve every key exactly once and hold every valid pair in
+    their keys' pair tables."""
     for b, t, fmap, kernel, dilation, mode in GEOMETRIES:
         for es in (2, 4):
             plan = knda.tile_plan(which, b, 8, t, 64, es, fmap, kernel, dilation, mode, True)
             _check_layout(plan)
             _check_tiles(plan, t, fmap)
+        if which == "bwd_kv":
+            _check_pairs(plan, t, fmap, kernel, dilation, mode)
         for ty, tx in ((4, 4), (2, 4), (2, 2), (1, 2), (1, 1)):
             if ty > fmap[0] or tx > fmap[1] or which != "fwd":  # the union is the kernels' own
                 continue
@@ -159,12 +216,35 @@ def test_each_tile_shape_covers_every_query(tile):
         _check_union(plan, t, fmap, (5, 3, 3), dilation, mode)
 
 
+@pytest.mark.parametrize("tile", [(1, 1), (1, 2), (2, 2), (1, 4), (2, 4), (4, 4), (4, 8)])
+def test_each_key_tile_holds_every_pair(tile):
+    """The key side's tiles forced at fmap 12 and 12 x 9 (ragged tiles at the
+    frame's edge), a ragged last frame, dilations from 1 to 4, anisotropic,
+    causal and centered, and the audio geometry at H = 4: every key served
+    once and every valid pair in its key's table; a staged tile refused."""
+    for fmap, kernel, t, dilation, mode in (
+            ((12, 12), (5, 3, 3), 2 * 144 - 7, (2, 2, 2), "causal"),
+            ((12, 9), (5, 3, 3), 3 * 108 - 50, (1, 4, 3), "centered"),
+            ((12, 12), (5, 3, 3), 2 * 144 - 1, (2, 1, 4), "causal"),
+            ((1, 4), (7, 1, 4), 38, (2, 1, 1), "audio")):
+        plan = knda.tile_plan("bwd_kv", 2, 2, t, 16, 2, fmap, kernel, dilation, mode, True,
+                              tiles=((*tile, 0),), fill=0)
+        if tile[0] <= fmap[0] and tile[1] <= fmap[1]:
+            assert (plan["ty"], plan["tx"]) == tile
+        _check_layout(plan)
+        _check_tiles(plan, t, fmap)
+        _check_pairs(plan, t, fmap, kernel, dilation, mode)
+    with pytest.raises(ValueError):
+        knda.tile_plan("bwd_kv", 2, 2, 287, 16, 2, (12, 12), (5, 3, 3), (2, 2, 2), "causal",
+                       True, tiles=((*tile, 2),), fill=0)
+
+
 def test_every_input_the_kernels_took_still_has_a_plan():
     """Heads 1-32 (17: a block of a whole number of warps), head dims 1-256,
     both types, 16-byte rows or not, kernels up to 225 slots: a plan exists
     and fits wherever the first design's shared memory did (4 * (h*h +
     2*h*(Kn+1)) + 4*Kn bytes for the forward, 4 * (2*h*h + 5*h*(Kn+1) +
-    h*Kn) + 4*Kn for the query side)."""
+    h*Kn) + 4*Kn for the query side, 4*Kn for the key side)."""
     for h, d, es, kernel in itertools.product((1, 8, 17, 32), (1, 37, 64, 128, 256), (2, 4),
                                               ((3, 3, 3), (7, 1, 32), (1, 15, 15))):
         audio = kernel == (7, 1, 32)
@@ -172,8 +252,9 @@ def test_every_input_the_kernels_took_still_has_a_plan():
         dilation = (1, 1, 1) if audio else (1, 2, 2)
         kn = kernel[0] * kernel[1] * kernel[2]
         old = {"fwd": 4 * (h * h + 2 * h * (kn + 1)) + 4 * kn,
-               "bwd_q": 4 * (2 * h * h + 5 * h * (kn + 1) + h * kn) + 4 * kn}
-        for which in ("fwd", "bwd_q"):
+               "bwd_q": 4 * (2 * h * h + 5 * h * (kn + 1) + h * kn) + 4 * kn,
+               "bwd_kv": 4 * kn}
+        for which in ("fwd", "bwd_q", "bwd_kv"):
             if old[which] > knda.SMEM_LIMIT:
                 continue
             plan = knda.tile_plan(which, 1, h, 300, d, es, fmap, kernel, dilation, mode,
