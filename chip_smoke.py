@@ -256,12 +256,15 @@ def bound_ms(nbytes, ops, dtype):
 
 
 def plan_text(which, p):
-    """One launch plan (``kernels.nda.tile_plan``) in words: its tile, staged
-    (each head's window union of uy x ux positions a frame in shared memory)
-    or read through L1, its block and its shared memory."""
-    tokens = "keys" if which == "bwd_kv" else "queries"
+    """One launch plan (``kernels.nda.tile_plan``) in words: its tile (the
+    cross forward's query frames a tile, the cross key side's heads a
+    block), staged (each head's window union of uy x ux positions a frame in
+    shared memory) or read through L1, its block and its shared memory."""
+    tokens = "keys" if which.endswith("bwd_kv") else "queries"
+    tile = f"{p['ty']}x{p['tx']}" + (f"x{p['tf']} frames" if p["tf"] > 1 else "")
+    heads = f", {p['hs']} head{'s' * (p['hs'] > 1)}" if which == "cross_bwd_kv" else ""
     how = f"staged union {p['uy']}x{p['ux']}" if p["stage"] else "read through L1"
-    return (f"{which} {p['ty']}x{p['tx']} {tokens} a block, {how}, {p['threads']} threads, "
+    return (f"{which} {tile} {tokens}{heads} a block, {how}, {p['threads']} threads, "
             f"{p['group']} lanes a row, {p['smem']} B shared")
 
 
@@ -273,11 +276,13 @@ def tiles_text(knda, q, kw, names=("fwd", "bwd_q", "bwd_kv")):
                                  for which in names)
 
 
-def cross_tiles_text(kcross, q, lc, kw):
-    """The tile with which the cross query side (B9q) launches on q against
-    Lc context tokens in the geometry ``kw``."""
+def cross_tiles_text(kcross, q, lc, kw, names=("cross_fwd", "cross_bwd_q", "cross_bwd_kv")):
+    """The tiles with which the cross forward (B7), query side (B9q) and
+    key side (B9kv) launch on q against Lc context tokens in the geometry
+    ``kw``."""
     geometry = {k: kw[k] for k in ("fmap", "kernel_size", "dilation", "tiles") if k in kw}
-    return "tiles: " + plan_text("cross_bwd_q", kcross.launch_plan(q, lc, **geometry))
+    return "tiles: " + "; ".join(
+        plan_text(which, kcross.launch_plan(q, lc, which=which, **geometry)) for which in names)
 
 
 def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="causal"):
@@ -963,10 +968,11 @@ def time_cross(kcross):
         ms = device_ms(lambda: kcross.sparse_cross_2dna_fwd(*args, mask, **kw))
         plain = device_ms(lambda: kcross.sparse_cross_2dna_fwd_plain(*args, mask, **kw), iters=5)
         bound, by = cross_bound(kcross, b, t, frames, mask, dtype)
-        rows[frames] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        tiles = cross_tiles_text(kcross, args[0], frames * SKETCH_FMAP**2, kw, ("cross_fwd",))
+        rows[frames] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, tiles=tiles)
         print(f"sparse_cross_2dna_fwd bf16 b={b} t={t} Lc={frames * SKETCH_FMAP**2}: kernel "
               f"{ms:.4f} ms (device), plain {plain:.4f} ms, bound {bound:.5f} ms ({by}), "
-              f"kernel / bound {ms / bound:.1f}x", flush=True)
+              f"kernel / bound {ms / bound:.1f}x; {tiles}", flush=True)
     return rows
 
 
@@ -1295,8 +1301,10 @@ def time_cross_bwd(kcross):
         ):
             ms, plain_ms = device_ms(kernel), device_ms(plain, iters=5)
             bound, by = bounds[name]
+            tiles = cross_tiles_text(kcross, args[0], frames * SKETCH_FMAP**2, kw,
+                                     (f"cross_{name}",))
             rows[name, frames] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                                      backward_bound_ms=bounds["bwd"][0])
+                                      backward_bound_ms=bounds["bwd"][0], tiles=tiles)
             print(f"sparse_cross_2dna_{name} bf16 b={b} t={t} Lc={frames * SKETCH_FMAP**2}: "
                   f"kernel {ms:.4f} ms (device), plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
                   f"({by}), kernel / bound {ms / bound:.1f}x", flush=True)
@@ -2902,7 +2910,7 @@ def main():
                          + drop_sketch_launches[frames]["cross"]),
             "max_abs_err": cross_err[frames],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": None, "tiles": row["tiles"],
             "dropout": cross_dropout("cross", f"forward, {lc}", (f"forward, {lc}",
                                                                  f"train, {lc}"),
                                      drop_sketch_launches[frames]["cross_dropout"]),
@@ -2920,8 +2928,9 @@ def main():
             "max_abs_err": cross_bwd_err[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "context_frames": 1, "backward_bound_ms": row["backward_bound_ms"],
+            "tiles": row["tiles"],
             "at_context_frames_2": {k: row2[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                         "backward_bound_ms")},
+                                                         "backward_bound_ms", "tiles")},
             "dropout": cross_dropout(f"cross_{name}", "train, Lc 256", CROSS_DROPOUT_SHAPES,
                                      drop_sketch_total[f"cross_{name}_dropout"]),
         })

@@ -24,8 +24,9 @@ the two runs of each label and prints the change's time over the parent's.
 wrappers' `tiles` argument: that one candidate), the rule's own choice
 first: B1 and B2 at the training, centered, audio and serving shapes,
 staged in shared memory or read through L1; B3 at the same shapes but
-serving, and B9q at the sketch shapes with and without dropout, read
-through L1.
+serving; and at the sketch shapes with and without dropout, read through
+L1, B9q, B7 (tiles of query positions of one or more query frames) and
+B9kv (tiles of context keys of one or more heads).
 
 `sectors` counts, from the geometry alone, the dS and mix sectors and the q
 and g rows B3's pairs read at the fmap-16 and fmap-32 training shapes,
@@ -98,8 +99,10 @@ def table(paths):
     runs = {}
     for path in paths:
         with open(path) as f:
-            line = [ln for ln in f if ln.startswith("AB ")][-1]
-        out = json.loads(line[3:])
+            lines = [ln for ln in f if ln.startswith("AB ")]
+        if not lines:  # a log of something else (a build)
+            continue
+        out = json.loads(lines[-1][3:])
         runs.setdefault(out["label"].rstrip("0123456789"), []).append(_times(out))
     parent, change = runs["parent"], runs["change"]
     print("| section | kernel | shape | parent ms | change ms | change / parent | bound ms |")
@@ -114,9 +117,17 @@ def table(paths):
 L1_TILES = ((1, 1), (1, 2), (2, 2), (1, 4), (2, 4), (4, 4), (1, 8), (2, 8))
 
 
+# the cross forward's tiles: (rows, columns, 0, query frames a tile)
+FWD_TILES = ((2, 4, 1), (2, 4, 2), (2, 4, 4), (2, 2, 1), (2, 2, 2), (4, 4, 1), (1, 4, 1),
+             (1, 8, 1), (2, 8, 1), (1, 1, 1))
+# the cross key side's: (rows, columns, 0, heads a block)
+KV_TILES = ((2, 4, 1), (2, 4, 2), (2, 4, 8), (1, 4, 1), (4, 4, 1), (1, 8, 1), (2, 8, 1),
+            (4, 8, 1), (1, 1, 1), (1, 1, 8))
+
+
 def tiles(kernels=("nda", "bwd_kv", "cross")):
-    """Each of ``kernels`` ("nda": B1 and B2, "bwd_kv": B3, "cross": B9q)
-    under the rule's tile and each other candidate, one a line."""
+    """Each of ``kernels`` ("nda": B1 and B2, "bwd_kv": B3, "cross": B9q, B7
+    and B9kv) under the rule's tile and each other candidate, one a line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -185,14 +196,26 @@ def tiles(kernels=("nda", "bwd_kv", "cross")):
         mask = torch.ones(b, lc, dtype=torch.bool, device="cuda")
         mask[1, cs.SKETCH_FMAP**2:] = False  # no-op at one frame
         _, lse = kcross.sparse_cross_2dna_fwd(*args, mask, **kw)
-        for variant, tl in l1.items():
-            vkw = dict(kw, tiles=tl)
-            ms = [cs.device_ms(lambda: kcross.sparse_cross_2dna_bwd_q(
-                *args, mask, g, lse, dropout=drop, **vkw))
-                for drop in (None, (cs.DROP_RATE, cs.DROP_SEED))]
-            print(f"cross {name} b={b} t={t}, tiles {variant}: sparse_cross_2dna_bwd_q "
-                  f"{ms[0]:.4f} ms, with dropout {ms[1]:.4f} ms; "
-                  f"{cs.cross_tiles_text(kcross, args[0], lc, vkw)}", flush=True)
+        _, ds, mix, *_ = kcross.sparse_cross_2dna_bwd_q(*args, mask, g, lse, **kw)
+        drops = (None, (cs.DROP_RATE, cs.DROP_SEED))
+        sweeps = (
+            ("cross_bwd_q", l1, lambda drop, vkw: kcross.sparse_cross_2dna_bwd_q(
+                *args, mask, g, lse, dropout=drop, **vkw)),
+            ("cross_fwd", {"rule": None, **{f"{ty}x{tx}x{tf} frames L1": ((ty, tx, 0, tf),)
+                                            for ty, tx, tf in FWD_TILES}},
+             lambda drop, vkw: kcross.sparse_cross_2dna_fwd(*args, mask, dropout=drop, **vkw)),
+            ("cross_bwd_kv", {"rule": None, **{f"{ty}x{tx} keys, {hs} head{'s' * (hs > 1)} L1":
+                                               ((ty, tx, 0, hs),) for ty, tx, hs in KV_TILES}},
+             lambda drop, vkw: kcross.sparse_cross_2dna_bwd_kv(args[0], g, ds, mix,
+                                                               dropout=drop, **vkw)),
+        )
+        for which, variants, call in sweeps:
+            for variant, tl in variants.items():
+                vkw = dict(kw, tiles=tl)
+                ms = [cs.device_ms(lambda: call(drop, vkw)) for drop in drops]
+                print(f"cross {name} b={b} t={t}, tiles {variant}: {which} "
+                      f"{ms[0]:.4f} ms, with dropout {ms[1]:.4f} ms; "
+                      f"{cs.cross_tiles_text(kcross, args[0], lc, vkw, (which,))}", flush=True)
 
 
 def sectors():

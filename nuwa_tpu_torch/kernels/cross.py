@@ -20,6 +20,12 @@ its backward), which the JAX package takes when the fused kernels' score
 cache does not fit VMEM: the Hopper kernels read each query's window
 directly at any context length.
 
+Each launch is planned on the host (``launch_plan``, by
+``kernels.nda.tile_plan``): the forward's and the query side's blocks own
+tiles of query positions with all heads (the forward's may span query
+frames, which read the same window), the key side's tiles of context keys
+of one or more heads (``FWD_TILES``, ``TILES``, ``KV_TILES``).
+
 Every video query at spatial position (y, x) of any frame attends the null
 key/value and the centered kernel neighbourhood around (y, x) in every
 context frame, where the context mask allows it; the softmax is fp32, the
@@ -56,6 +62,7 @@ import functools
 
 import torch
 
+from .nda import FILL
 from .nda import TILES as _NDA_TILES
 from .nda import _DTYPES, _drop_args, _dropout, _dropped, _gathered, _launch, _plan_args
 
@@ -63,6 +70,21 @@ from .nda import _DTYPES, _drop_args, _dropout, _dropped, _gathered, _launch, _p
 # measured 7-9% faster than the Sparse3DNA kernels' first choice, 2 x 2, on an
 # H100 at the sketch shapes (kernel_ab.py tiles), then those kernels' own
 TILES = ((2, 4, 0), *_NDA_TILES)
+# the forward's: (rows, columns of query positions, 0, query frames a tile),
+# taken where they give at least FWD_FILL blocks an SM. On an H100 80GB HBM3
+# at 700 W at the sketch shapes (kernel_ab.py tiles) the grid's fill
+# decided (2 x 4 with 320 blocks 23-27% slower than 2 x 2 with 640 at the
+# forward shape), then 2 x 2 positions of two query frames 5% faster than
+# of one, and 1-3% faster than 2 x 4 of one at the same fill
+FWD_TILES = ((2, 2, 0, 2), (2, 2, 0, 1), (1, 2, 0, 1), (1, 1, 0, 1))
+FWD_FILL = 4
+# the key side's: (rows, columns of context keys, 0, heads a block), one
+# head a block. The largest tile that gives two blocks an SM measured
+# fastest on an H100 80GB HBM3 at 700 W at the sketch shapes (4 x 4 15-16%
+# faster than 2 x 4 at Lc 512, where 2 x 4's grid runs in two waves; 2 x 4
+# 17-25% faster than 4 x 4 at Lc 256, where 4 x 4's does not fill the card)
+KV_TILES = ((4, 4, 0, 1), (2, 4, 0, 1), (1, 1, 0, 1))
+_CANDIDATES = {"cross_fwd": FWD_TILES, "cross_bwd_q": TILES, "cross_bwd_kv": KV_TILES}
 
 
 @functools.lru_cache(maxsize=64)
@@ -135,7 +157,7 @@ def sparse_cross_2dna_fwd_plain(q, k, v, null_k, null_v, talking_heads, cmask=No
 
 
 def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
-                          *, fmap, kernel_size, dilation, dropout=None):
+                          *, fmap, kernel_size, dilation, dropout=None, tiles=None):
     """SparseCross2DNA attention of t video queries (the bos query left out)
     over their centered 2D neighbourhoods in every context frame, plus the
     null key/value.
@@ -146,7 +168,9 @@ def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
     may be attended, or None for all; fmap: the frames' side; kernel_size,
     dilation: the window's side and step; dropout: (rate, seed) or None.
     Returns out (b, h, t, d) in q's dtype and lse (b, h, t) in fp32, the
-    undropped softmax's.
+    undropped softmax's. ``tiles``: (rows, columns, 0, query frames) tiles of
+    query positions taken in place of ``FWD_TILES``, the first that fits
+    the frame, else the last.
     """
     dropout = _dropout(dropout)
     if q.device.type == "cpu":
@@ -163,10 +187,12 @@ def sparse_cross_2dna_fwd(q, k, v, null_k, null_v, talking_heads, cmask=None,
     lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
     if t == 0:
         return out, lse
+    _, plan_arg = _plan("cross_fwd", q, lc, fmap, kernel_size, dilation, [*ins, out], tiles)
     _launch("sparse_cross2dna_fwd", q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(mask), out.data_ptr(),
              lse.data_ptr()],
-            [b, h, t, d, lc, fmap, kernel_size, dilation, *_drop_args(dropout)], q.device)
+            [b, h, t, d, lc, fmap, kernel_size, dilation, *_drop_args(dropout)], q.device,
+            [plan_arg])
     _count(sparse_cross_2dna_fwd, dropout)
     return out, lse
 
@@ -257,20 +283,29 @@ def sparse_cross_2dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel_size, dilat
     return out[0].to(q.dtype), out[1].to(q.dtype)
 
 
-def _plan(q, lc, fmap, kernel_size, dilation, tensors, tiles):
-    """(plan dict, ctypes int array) of the query-side kernel: tiles of
-    query positions of one video frame, by the Sparse3DNA kernels' rule
-    (``kernels.nda.tile_plan`` with which = "cross_bwd_q", the window
-    (Fc, k, k) of the Fc context frames and the candidates ``TILES``)."""
-    geometry = dict(fmap=(fmap, fmap), kernel=(lc // (fmap * fmap), kernel_size, kernel_size),
-                    dilation=(1, dilation, dilation), mode="centered")
-    return _plan_args("cross_bwd_q", q, geometry, tensors, tiles, TILES)
+def _plan(which, q, lc, fmap, kernel_size, dilation, tensors, tiles):
+    """(plan dict, ctypes int array) of the forward (``which="cross_fwd"``),
+    the query side (``"cross_bwd_q"``): tiles of query positions of one
+    video frame (the forward's of ``tf`` frames), with the window (Fc, k, k)
+    of the Fc context frames; or the key side (``"cross_bwd_kv"``): tiles of
+    keys of one context frame and ``hs`` heads, with each key's reflected
+    k x k window. By the Sparse3DNA kernels' rule (``kernels.nda.tile_plan``)
+    over the kernel's candidates (``FWD_TILES`` at ``FWD_FILL``, ``TILES``,
+    ``KV_TILES``), or ``tiles`` in their place with the fill rule off."""
+    key_side = which == "cross_bwd_kv"
+    geometry = dict(fmap=(fmap, fmap), dilation=(1, dilation, dilation), mode="centered",
+                    kernel=(1 if key_side else lc // (fmap * fmap), kernel_size, kernel_size))
+    return _plan_args(which, q, geometry, tensors, tiles, _CANDIDATES[which],
+                      t=lc if key_side else None,
+                      fill=FWD_FILL if which == "cross_fwd" else FILL)
 
 
-def launch_plan(q, lc, *, fmap, kernel_size, dilation, tiles=None):
-    """The plan with which ``sparse_cross_2dna_bwd_q`` launches on q
-    (b, h, t, d) against Lc context tokens, given its ``tiles`` argument."""
-    return _plan(q, lc, fmap, kernel_size, dilation, [q], tiles)[0]
+def launch_plan(q, lc, *, fmap, kernel_size, dilation, tiles=None, which="cross_bwd_q"):
+    """The plan with which the query side (``which="cross_bwd_q"``), the
+    forward (``"cross_fwd"``) or the key side (``"cross_bwd_kv"``) launches
+    on q (b, h, t, d) against Lc context tokens, given its ``tiles``
+    argument."""
+    return _plan(which, q, lc, fmap, kernel_size, dilation, [q], tiles)[0]
 
 
 def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad, lse,
@@ -308,7 +343,8 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
     # each tile's sums over its queries: [dth | dnull_k | dnull_v], one slot
     # a block of the plan's grid
     hh, hd = h * h, h * d
-    plan, plan_arg = _plan(q, lc, fmap, kernel_size, dilation, [*ins, grad, dq], tiles)
+    plan, plan_arg = _plan("cross_bwd_q", q, lc, fmap, kernel_size, dilation,
+                           [*ins, grad, dq], tiles)
     partial = torch.empty(b, plan["blocks"] if t > 0 else 0, hh + 2 * hd, device=q.device,
                           dtype=torch.float32)
     if t > 0:
@@ -327,13 +363,15 @@ def sparse_cross_2dna_bwd_q(q, k, v, null_k, null_v, talking_heads, cmask, grad,
 
 
 def sparse_cross_2dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel_size, dilation,
-                             dropout=None):
+                             dropout=None, tiles=None):
     """Key side of the SparseCross2DNA backward: dk and dv (b, h, Lc, d,
     q's dtype) from q, the output cotangent ``grad`` and the ``ds`` and
     ``mix`` that ``sparse_cross_2dna_bwd_q`` returned (Lc follows from their
     slots). Those carry the forward's dropout, so the function is the same
     with or without it; ``dropout`` only counts the launch as a dropout
-    launch."""
+    launch. ``tiles``: (rows, columns, 0, heads a block) tiles of context
+    keys taken in place of ``KV_TILES``, the first that fits the frame, else
+    the last."""
     dropout = _dropout(dropout)
     if q.device.type == "cpu":
         return sparse_cross_2dna_bwd_kv_plain(
@@ -360,13 +398,16 @@ def sparse_cross_2dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel_size, dilation,
         raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
     lc = (slots[-1] - 1) // kk * fmap * fmap
     ins = [x.contiguous() for x in (q, grad, ds, mix)]
-    dk = q.new_zeros(b, h, lc, d)
-    dv = torch.zeros_like(dk)
-    if t > 0:
-        _launch("sparse_cross2dna_bwd_kv", q.dtype,
-                [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
-                [b, h, t, d, lc, fmap, kernel_size, dilation], q.device)
-        _count(sparse_cross_2dna_bwd_kv, dropout)
+    if t == 0:
+        return q.new_zeros(b, h, lc, d), q.new_zeros(b, h, lc, d)
+    dk = q.new_empty(b, h, lc, d)  # every key's row is written
+    dv = torch.empty_like(dk)
+    _, plan_arg = _plan("cross_bwd_kv", q, lc, fmap, kernel_size, dilation,
+                        [*ins[:2], dk, dv], tiles)
+    _launch("sparse_cross2dna_bwd_kv", q.dtype,
+            [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
+            [b, h, t, d, lc, fmap, kernel_size, dilation], q.device, [plan_arg])
+    _count(sparse_cross_2dna_bwd_kv, dropout)
     return dk, dv
 
 

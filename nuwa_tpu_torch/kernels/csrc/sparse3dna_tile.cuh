@@ -1,8 +1,9 @@
 // Tiles of the Sparse3DNA kernels (sparse3dna_fwd.cu, sparse3dna_bwd_q.cu,
 // their staged variants sparse3dna_fwd_staged.cu and
 // sparse3dna_bwd_q_staged.cu, and the key side sparse3dna_bwd_kv.cu) and of
-// the SparseCross2DNA query side (sparse_cross2dna_bwd_q.cu): a block owns a
-// tile of queries (the key side: of keys) of one frame with all heads.
+// the SparseCross2DNA kernels (sparse_cross2dna_*.cu, whose own tiles are in
+// sparse_cross2dna_geometry.cuh): a block owns a tile of queries (the key
+// sides: of keys) of one frame with all heads.
 //
 // The tile is ty x tx queries at (y0, x0) of frame f (tiles_y x tiles_x
 // tiles a frame, the last ones ragged at the frame's edge). The block's
@@ -47,12 +48,15 @@ struct Plan {
   // byte offsets into the dynamic shared memory, and its size
   int off_s, off_s2, off_nb, off_qtok, off_th, off_bias, off_lse, off_red, off_aux, off_utok,
       off_buf, smem;
+  int tf;  // the cross forward's query frames a tile (1 elsewhere)
+  int hs;  // the cross key side's heads a block (all heads elsewhere)
 };
-constexpr int kPlanInts = 23;
+constexpr int kPlanInts = 25;
 
 __host__ inline Plan read_plan(const int* v) {
-  return Plan{v[0],  v[1],  v[2],  v[3],  v[4],  v[5],  v[6],  v[7],  v[8],  v[9],  v[10], v[11],
-              v[12], v[13], v[14], v[15], v[16], v[17], v[18], v[19], v[20], v[21], v[22]};
+  return Plan{v[0],  v[1],  v[2],  v[3],  v[4],  v[5],  v[6],  v[7],  v[8],
+              v[9],  v[10], v[11], v[12], v[13], v[14], v[15], v[16], v[17],
+              v[18], v[19], v[20], v[21], v[22], v[23], v[24]};
 }
 
 constexpr int kBatch = 8;  // slots a group scores at once

@@ -32,110 +32,185 @@
 //
 // What bounds it on the card: memory. Per key and head it does 4*F*k*k*d
 // operations against one row each of dk and dv written and, per pair, a row
-// each of q and g and two fp32 values read; every query row is read by k*k
-// keys of each context frame, from L1/L2. One block per (context key, batch
-// row) holds all h heads, one warp per head, lanes striding the head dim.
+// each of q and g and two fp32 values of dS and A read: at the sketch
+// training shape (bf16, b = 2, 8 heads of 64, t = 2559, Lc 256) 14.8 MB
+// must move. A first design (one block a (context key, batch row), one warp
+// a head, the F*k*k pairs walked one after another with a 2-byte load a
+// lane, each lone fp32 value of dS and A costing its 32-byte sector) ran
+// 14-15x over that bound on an H100, and its grid of Lc * b blocks of 256
+// threads (512 at Lc 256) held under half of what the card runs at once.
+//
+// What the design does (sparse3dna_tile.cuh, sparse_cross2dna_geometry.cuh,
+// as sparse3dna_bwd_kv.cu's). A block owns a tile of ty x tx keys of one
+// context frame and p.hs of the heads (the wrapper's plan: kernels.nda
+// `tile_plan` with which = "cross_bwd_kv" and the candidates of
+// kernels.cross `KV_TILES`). Nothing couples the heads on the key side (dS
+// and A already carry the talking-heads mix), so the grid splits them over
+// blocks, and the spare groups of a block split each key's pairs. It lists
+// each key's reflected window in shared memory, compacted: the in-frame
+// query positions and their slots, so that a key at the frame's edge walks
+// only its valid pairs. Groups of lanes read q and g rows in 16-byte chunks,
+// each serving a (head, key) unit or every gpu-th pair of one, kAxpyBatch
+// (4) pairs at a time, the pairs taken query frame by query frame: the
+// batch's dS and A values are loaded first, then its q and g rows, all in
+// flight together, before the sums. Keys one step apart along x read the
+// same query through neighbouring slots, so a tile at least k keys wide
+// reads a query's dS and A values of all its keys in one or two sectors,
+// which L1 serves. Registers are capped as the Sparse3DNA key side's are
+// (256 threads, 48 registers, five blocks an SM), and dk and dv are written
+// in 16-byte chunks. The groups that share a unit sum their shares in one
+// fixed order in shared memory, so every key's sums run in one fixed order:
+// no atomics, dk and dv written once, and every output the same bit for bit
+// on every run.
+//
+// Measured (kernel_ab.py, bf16, b = 2, 8 heads of 64, on an H100 80GB HBM3
+// at a 700 W power limit, the first design in turns with it): at the
+// sketch training shape (t = 2559) 0.0243 ms at Lc 256 and 0.0395 at Lc 512
+// (first design 0.0642 / 0.1209), 5.5x and 7.0x over the byte bound; at the
+// forward shape (t = 1280) 0.0172 / 0.0264 (0.0354 / 0.0650). The spare
+// groups and batches did most of it (all heads a block, one key: 0.0259 at
+// the training shape, Lc 256); one head a block and tiles of 2 x 4 or 4 x 4
+// keys the rest: the largest tile that still gives two blocks an SM
+// (kernels.cross `KV_TILES`), 4 x 4 15-16% faster than 2 x 4 at Lc 512,
+// where 2 x 4's grid runs in two waves, 2 x 4 17-25% faster than 4 x 4 at
+// Lc 256, where 4 x 4's does not fill the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sparse3dna_geometry.cuh"
+#include "sparse3dna_tile.cuh"
+#include "sparse_cross2dna_geometry.cuh"
+
 namespace {
 
-constexpr int kMaxR = 8;  // head dim up to 32 * kMaxR = 256
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Geometry {
-  int t;     // video queries (rows of q)
-  int lc;    // context tokens: whole frames of fmap * fmap
-  int fmap;  // side of a context frame (and of a query frame)
-  int k;     // window side, odd
-  int dil;   // window step
-};
-
-// grid (lc, b), block 32 * heads: warp w handles head w of one context key.
-template <typename T>
-__global__ void __launch_bounds__(1024) sparse_cross2dna_bwd_kv_kernel(
+// grid (p.blocks, b), block p.threads: a tile of p.ty x p.tx keys of one
+// context frame with p.hs heads. Group gid of `group` lanes serves units
+// (head, key) gid, gid + ngroups, ..., or a share of one unit's pairs where
+// there are more groups than units. kVec: rows in 16-byte chunks.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(256, 5) sparse_cross2dna_bwd_kv_kernel(
     const T* __restrict__ q, const T* __restrict__ gout, const float* __restrict__ ds,
     const float* __restrict__ mix, T* __restrict__ dk, T* __restrict__ dv, int heads, int d,
-    Geometry g) {
-  extern __shared__ int s_pos[];  // (k*k) the reading queries' spatial position, or -1
-  const int hw = g.fmap * g.fmap;
-  const int kk = g.k * g.k;
-  const int slots = (g.lc / hw) * kk + 1;
-  const int frames = (g.t + hw - 1) / hw;  // query frames
-  const int key = blockIdx.x;
-  const int bi = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+    CrossGeometry g, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (dynamic_smem_bytes() < static_cast<unsigned>(p.smem)) __trap();
+  const int hw = g.fmap * g.fmap, kk = g.k * g.k;
+  const int slots = g.lc / hw * kk + 1, frames = (g.t + hw - 1) / hw;  // query frames
+  const CrossKeyTile tv = cross_key_tile(p, heads);
+  const int tq = tv.tq;
+  int* s_pos = reinterpret_cast<int*>(smem + p.off_nb);       // (tq, kk) query position or -1
+  int* s_ktok = reinterpret_cast<int*>(smem + p.off_qtok);    // (tq) key token or -1
+  int* s_slot = reinterpret_cast<int*>(smem + p.off_aux);     // (tq, kk) its slot
+  float* s_red = reinterpret_cast<float*>(smem + p.off_red);  // (units, gpu, 2, d) shares
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const size_t bplane = static_cast<size_t>(blockIdx.y) * heads;  // this batch row's first plane
 
-  const int c = key / hw, y = (key % hw) / g.fmap, xx = key % g.fmap;
+  // each key's reflected window, compacted: the valid pairs first, in
+  // window order, then -1
   const int half = (g.k - 1) / 2;
-  for (int j = threadIdx.x; j < kk; j += blockDim.x) {
-    const int qy = y - (j / g.k - half) * g.dil;
-    const int qx = xx - (j % g.k - half) * g.dil;
-    s_pos[j] = (qy >= 0 && qy < g.fmap && qx >= 0 && qx < g.fmap) ? qy * g.fmap + qx : -1;
+  for (int ki = tid; ki < tq; ki += nt) {
+    const int y = tv.y0 + ki / p.tx, x = tv.x0 + ki % p.tx;
+    const bool in = y < g.fmap && x < g.fmap;
+    s_ktok[ki] = in ? (tv.c * g.fmap + y) * g.fmap + x : -1;
+    int n = 0;
+    for (int j = 0; in && j < kk; ++j) {
+      const int qy = y - (j / g.k - half) * g.dil, qx = x - (j % g.k - half) * g.dil;
+      if (qy < 0 || qy >= g.fmap || qx < 0 || qx >= g.fmap) continue;
+      s_pos[ki * kk + n] = qy * g.fmap + qx;
+      s_slot[ki * kk + n] = 1 + tv.c * kk + j;
+      ++n;
+    }
+    for (; n < kk; ++n) s_pos[ki * kk + n] = -1;
   }
   __syncthreads();
 
-  const int h = warp;
-  const size_t row = static_cast<size_t>(bi) * heads + h;  // (b, h) plane
-  const T* qplane = q + row * g.t * d;
-  const T* gplane = gout + row * g.t * d;
-  const float* dsplane = ds + row * g.t * slots;
-  const float* mixplane = mix + row * g.t * slots;
-
-  float ak[kMaxR], av[kMaxR];
+  // unit a * tq + ki: head h0 + a, key ki; the groups split the plan's
+  // p.hs * tq units, as its shares were laid out, the last head group's
+  // spare ones idle
+  const int units = tv.hn * tq;
+  const Groups w = split_groups(p.group, p.hs * tq, tid);
+  for (int un = w.first; un < units; un += w.ustep) {
+    const int ki = un % tq, key = s_ktok[ki];
+    if (key < 0) continue;  // uniform across the group
+    const size_t plane = bplane + tv.h0 + un / tq;
+    const T* qp = q + plane * g.t * d;
+    const T* gp = gout + plane * g.t * d;
+    const float* dsp = ds + plane * g.t * slots;
+    const float* mxp = mix + plane * g.t * slots;
+    const int *pos = s_pos + ki * kk, *sl = s_slot + ki * kk;
+    int nj = 0;  // the key's valid window positions, at least its own
+    while (nj < kk && pos[nj] >= 0) ++nj;
+    // pair m = f * nj + n: query frame f, window position n; this group takes
+    // pairs sub, sub + gpu, ..., (f, n) tracking the next
+    int f = 0, n = w.sub;
+    while (n >= nj) n -= nj, ++f;
+    float ok[8], ov[8];
 #pragma unroll
-  for (int r = 0; r < kMaxR; ++r) ak[r] = av[r] = 0.f;
-  for (int j = 0; j < kk; ++j) {
-    const int pos = s_pos[j];  // uniform across the warp
-    if (pos < 0) continue;
-    const int slot = 1 + c * kk + j;
-    for (int f = 0; f < frames; ++f) {
-      const int tok = f * hw + pos;
-      if (tok >= g.t) break;  // later frames lie further past t
-      const size_t s = static_cast<size_t>(tok) * slots + slot;
-      const float wk = dsplane[s], wv = mixplane[s];
-      const T* qr = qplane + static_cast<size_t>(tok) * d;
-      const T* gr = gplane + static_cast<size_t>(tok) * d;
+    for (int e = 0; e < 8; ++e) ok[e] = ov[e] = 0.f;
+    while (f < frames) {
+      int tok[kAxpyBatch];
+      float wk[kAxpyBatch], wv[kAxpyBatch];
 #pragma unroll
-      for (int r = 0; r < kMaxR; ++r) {
-        const int e = lane + 32 * r;
-        if (e < d) {
-          ak[r] += wk * to_f(qr[e]);
-          av[r] += wv * to_f(gr[e]);
+      for (int i = 0; i < kAxpyBatch; ++i) {  // the batch's dS and A values first
+        tok[i] = -1;
+        wk[i] = wv[i] = 0.f;
+        if (f < frames) {
+          const int tk = f * hw + pos[n];
+          if (tk < g.t) {  // only the last query frame is ragged
+            const size_t s = static_cast<size_t>(tk) * slots + sl[n];
+            tok[i] = tk;
+            wk[i] = dsp[s];
+            wv[i] = mxp[s];
+          }
+          n += w.gpu;
+          while (n >= nj) n -= nj, ++f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kAxpyBatch; ++i) {  // then its rows, summed in pair order
+        if (tok[i] >= 0) {
+          const size_t r = static_cast<size_t>(tok[i]) * d;
+          axpy_row<T, kVec>(ok, wk[i], qp + r, w.gl, w.G, d);
+          axpy_row<T, kVec>(ov, wv[i], gp + r, w.gl, w.G, d);
         }
       }
     }
+    if (w.gpu == 1) {
+      store_row<T, kVec>(dk + (plane * g.lc + key) * d, ok, w.gl, w.G, d);
+      store_row<T, kVec>(dv + (plane * g.lc + key) * d, ov, w.gl, w.G, d);
+    } else {
+      share_row<T, kVec>(s_red, (un * w.gpu + w.sub) * 2, ok, w.gl, w.G, d);
+      share_row<T, kVec>(s_red, (un * w.gpu + w.sub) * 2 + 1, ov, w.gl, w.G, d);
+    }
   }
-  const size_t off = (row * g.lc + key) * d;
-#pragma unroll
-  for (int r = 0; r < kMaxR; ++r) {
-    const int e = lane + 32 * r;
-    if (e < d) {
-      dk[off + e] = from_f<T>(ak[r]);
-      dv[off + e] = from_f<T>(av[r]);
+  if (w.gpu > 1) {
+    // the groups that share a unit sum their shares in order
+    __syncthreads();
+    for (int x = tid; x < units * 2 * d; x += nt) {
+      const int un = x / (2 * d), which = x / d % 2, e = x % d, key = s_ktok[un % tq];
+      if (key < 0) continue;
+      float sum = 0.f;
+      for (int sb = 0; sb < w.gpu; ++sb) sum += s_red[((un * w.gpu + sb) * 2 + which) * d + e];
+      (which ? dv : dk)[((bplane + tv.h0 + un / tq) * g.lc + key) * d + e] = from_f<T>(sum);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kVec>
 int launch(const void* q, const void* gout, const float* ds, const float* mix, void* dk,
-           void* dv, int b, int heads, int d, Geometry g, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * g.k * g.k;
-  const dim3 grid(g.lc, b);
-  const dim3 block(32 * heads);
-  sparse_cross2dna_bwd_kv_kernel<T><<<grid, block, smem, stream>>>(
+           void* dv, int b, int heads, int d, CrossGeometry g, const Plan& p,
+           cudaStream_t stream) {
+  const auto kernel = sparse_cross2dna_bwd_kv_kernel<T, kVec>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(p.blocks, b);
+  kernel<<<grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(gout), ds, mix, static_cast<T*>(dk),
-      static_cast<T*>(dv), heads, d, g);
+      static_cast<T*>(dv), heads, d, g, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,16 +220,25 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, gout
 // (b, heads, t, d); ds, mix (b, heads, t, lc / (fmap * fmap) * ksize * ksize
-// + 1) fp32, slot 0 being the null key; dk, dv (b, heads, lc, d).
+// + 1) fp32, slot 0 being the null key; dk, dv (b, heads, lc, d), every row
+// written; plan: kPlanInts ints, the wrapper's key tile, head split and
+// shared-memory layout (sparse3dna_tile.cuh, kernels.nda `tile_plan` with
+// which = "cross_bwd_kv").
 // Returns the cudaError_t of the launch (0 on success).
 int nuwa_sparse_cross2dna_bwd_kv(int dtype, const void* q, const void* gout, const float* ds,
                                  const float* mix, void* dk, void* dv, int b, int heads,
                                  int t, int d, int lc, int fmap, int ksize, int dil,
-                                 void* stream) {
-  const Geometry g{t, lc, fmap, ksize, dil};
+                                 const int* plan, void* stream) {
+  const CrossGeometry g{t, lc, fmap, ksize, dil};
+  const Plan p = read_plan(plan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, gout, ds, mix, dk, dv, b, heads, d, g, s);
+  if (dtype == 0 && p.vec)
+    return launch<float, true>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
+  if (dtype == 0) return launch<float, false>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
+  if (dtype == 1 && p.vec)
+    return launch<__nv_bfloat16, true>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, false>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -91,30 +91,9 @@
 #include "sparse3dna_dropout.cuh"
 #include "sparse3dna_geometry.cuh"
 #include "sparse3dna_tile.cuh"
+#include "sparse_cross2dna_geometry.cuh"
 
 namespace {
-
-struct CrossGeometry {
-  int t;     // video queries (rows of q)
-  int lc;    // context tokens: whole frames of fmap * fmap
-  int fmap;  // side of a context frame (and of a query frame)
-  int k;     // window side, odd
-  int dil;   // window step
-};
-
-// Context token of window slot j (0..kn-1) of the query at (y, x), or -1
-// outside the frame or where the context mask (`row`, the batch row's
-// bytes, or null) refuses it. Slot j is context frame j / (k*k), window
-// position j % (k*k) row-major, as the forward and the plain version's table
-// enumerate them.
-__device__ __forceinline__ int cross_neighbour(const CrossGeometry& g,
-                                               const unsigned char* row, int y, int x, int j) {
-  const int kk = g.k * g.k, c = j / kk, r = j % kk, half = (g.k - 1) / 2;
-  const int ny = y + (r / g.k - half) * g.dil, nx = x + (r % g.k - half) * g.dil;
-  if (ny < 0 || ny >= g.fmap || nx < 0 || nx >= g.fmap) return -1;
-  const int tok = (c * g.fmap + ny) * g.fmap + nx;
-  return row != nullptr && !row[tok] ? -1 : tok;
-}
 
 // grid (p.blocks, b), block p.threads: a tile of p.ty x p.tx query
 // positions of one video frame with all heads. Group gid of `group` lanes

@@ -218,8 +218,11 @@ SMEM_LIMIT = 232_448  # shared memory a block may opt into on an H100 (227 KB)
 SMS = 132  # the H100's streaming multiprocessors
 _THREADS = 256  # threads of a block, or more where a tile's groups need them
 # the kernels' __launch_bounds__: Sparse3DNA's forward, query side and key
-# side, and SparseCross2DNA's query side (csrc/sparse_cross2dna_bwd_q.cu)
-_MAX_THREADS = {"fwd": 256, "bwd_q": 512, "bwd_kv": 256, "cross_bwd_q": 512}
+# side, and SparseCross2DNA's forward, query side and key side
+# (csrc/sparse_cross2dna_*.cu)
+_MAX_THREADS = {"fwd": 256, "bwd_q": 512, "bwd_kv": 256, "cross_fwd": 256, "cross_bwd_q": 512,
+                "cross_bwd_kv": 256}
+_KEY_SIDE = ("bwd_kv", "cross_bwd_kv")  # kernels whose tiles are of keys
 # tile candidates (rows, columns of queries of one frame, buffers of the ring
 # in which each head's window union is staged in shared memory, 2-4, or 0 to
 # read the rows from global memory), first choice first; the last, one query
@@ -233,7 +236,7 @@ FILL = 2
 PLAN_FIELDS = ("ty", "tx", "tiles_y", "tiles_x", "blocks", "group", "threads", "vec", "stage",
                "uy", "ux", "off_s", "off_s2", "off_nb", "off_qtok", "off_th", "off_bias",
                "off_lse", "off_red", "off_aux", "off_utok", "off_buf",
-               "smem")  # kPlanInts, in order
+               "smem", "tf", "hs")  # kPlanInts, in order
 
 
 def _group(d, elems):
@@ -258,34 +261,36 @@ def _union(ty, tx, kernel, dilation, mode):
     return _axis_span(ty, kernel[1], dilation[1]), ux
 
 
-def _layout(which, h, d, es, kn, tq, group, threads, ring, rows):
+def _layout(which, h, d, es, kn, tq, group, threads, ring, rows, positions):
     """Byte offsets of the kernel's shared arrays and the total, each array
     16-byte aligned: scores (and, in the query-side backward, dA) of every
-    (head, query, slot) in fp32, every query's slot table (the key side's:
-    every key's pairs' queries), the tile's tokens, the talking-heads matrix,
-    the bias table (Sparse3DNA's forward and query side), the query side's
-    lse of the tile, the shares of a row summed between the groups of a
-    (head, token) unit (two rows, dk and dv, on the key side; and the query
-    side's dth parts), the query side's mix of bos (or of the null column;
-    the key side's slot of each pair),
-    and where the plan stages (``ring`` buffers of ``rows`` union rows, else
-    0) the union's tokens and the ring of buffers of its rows and bos."""
+    (head, query, slot) in fp32 (``h`` the block's heads), the slot table of
+    the tile's ``positions`` (the key side: every key's pairs' queries; the
+    cross forward's query frames share one table), the tile's tokens, the
+    talking-heads matrix, the bias table (Sparse3DNA's forward and query
+    side), the query side's lse of the tile, the shares of a row summed
+    between the groups of a (head, token) unit (two rows, dk and dv, on the
+    key side; and the query side's dth parts), the query side's mix of bos
+    (or of the null column; the key side's slot of each pair), and where the
+    plan stages (``ring`` buffers of ``rows`` union rows, else 0) the
+    union's tokens and the ring of buffers of its rows and bos."""
     slots = kn + 1
     units = tq if rows else h * tq  # a stage's units: one head staged, else all
     gpu = max(1, threads // group // units)  # the groups of a unit
+    key_side = which in _KEY_SIDE
     # staged: two stages' shares in turn; the key side: dk's and dv's
-    red = (2 if rows or which == "bwd_kv" else 1) * units * gpu * d if gpu > 1 else 0
+    red = (2 if rows or key_side else 1) * units * gpu * d if gpu > 1 else 0
     bwd = which in ("bwd_q", "cross_bwd_q")
     if bwd:
         red = max(red, h * h * max(1, threads // (h * h)))
-    scores = which != "bwd_kv"
     sizes = [
-        ("off_s", 4 * h * tq * slots if scores else 0),
+        ("off_s", 0 if key_side else 4 * h * tq * slots),
         ("off_s2", 4 * h * tq * slots if bwd else 0),
-        ("off_nb", 4 * tq * kn), ("off_qtok", 4 * tq), ("off_th", 4 * h * h if scores else 0),
+        ("off_nb", 4 * positions * kn), ("off_qtok", 4 * tq),
+        ("off_th", 0 if key_side else 4 * h * h),
         ("off_bias", 4 * h * kn if which in ("fwd", "bwd_q") else 0),
         ("off_lse", 4 * h * tq if bwd else 0), ("off_red", 4 * red),
-        ("off_aux", 4 * h * tq if bwd else 4 * tq * kn if which == "bwd_kv" else 0),
+        ("off_aux", 4 * h * tq if bwd else 4 * tq * kn if key_side else 0),
         ("off_utok", 4 * rows),
         ("off_buf", ring * (rows + 1) * d * es),
     ]
@@ -301,16 +306,23 @@ def tile_plan(which, b, h, t, d, es, fmap, kernel, dilation, mode, vec, *, tiles
               fill=FILL):
     """The launch plan of the forward (``which="fwd"``), query-side
     (``"bwd_q"``) or key-side (``"bwd_kv"``) kernel, or of the
-    SparseCross2DNA query side (``"cross_bwd_q"``, with ``kernel`` (Fc, k,
-    k), ``dilation`` (1, dl, dl), ``fmap`` the square frames and t the
-    video queries): a dict of ``PLAN_FIELDS``.
+    SparseCross2DNA forward (``"cross_fwd"``) and query side
+    (``"cross_bwd_q"``), with ``kernel`` (Fc, k, k), ``dilation`` (1, dl,
+    dl), ``fmap`` the square frames and t the video queries, or its key
+    side (``"cross_bwd_kv"``), with ``kernel`` (1, k, k) and t the context
+    tokens: a dict of ``PLAN_FIELDS``.
 
-    A block owns a tile of ``ty x tx`` queries (the key side: keys) of one
+    A block owns a tile of ``ty x tx`` queries (the key sides: keys) of one
     frame with all heads; groups of ``group`` lanes read rows in 16-byte
     chunks; where ``stage`` is not 0 (forward and query side only) each
     head's window union (``uy x ux`` positions of each of the window's
-    frames) is staged in shared memory, in a ring of ``stage`` buffers. The
-    plan is the first of
+    frames) is staged in shared memory, in a ring of ``stage`` buffers. A
+    candidate ``(ty, tx, stage)`` may name a fourth number: the cross
+    forward's query frames a tile, ``tf`` (its tile then holds the same
+    positions of ``tf`` frames, which read the same context window), or the
+    cross key side's heads a block, ``hs`` (its grid then splits the heads
+    over blocks: nothing couples them there); 0 or none is one frame, or
+    all heads. The plan is the first of
     ``tiles`` (``TILES``) that fits the frame and the shared memory and
     gives at least ``fill`` (``FILL``) blocks an SM; the last candidate is
     taken where none is. ``es``: bytes of an element; ``vec``: rows start
@@ -322,47 +334,55 @@ def tile_plan(which, b, h, t, d, es, fmap, kernel, dilation, mode, vec, *, tiles
     kn = kernel[0] * kernel[1] * kernel[2]
     group = _group(d, 16 // es if vec else 1)
     frames = -(-t // (fh * fw))
-    for i, (ty, tx, stage) in enumerate(tiles):
+    for i, (ty, tx, stage, *more) in enumerate(tiles):
+        extra = more[0] if more else 0
         if stage not in (0, 2, 3, 4):
             raise ValueError(f"a tile stages in a ring of 2-4 buffers, or 0, not {stage}")
         if stage and not vec:
             raise ValueError("a staged tile needs rows of whole 16-byte chunks, 16-byte aligned")
         if stage and which not in ("fwd", "bwd_q"):
             raise ValueError(f"the {which} kernel stages no window union")
+        if len(more) > 1 or extra < 0 or extra and which not in ("cross_fwd", "cross_bwd_kv"):
+            raise ValueError(f"the {which} kernel takes no tile of {(ty, tx, stage, *more)}")
         last = i == len(tiles) - 1
-        tq = ty * tx
+        tf = (extra or 1) if which == "cross_fwd" else 1
+        hs = min(h, extra or h) if which == "cross_bwd_kv" else h
+        tq = ty * tx * tf
         tiles_y, tiles_x = -(-fh // ty), -(-fw // tx)
-        blocks = frames * tiles_y * tiles_x
+        blocks = -(-frames // tf) * tiles_y * tiles_x * -(-h // hs)
         # threads: a whole number of warps, enough for one group a unit, and at
-        # least _THREADS, whose spare groups share a unit's slots; the key side
-        # takes the spare groups only where its grid does not fill the card
-        # (they measured slower on an H100 where it does)
-        units = tq if stage else h * tq
+        # least _THREADS, whose spare groups share a unit's slots; the
+        # Sparse3DNA key side takes the spare groups only where its grid does
+        # not fill the card (they measured slower on an H100 where it does)
+        units = tq if stage else hs * tq
         threads = -(-min(units, _MAX_THREADS[which] // group) * group // 32) * 32
         if which != "bwd_kv" or b * blocks < fill * SMS:
             threads = max(_THREADS, threads)
         if not last and (ty > fh or tx > fw or b * blocks < fill * SMS):
             continue
         uy, ux = _union(ty, tx, kernel, dilation, mode) if stage else (0, 0)
-        offsets, smem = _layout(which, h, d, es, kn, tq, group, threads, stage,
-                                kernel[0] * uy * ux)
+        offsets, smem = _layout(which, hs, d, es, kn, tq, group, threads, stage,
+                                kernel[0] * uy * ux, ty * tx if which == "cross_fwd" else tq)
         if smem <= SMEM_LIMIT or last:
             return dict(ty=ty, tx=tx, tiles_y=tiles_y, tiles_x=tiles_x, blocks=blocks,
                         group=group, threads=threads, vec=int(vec), stage=stage, uy=uy, ux=ux,
-                        **offsets, smem=smem)
+                        **offsets, smem=smem, tf=tf, hs=hs)
     raise ValueError(f"no tile candidates for {which}")
 
 
-def _plan_args(which, q, geometry, tensors, tiles=None, candidates=TILES):
+def _plan_args(which, q, geometry, tensors, tiles=None, candidates=TILES, *, t=None,
+               fill=FILL):
     """(plan dict, ctypes int array) for a launch on these tensors in
     ``geometry`` (fmap, kernel, dilation, mode); ``tiles``: candidates taken
-    in place of the rule's ``candidates``, with its fill rule off."""
-    b, h, t, d = q.shape
+    in place of the rule's ``candidates``, with its fill rule off; ``t``:
+    the tokens the tiles cover, q's by default."""
+    b, h, tq, d = q.shape
     es = q.element_size()
     vec = (d * es) % 16 == 0 and all(x.data_ptr() % 16 == 0 for x in tensors)
-    rule = dict(tiles=tuple(map(tuple, tiles)), fill=0) if tiles else dict(tiles=candidates)
-    plan = tile_plan(which, b, h, t, d, es, *(tuple(geometry[k]) for k in
-                                              ("fmap", "kernel", "dilation")),
+    rule = (dict(tiles=tuple(map(tuple, tiles)), fill=0) if tiles
+            else dict(tiles=candidates, fill=fill))
+    plan = tile_plan(which, b, h, tq if t is None else t, d, es,
+                     *(tuple(geometry[k]) for k in ("fmap", "kernel", "dilation")),
                      geometry["mode"], vec, **rule)
     return plan, (ctypes.c_int * len(PLAN_FIELDS))(*(plan[f] for f in PLAN_FIELDS))
 
@@ -463,8 +483,7 @@ def _library(name):
     """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
     an int dtype, pointers, then ints (b, heads, t, d and the geometry), the
     forward's and the query side's dropout (on, seed, threshold, scale) and
-    the launch plan (``tile_plan``) of every Sparse3DNA kernel and of the
-    SparseCross2DNA query side, then the stream."""
+    the launch plan (``tile_plan``), then the stream."""
     pointers, ints = {
         "sparse3dna_fwd": (9, 13),
         "sparse3dna_fwd_staged": (9, 13),
@@ -477,8 +496,7 @@ def _library(name):
     }[name]
     drop = ([ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float]
             if not name.endswith("_bwd_kv") else [])
-    tiled = name.startswith("sparse3dna_") or name == "sparse_cross2dna_bwd_q"
-    plan = [ctypes.POINTER(ctypes.c_int)] if tiled else []
+    plan = [ctypes.POINTER(ctypes.c_int)]
     lib = build.load(name)
     fn = getattr(lib, f"nuwa_{name}")
     fn.argtypes = (

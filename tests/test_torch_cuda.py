@@ -741,3 +741,109 @@ def test_sparse_cross2dna_tiles_match_plain(dtype, tol, case, drop):
             assert a.dtype == b.dtype and a.shape == b.shape, name
             err = _rel_err(a, b)
             assert err <= (tol if b.dtype == dtype else 1e-5), f"{name} {mname}: {err}"
+
+
+# (tile candidates, first choice first; context frames, fmap, dilation;
+# video queries; heads, head dim): the cross forward's tiles of query
+# positions, frame-spanning ones among them (a fourth number: query frames a
+# tile), forced on small shapes. Ragged tiles at a frame's edge (fmap 5), a
+# ragged last query frame and a last frame group short of its frames, frames
+# narrower than a tile (fmap 4, where 8 x 8 falls to the next candidate),
+# dilation 2, Fc 1-3, rows not 16-byte aligned (17 heads of 37), 32 heads of
+# 256 and one head.
+CROSS_FWD_TILE_CASES = {
+    "2x4 fmap 16": (((2, 4, 0, 1),), 2, 16, 1, 700, 4, 32),
+    "2x4x2 frames fmap 16": (((2, 4, 0, 2),), 1, 16, 1, 3 * 256 - 5, 4, 32),
+    "2x2x3 frames fmap 5": (((2, 2, 0, 3),), 3, 5, 1, 4 * 25 - 3, 4, 32),
+    "4x4 fmap 5 dilation 2": (((4, 4, 0),), 1, 5, 2, 3 * 25, 4, 32),
+    "8x8 falls to 1x4x2": (((8, 8, 0, 2), (1, 4, 0, 2)), 2, 4, 2, 37, 4, 32),
+    "one query, Fc 3": (((1, 1, 0),), 3, 4, 1, 37, 4, 32),
+    "17 heads of 37": (((2, 2, 0, 2),), 1, 4, 2, 37, 17, 37),
+    "32 heads of 256": (((2, 2, 0),), 1, 4, 1, 37, 32, 256),
+    "one head": (((1, 2, 0, 2),), 2, 5, 1, 40, 1, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(CROSS_FWD_TILE_CASES))
+@pytest.mark.parametrize("drop", [None, (0.1, 1234567)])
+def test_sparse_cross2dna_fwd_tiles_match_plain(dtype, tol, case, drop):
+    """The cross forward at the tiles of each case, every form of context
+    mask (an all-masked row among them), with and without dropout: out
+    within ``tol`` of the plain version, the fp32 lse within 1e-5 and
+    finite, equal bit for bit across two calls, and the launch planned with
+    the tile the case names."""
+    _needs_cuda()
+    tiles, frames, fmap, dilation, t, h, d = CROSS_FWD_TILE_CASES[case]
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, t, frames, fmap, h=h, d=d, seed=t)
+    geo = dict(fmap=fmap, kernel_size=3, dilation=dilation)
+    plan = kcross.launch_plan(q, k.shape[2], **geo, tiles=tiles, which="cross_fwd")
+    fits = [tile for tile in tiles if tile[0] <= fmap and tile[1] <= fmap]
+    want = (fits or tiles[-1:])[0]
+    assert (plan["ty"], plan["tx"], plan["tf"]) == (*want[:2], (want[3:] or (1,))[0])
+    for mname, mask in _cross_masks(2, frames, fmap).items():
+        runs = [kcross.sparse_cross_2dna_fwd(q, k, v, nk, nv, th, mask, dropout=drop,
+                                             tiles=tiles, **geo) for _ in range(2)]
+        ref, ref_lse = kcross.sparse_cross_2dna_fwd_plain(q, k, v, nk, nv, th, mask,
+                                                          dropout=drop, **geo)
+        torch.cuda.synchronize()
+        (out, lse), (out2, lse2) = runs
+        assert torch.equal(out, out2) and torch.equal(lse, lse2), mname
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert _rel_err(out, ref) <= tol, f"out {mname}: {_rel_err(out, ref)}"
+        assert (lse - ref_lse).abs().max().item() <= 1e-5, mname
+        assert torch.isfinite(lse).all()
+
+
+# (key tile candidates, a fourth number: heads a block; context frames,
+# fmap, dilation; video queries; heads, head dim): the cross key side's
+# tiles and head splits forced on small shapes, the same forms as the
+# forward's, and a head split that leaves the last block fewer heads.
+CROSS_KV_TILE_CASES = {
+    "2x4 one head a block fmap 16": (((2, 4, 0, 1),), 2, 16, 1, 700, 4, 32),
+    "2x4 all heads fmap 16": (((2, 4, 0),), 1, 16, 2, 3 * 256 - 5, 4, 32),
+    "2x2 3 of 4 heads fmap 5": (((2, 2, 0, 3),), 3, 5, 1, 4 * 25 - 3, 4, 32),
+    "4x4 fmap 5 dilation 2": (((4, 4, 0, 2),), 1, 5, 2, 3 * 25, 4, 32),
+    "8x8 falls to 1x4": (((8, 8, 0, 1), (1, 4, 0, 1)), 2, 4, 2, 37, 4, 32),
+    "one key, Fc 3": (((1, 1, 0, 1),), 3, 4, 1, 37, 4, 32),
+    "one query": (((2, 4, 0, 1),), 2, 4, 1, 1, 4, 32),
+    "17 heads of 37": (((2, 2, 0, 5),), 1, 4, 2, 37, 17, 37),
+    "32 heads of 256": (((2, 2, 0, 1),), 1, 4, 1, 37, 32, 256),
+    "one head": (((1, 2, 0, 2),), 2, 5, 1, 40, 1, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(CROSS_KV_TILE_CASES))
+@pytest.mark.parametrize("drop", [None, (0.1, 1234567)])
+def test_sparse_cross2dna_bwd_kv_tiles_match_plain(dtype, tol, case, drop):
+    """The cross key side at the tiles and head splits of each case, fed the
+    plain query side's dS and mix (with dropout: the dropped mix) under
+    every form of context mask: dk and dv within ``tol`` of the plain
+    version, equal bit for bit across two calls, and the launch planned with
+    the tile and head split the case names."""
+    _needs_cuda()
+    tiles, frames, fmap, dilation, t, h, d = CROSS_KV_TILE_CASES[case]
+    q, k, v, nk, nv, th = _cross_inputs(dtype, 2, t, frames, fmap, h=h, d=d, seed=t)
+    g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda").to(dtype)
+    geo = dict(fmap=fmap, kernel_size=3, dilation=dilation)
+    plan = kcross.launch_plan(q, k.shape[2], **geo, tiles=tiles, which="cross_bwd_kv")
+    fits = [tile for tile in tiles if tile[0] <= fmap and tile[1] <= fmap]
+    want = (fits or tiles[-1:])[0]
+    assert (plan["ty"], plan["tx"], plan["hs"]) == (*want[:2], min(h, (want[3:] or (h,))[0]))
+    for mname, mask in _cross_masks(2, frames, fmap).items():
+        _, lse = kcross.sparse_cross_2dna_fwd_plain(q, k, v, nk, nv, th, mask, **geo)
+        _, ds, mix, *_ = kcross.sparse_cross_2dna_bwd_q_plain(q, k, v, nk, nv, th, mask, g, lse,
+                                                              dropout=drop, **geo)
+        runs = [kcross.sparse_cross_2dna_bwd_kv(q, g, ds, mix, dropout=drop, tiles=tiles, **geo)
+                for _ in range(2)]
+        want = kcross.sparse_cross_2dna_bwd_kv_plain(q, g, ds, mix, **geo)
+        torch.cuda.synchronize()
+        for name, a, a2, b in zip(("dk", "dv"), *runs, want):
+            assert torch.equal(a, a2), f"{name} {mname}"
+            assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+            err = _rel_err(a, b)
+            assert err <= tol, f"{name} {mname}: {err}"
