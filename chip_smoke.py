@@ -25,23 +25,25 @@ Phases, each of which exits non-zero on failure:
 4. serving: the full-width NUWA of bench.py's decode config (dim 512, fmap 8,
    4 frames, depth 6, bf16, CFG 2.0) from a seed answers generate (b = 1 and
    8), generate_long (8 frames) and forward, with the kernel launch counts
-   checked; then the same weights in fp32 on the GPU against the CPU plain
-   path: forward logits and greedy generate_long ids;
+   checked; then the same weights at depth 3 (CHECK_DEPTH) in fp32 on the
+   GPU against the CPU plain path: forward logits and greedy generate_long
+   ids one frame past the window;
 5. training: NUWATrainer at bench.py's training config (dim 512, fmap 16, 10
    frames, kernel (5, 3, 3), dilations (1, 2, 4), rel-pos bias, token shift,
    reversible decoder of depth 6, bf16, batch 2) on one seeded batch: falling
    finite losses, the exact launches of each kernel per step, ms per step,
    tokens/s, peak memory and the device's busy share; then the loss and
-   every gradient of the same weights in fp32 on the GPU against the CPU;
+   every gradient of the same weights at depth 3 in fp32 on the GPU against
+   the CPU;
 6. sketch serving: the full-width NUWASketch of the JAX package's sketch config (dim
    512, a reversible decoder of depth 6, 8 heads of 64, kernel (5, 3, 3) with
    dilations (1, 2, 4), a dense sketch encoder of depth 2, cross kernel 3,
    bf16, fmap 16 from a one-layer VQGanVAE on 32-pixel frames, 5 video and 2
    sketch frames) from a seed answers forward (2-frame and 1-frame sketches),
    generate (b = 1 and 4, decoded to pixels) and generate_long, with the
-   launch counts of both kernels checked; then the same weights in fp32 on
-   the GPU against the CPU plain path: sketch token ids, forward logits and
-   greedy generate_long ids;
+   launch counts of both kernels checked; then the same weights at depth 3
+   in fp32 on the GPU against the CPU plain path: sketch token ids, forward
+   logits and greedy generate_long ids;
 7. sketch training: two full-width NUWASketch models from a seed, bf16, 4
    AdamW steps each on one seeded batch with condition dropout: (a) the JAX
    package's sketch training config (scripts/bench_sketch_train.py: 10
@@ -51,8 +53,8 @@ Phases, each of which exits non-zero on failure:
    Sparse3DNA encoder of depth 2, 2 sketch frames, the second padded in one
    row): falling finite losses, the exact launches of every kernel per step
    (centered ones apart), step ms, video tokens/s, peak memory and the
-   device's busy share; then model (b)'s loss and every gradient in fp32 on
-   the GPU against the CPU;
+   device's busy share; then model (b)'s loss and every gradient at depth 3
+   in fp32 on the GPU against the CPU;
 8. NUWA at 128 px: BASELINE.json config 3 at full width (dim 512, a
    reversible decoder of depth 6, 8 heads of 64, kernel (5, 3, 3),
    dilations (1, 2, 4), rel-pos bias, token shift, bf16, 10 frames) with
@@ -65,10 +67,11 @@ Phases, each of which exits non-zero on failure:
    times at the fmap-32 training shape; forward (b = 2, scored from pixels
    through the codec) and generate (b = 1, one frame, to pixels) with their
    launch counts and tokens/s; the codec's ids, the logits and greedy ids
-   in fp32 on the GPU against the CPU; NUWATrainer for 4 steps with the
-   tokenizer, its step-0 sample written as a PNG and read back, the exact
-   launches a step, step ms, tokens/s, peak memory and busy share; the fp32
-   loss and every gradient on the GPU against the CPU, none for the codec;
+   at depth 3 in fp32 on the GPU against the CPU; NUWATrainer for 4 steps
+   with the tokenizer, its step-0 sample written as a PNG and read back, the
+   exact launches a step, step ms, tokens/s, peak memory and busy share; the fp32
+   loss and every gradient at depth 3 on the GPU against the CPU, none for
+   the codec;
 9. NUWAVideoAudio serving, BASELINE config 5: the forward kernel in the audio
    geometry of SparseCausal2DNA (a (timesteps, 1, H) grid whose window spans
    whole timesteps) against its plain version at heights 1, 4, 5, 9 and 32,
@@ -123,13 +126,37 @@ Phases, each of which exits non-zero on failure:
    NUWASketch training models with the same dropout (4 steps each, every
    launch a dropout one, step ms and busy share beside the step without)
    and model (b)'s fp32 loss and gradients with dropout against the CPU;
-12. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
+12. the dense causal decoder of BASELINE config 2 at full width (dim 512,
+   depth 4, 8 heads of 64, cross-attention, b = 2, 1,024 tokens, a context of
+   256): the fp32 forward on the GPU against the CPU, causality at position
+   10, a prefill and teacher-forced cached steps against the forward, the
+   bf16 forward's time (no kernel of the port is on this path);
+13. method="full" (every token re-runs the whole decoder), greedy with CFG
+   2.0: NUWA's serving model (generate and generate_long one frame past the
+   window, the forward kernel launched depth times a token), the sketch
+   serving model with a centered Sparse3DNA encoder (generate, both forward
+   kernels): every bf16 greedy id the top of the logits row it was sampled
+   from (recomputed by a teacher-forced forward of the same shapes) up to a
+   bf16 near-tie, then against method="cached" on the card by the near-tie
+   rule; NUWAVideoAudio at width 512, depth 3: at H = 1 bf16 the same, at
+   H = 4 fp32 against the CPU's method="full" ids; tokens/s of each;
+14. int8 weight-only serving (utils.quantize.quantize_int8_): the serving
+   model quantised against the bf16 one (cached generate b = 8: tokens/s,
+   peak memory, weights held), its forward's launches; fp32 on the GPU
+   against the CPU: logits and greedy ids, and NUWAVideoAudio's logits;
+15. checkpoints and resume: NUWATrainer at 128 px (BASELINE config 3) with
+   save_model_every=1 takes 2 steps, a fresh trainer with resume=True over
+   other weights restores the newest file (found by the folder scan), and
+   both take step 3: the same loss and parameters; the file's size and the
+   save and load times;
+16. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, one more run after the serving phase's warm one), and the
    device's busy share of a generate of each model.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
+import collections
 import itertools
 import json
 import math
@@ -175,12 +202,16 @@ SEED = 0
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # the JAX tests' bf16 tolerance
-LOGITS_ATOL = 1e-3  # fp32 GPU vs CPU logits: sums in another order, 6 layers deep
+LOGITS_ATOL = 1e-3  # fp32 GPU vs CPU logits: sums in another order, up to 6 layers deep
 # fp32 GPU vs CPU training: loss within LOSS_ATOL, each gradient within
-# GRAD_REL of its max abs: sums in another order through 6 reversible couples
+# GRAD_REL of its max abs: sums in another order through the reversible couples
 # whose backward rebuilds activations by subtraction
 LOSS_ATOL, GRAD_REL = 1e-4, 1e-3
 TIE_GAP = 1e-3
+# the decoder depth of the fp32 GPU-vs-CPU checks of the NUWA and NUWASketch
+# models: every dilation of a (1, 2, 4) cycle once, at half the host time of
+# the configs' 6 layers (the CPU's plain path dominates the script's time)
+CHECK_DEPTH = 3
 
 
 def fail(msg):
@@ -739,7 +770,7 @@ def train_against_cpu(NUWA):
     uncond = torch.tensor([False, True])
     grads = []
     for device in ("cuda", "cpu"):
-        model = NUWA(**TRAIN, device=device, seed=SEED + 11)
+        model = NUWA(**dict(TRAIN, dec_depth=CHECK_DEPTH), device=device, seed=SEED + 11)
         start = time.perf_counter()
         loss = model(text, video, return_loss=True, train=True, uncond=uncond)
         loss.backward()
@@ -762,14 +793,14 @@ def train_against_cpu(NUWA):
 
 
 def cpu_top2_gap(model, text, ids, p, cond_scale):
-    """Top-2 logit gap of the (CPU) model at the first differing position p
-    of a sliding-window rollout."""
+    """Top-2 logit gap of the model (on its device) at the first differing
+    position p of a sliding-window rollout."""
     tpf, maxf = model.tokens_per_frame, model.max_video_frames
     start = max(p // tpf - (maxf - 1), 0) * tpf
-    text = torch.as_tensor(text)
+    text = torch.as_tensor(text, device=model.device)
     mask = text != 0
     ctx, cmask = model._cfg_context(model.embed_text(text, mask), mask, True)
-    inp = ids[:, start:p].repeat(2, 1)
+    inp = ids[:, start:p].to(model.device).repeat(2, 1)
     with torch.no_grad():
         row = model._decode_logits(inp, ctx, cmask)[:, p - start]
     logits = row[1:] + (row[:1] - row[1:]) * cond_scale
@@ -779,8 +810,8 @@ def cpu_top2_gap(model, text, ids, p, cond_scale):
 
 def check_against_cpu(NUWA):
     """Same weights in fp32: GPU (kernel) vs CPU (plain path)."""
-    gpu = NUWA(**FULL, seed=SEED + 7)
-    cpu = NUWA(**FULL, device="cpu", seed=SEED + 7)
+    gpu = NUWA(**dict(FULL, dec_depth=CHECK_DEPTH), seed=SEED + 7)
+    cpu = NUWA(**dict(FULL, dec_depth=CHECK_DEPTH), device="cpu", seed=SEED + 7)
     gen = torch.Generator().manual_seed(SEED + 7)
     text = request_text(1, gen)
     video = torch.randint(0, FULL["num_image_tokens"], (1, cpu.max_video_tokens),
@@ -793,7 +824,7 @@ def check_against_cpu(NUWA):
     if not err <= LOGITS_ATOL:
         fail("forward logits differ between GPU and CPU")
     thres = 1 - 0.5 / FULL["num_image_tokens"]  # top-k keeps k = 1: greedy
-    nf = 2 * cpu.max_video_frames
+    nf = cpu.max_video_frames + 1  # one frame through the sliding window
     ids_gpu = gpu.generate_long(text, num_frames=nf, filter_thres=thres).cpu()
     ids_cpu = cpu.generate_long(text, num_frames=nf, filter_thres=thres)
     diff = (ids_gpu != ids_cpu).nonzero()
@@ -1065,7 +1096,8 @@ def sketch_against_cpu(NUWASketch, VQGanVAE):
     mask = torch.tensor([[True, False]])
     out = {}
     for device in ("cuda", "cpu"):
-        model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None, seed=SEED + 17)
+        model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None, seed=SEED + 17,
+                              dec_depth=CHECK_DEPTH)
         start = time.perf_counter()
         with torch.no_grad():
             ids = (model.sketch_vae.get_video_indices(sketch).cpu(),
@@ -1090,7 +1122,7 @@ def sketch_against_cpu(NUWASketch, VQGanVAE):
     ids = {}
     for device in ("cuda", "cpu"):
         model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None,
-                              seed=SEED + 17, max_video_frames=2)
+                              seed=SEED + 17, max_video_frames=2, dec_depth=CHECK_DEPTH)
         start = time.perf_counter()
         ids[device] = model.generate_long(sketch, num_frames=3, filter_thres=thres,
                                           decode_video=False).cpu()
@@ -1317,13 +1349,13 @@ def time_cross_bwd(kcross):
 
 
 def sketch_train_model(NUWASketch, VQGanVAE, variant, device="cuda", dtype="bfloat16",
-                       seed=SEED, dropout=0.0):
+                       seed=SEED, dropout=0.0, **kw):
     """Model (a) or (b) from a seed, ``dropout`` its ``attn_dropout`` and
-    ``ff_dropout``."""
+    ``ff_dropout``, ``kw`` over its config."""
     vae = VQGanVAE(**SKETCH_VAE, device=device, seed=seed + 20)
     sketch_vae = (VQGanVAE(**SKETCH_VAE, channels=5, device=device, seed=seed + 21)
                   if variant == "b" else vae)
-    return NUWASketch(vae=vae, sketch_vae=sketch_vae, **SKETCH_TRAIN_VARIANTS[variant],
+    return NUWASketch(vae=vae, sketch_vae=sketch_vae, **dict(SKETCH_TRAIN_VARIANTS[variant], **kw),
                       attn_dropout=dropout, ff_dropout=dropout, compute_dtype=dtype,
                       device=device, seed=seed)
 
@@ -1435,7 +1467,7 @@ def sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=0.0):
     grads = []
     for device in ("cuda", "cpu"):
         model = sketch_train_model(NUWASketch, VQGanVAE, "b", device=device, dtype=None,
-                                   seed=SEED + 28, dropout=dropout)
+                                   seed=SEED + 28, dropout=dropout, dec_depth=CHECK_DEPTH)
         start = time.perf_counter()
         loss = model(sketch, video, sketch_mask=mask, return_loss=True, train=True,
                      uncond=uncond, generator=torch.Generator().manual_seed(SEED + 29))
@@ -1599,8 +1631,9 @@ def serve_128(NUWA, VQGanVAE, tokenizer, knda):
     before it and read just after: forward scores b = 2 pixel videos of 10
     frames through the codec (B1 once a decoder layer); generate decodes one
     frame at b = 1 with CFG 2.0 to pixels, 1,024 cached token steps, no
-    kernel. Each request runs three times, the first checked, and its
-    tokens/s is the median of the three."""
+    kernel. The forward runs three times, the first checked, and its
+    tokens/s is the median of the three; generate (about 30 s, host-bound)
+    runs once, checked and timed."""
     model = nuwa128_model(NUWA, VQGanVAE)
     text = nuwa128_text(tokenizer, 2)
     video = torch.from_numpy(moving_squares(2, NUWA128["max_video_frames"], SIZE128,
@@ -1610,15 +1643,15 @@ def serve_128(NUWA, VQGanVAE, tokenizer, knda):
     n = NUWA128["max_video_frames"] * tpf
     requests = {
         "forward b=2, 10 frames of pixels": (
-            torch.no_grad()(lambda: model(text, video)), (2, n + 1, VOCAB128), depth, 2 * n),
+            torch.no_grad()(lambda: model(text, video)), (2, n + 1, VOCAB128), depth, 2 * n, 3),
         "generate b=1, 1 frame, pixels": (
             lambda: model.generate(text[:1], generator=g, num_frames=1),
-            (1, 1, 3, SIZE128, SIZE128), 0, tpf),
+            (1, 1, 3, SIZE128, SIZE128), 0, tpf, 1),
     }
     launches, rates = 0, {}
-    for name, (call, shape, expect, tokens) in requests.items():
+    for name, (call, shape, expect, tokens, reps) in requests.items():
         times = []
-        for rep in range(3):  # the first is checked, all three timed
+        for rep in range(reps):  # the first is checked, all timed
             if rep == 0:
                 reset_launches(knda)
             start = torch.cuda.Event(enable_timing=True)
@@ -1641,7 +1674,7 @@ def serve_128(NUWA, VQGanVAE, tokenizer, knda):
         ms = statistics.median(times)
         rates[name] = tokens / (ms / 1e3)
         print(f"128 px {name}: {ms:.1f} ms per request, {rates[name]:.1f} tokens/s "
-              f"(median of 3: {', '.join(f'{x:.1f}' for x in times)} ms)", flush=True)
+              f"(median of {reps}: {', '.join(f'{x:.1f}' for x in times)} ms)", flush=True)
     del model
     torch.cuda.empty_cache()
     return launches, rates
@@ -1658,7 +1691,7 @@ def nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer):
     out = {}
     for device in ("cuda", "cpu"):
         model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 44,
-                              max_video_frames=2)
+                              max_video_frames=2, dec_depth=CHECK_DEPTH)
         start = time.perf_counter()
         with torch.no_grad():
             ids = model.vae.get_video_indices(video).cpu()
@@ -1802,7 +1835,8 @@ def train_128_against_cpu(NUWA, VQGanVAE, tokenizer, dropout=0.0):
     what = f"128 px train, dropout {dropout}," if dropout else "128 px train"
     for device in ("cuda", "cpu"):
         model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 47,
-                              max_video_frames=2, attn_dropout=dropout, ff_dropout=dropout)
+                              max_video_frames=2, attn_dropout=dropout, ff_dropout=dropout,
+                              dec_depth=CHECK_DEPTH)
         start = time.perf_counter()
         loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False]),
                      generator=torch.Generator().manual_seed(SEED + 48))
@@ -2672,6 +2706,495 @@ def cross_dropout_rows():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the rest of the surface: causal dense attention, method="full", int8
+# weights, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 2 ("NUWA tiny: full attention path, non-reversible") at
+# full width: the dense causal decoder with cross-attention over the tokens of
+# 4 frames of 64 px through config 1's 2-layer codec (fmap 16, 1,024 tokens),
+# b = 2, a 256-token text context whose second row masks its last 128
+DENSE = dict(dim=512, depth=4, heads=8, dim_head=64, causal=True, cross_attend=True)
+DENSE_B, DENSE_N, DENSE_CTX = 2, 4 * 16**2, 256
+DENSE_STEPS = 64  # teacher-forced cached steps after a prefill of the rest
+# greedy ids of two bf16 paths (full and cached) may part at a near-tie of the
+# top two logits: a gap of at most BF16_TIE_ULPS bf16 ulps of the step's top
+# logit (8 significant bits; CFG 2.0 triples a rounding carried through 6
+# layers)
+BF16_TIE_ULPS = 4
+# the NUWAVideoAudio of the full-method and int8 phases: bench.py's depth-12
+# config's widths (dim 512, 8 heads of 64, fmap 8 through a 2-layer codec on
+# 32-px frames, 32 audio tokens a frame) at depth 3, so one cross-modality
+# block, one frame a generate
+DUAL_FULL = dict(DUAL12, dec_depth=3)
+RESUME_TOL = 1e-6  # parameters after the resumed step (expected: equal)
+
+
+def greedy_thres(vocab):
+    return 1 - 0.5 / vocab  # top-k keeps k = max(int(0.5), 1) = 1: greedy
+
+
+def counted(name, knda, tally, call, expect):
+    """One request with the counts set to 0 just before it and read just
+    after, held to ``expect_launches(**expect)`` and added to ``tally`` (a
+    Counter of the surface phases' launches); returns (output, ms, launches
+    read)."""
+    reset_launches(knda)
+    out, ms = timed(call)
+    got = launch_counts(knda)
+    if got != expect_launches(**expect):
+        fail(f"{name}: launches {got}, expected {expect_launches(**expect)}")
+    tally.update(got)
+    return out, ms, got
+
+
+def dense_causal(knda, tally):
+    """BASELINE config 2 at full width: the fp32 forward on the GPU against
+    the CPU, causality at position 10 (a later token changed, the earlier
+    outputs unchanged), the cached decoder (a prefill, then teacher-forced
+    steps) against the forward, and the bf16 forward's time. No kernel of
+    the port is on this path (the JAX package runs it outside Pallas): every
+    count stays 0."""
+    import copy
+
+    from nuwa_tpu_torch.core.layers import init_weights_
+    from nuwa_tpu_torch.decode import TransformerDecoder
+    from nuwa_tpu_torch.transformer import Transformer
+
+    cpu = init_weights_(Transformer(**DENSE), SEED + 80)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(SEED + 81)
+    x = torch.randn(DENSE_B, DENSE_N, DENSE["dim"], generator=gen)
+    ctx = torch.randn(DENSE_B, DENSE_CTX, DENSE["dim"], generator=gen)
+    cmask = torch.ones(DENSE_B, DENSE_CTX, dtype=torch.bool)
+    cmask[1, DENSE_CTX // 2:] = False
+    xg, cg, mg = x.cuda(), ctx.cuda(), cmask.cuda()
+    with torch.no_grad():
+        out, _, got = counted("dense causal forward fp32", knda, tally,
+                              lambda: gpu(xg, context=cg, context_mask=mg), {})
+        ref = cpu(x, context=ctx, context_mask=cmask)
+        err = (out.cpu() - ref).abs().max().item()
+        x2 = xg.clone()
+        x2[:, 10] = 3.0
+        out2 = gpu(x2, context=cg, context_mask=mg)
+        causal_err = (out2[:, :10] - out[:, :10]).abs().max().item()
+        moved = (out2[:, 10:] - out[:, 10:]).abs().max().item()
+        dec = TransformerDecoder(gpu, total_in=DENSE_N)
+        caches = dec.init_cache(DENSE_B, cg, mg)
+        split = DENSE_N - DENSE_STEPS
+        dec.prefill(caches, xg[:, :split])
+        steps = torch.stack([dec.step(caches, xg[:, i], i) for i in range(split, DENSE_N)],
+                            dim=1)
+        step_err = (steps - out[:, split:]).abs().max().item()
+    print(f"dense causal decoder (BASELINE config 2, dim {DENSE['dim']}, depth {DENSE['depth']}, "
+          f"b={DENSE_B}, "
+          f"{DENSE_N} tokens, context {DENSE_CTX}): fp32 GPU vs CPU max abs err {err:.3e} "
+          f"(tolerance {LOGITS_ATOL:.0e}); position 10 changed: outputs before it moved "
+          f"{causal_err:.1e} (tolerance {TOL[torch.float32]:.0e}), after it {moved:.2e}; "
+          f"prefill of {split} + {DENSE_STEPS} cached steps vs the forward {step_err:.3e} "
+          f"(tolerance {LOGITS_ATOL:.0e}); no kernel launched", flush=True)
+    if not (err <= LOGITS_ATOL and causal_err <= TOL[torch.float32] and moved > 0
+            and step_err <= LOGITS_ATOL):
+        fail("the dense causal decoder differs from the CPU, leaks the future or "
+             "its cached steps differ from its forward")
+    xb, cb = xg.bfloat16(), cg.bfloat16()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: gpu(xb, context=cb, context_mask=mg), iters=5, reps=3)
+    tokens = DENSE_B * DENSE_N
+    print(f"dense causal forward bf16 (b={DENSE_B}, {DENSE_N} tokens): {ms:.2f} ms, "
+          f"{tokens / (ms / 1e3):.0f} tokens/s", flush=True)
+    del gpu
+    torch.cuda.empty_cache()
+    return {"ms": ms, "fp32_err": err}
+
+
+def check_near_tie(name, ids_a, ids_b, gap_at, tie):
+    """Greedy ids of two paths: equal, or parting first at a step p whose
+    top-2 logit gap ``gap_at(p)`` is below ``tie`` (or ``tie(p)``)."""
+    diff = (ids_a.cpu() != ids_b.cpu()).nonzero()
+    if len(diff) == 0:
+        print(f"{name}: all {ids_a.numel()} greedy ids equal", flush=True)
+        return None
+    p = diff[0, -1].item()
+    gap = gap_at(p)
+    tie = tie(p) if callable(tie) else tie
+    print(f"{name}: greedy ids part first at position {p}; top-2 logit gap there "
+          f"{gap:.3e} (a tie below {tie:.3e})", flush=True)
+    if not gap < tie:
+        fail(f"{name}: greedy ids differ away from a near-tie")
+    return p
+
+
+def bf16_tie(top):
+    """The near-tie limit at each step of two bf16 paths' greedy ids:
+    BF16_TIE_ULPS bf16 ulps of the step's top logit ``top``."""
+    return BF16_TIE_ULPS * torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+
+
+def mix(row, cond_scale=2.0):
+    """CFG-mixed logits of b = 1 from the doubled batch's rows, in the rows'
+    dtype and in the order the samplers mix them."""
+    return row[1:] + (row[:1] - row[1:]) * cond_scale
+
+
+def full_rows(model, ctx, cmask, ids):
+    """The rows (n, V) a b = 1 single-tower method="full" rollout ``ids`` (1,
+    n) sampled from, recomputed by teacher-forced forwards of the same
+    shapes: one over the first max_video_frames frames, then one over each
+    later frame's window. CFG-mixed in the model's dtype, then fp32."""
+    tpf, maxf = model.tokens_per_frame, model.max_video_frames
+    ids = ids.to(model.device)
+    n = ids.shape[1]
+    chunks = [(0, 0, min(n, maxf * tpf))]  # (window start, first row, end)
+    chunks += [((f - maxf + 1) * tpf, f * tpf, (f + 1) * tpf) for f in range(maxf, n // tpf)]
+    rows = []
+    with torch.no_grad():
+        for start, first, end in chunks:
+            inp = ids[:, start:end - 1].repeat(2, 1)
+            rows.append(mix(model._decode_logits(inp, ctx, cmask)[:, first - start:]))
+    return torch.cat(rows, dim=1)[0].float()
+
+
+def check_full_rows(name, ids, rows, other=None):
+    """A bf16 greedy method="full" rollout against ``rows``, the logits it
+    sampled from (``full_rows``): each id is the top of its row, up to a
+    bf16 near-tie. Prints the median top-2 gap over the steps and the share
+    of steps at a near-tie, where two bf16 paths may part. With ``other``
+    (the cached path's ids), the two are equal or part first at a near-tie
+    (the gap from ``rows``)."""
+    ids = ids.reshape(-1).to(rows.device)
+    top2 = rows.topk(2, dim=-1).values
+    gaps, tie = top2[:, 0] - top2[:, 1], bf16_tie(top2[:, 0])
+    regret = top2[:, 0] - rows.gather(1, ids[:, None])[:, 0]
+    print(f"{name}: {ids.numel()} steps, top-2 logit gap median {gaps.median().item():.3e} "
+          f"(min {gaps.min().item():.3e}); near-tie limit ({BF16_TIE_ULPS} bf16 ulps of the "
+          f"top logit) median {tie.median().item():.3e}, {(gaps < tie).float().mean().item():.1%}"
+          f" of steps below it; each full id's logit below its row's top by at most "
+          f"{regret.max().item():.3e} (at most the limit)", flush=True)
+    if not bool((regret <= tie).all()):
+        fail(f"{name}: method=full sampled an id away from the top of its row")
+    if other is not None:
+        check_near_tie(f"{name} full vs cached", ids, other.reshape(-1),
+                       lambda p: gaps[p].item(), lambda p: tie[p].item())
+
+
+def full_nuwa(model, texts, knda, tally):
+    """method="full" on the serving model (bench.py's decode config, bf16,
+    CFG 2.0, b = 1), greedy: generate (4 frames: 256 full re-forwards, each
+    6 launches of the forward kernel) and generate_long one frame past the
+    window (256 + 64 re-forwards), each against method="cached" on the card
+    with the near-tie rule; tokens/s of both."""
+    depth, tpf, maxf = FULL["dec_depth"], model.tokens_per_frame, model.max_video_frames
+    text = texts[1]
+    ids = torch.as_tensor(text, device=model.device)
+    with torch.no_grad():
+        ctx, cmask = model._cfg_context(model.embed_text(ids, ids != 0), ids != 0, True)
+    kw = dict(filter_thres=greedy_thres(FULL["num_image_tokens"]), cond_scale=2.0)
+    rates = {}
+    for name, frames, call in (
+        ("generate", maxf, lambda method: model.generate(text, method=method, **kw)),
+        ("generate_long", maxf + 1, lambda method: model.generate_long(
+            text, num_frames=maxf + 1, method=method, **kw)),
+    ):
+        n = frames * tpf
+        want_full = n * depth
+        full, full_ms, got = counted(f"{name} full", knda, tally, lambda: call("full"),
+                                     {"fwd": want_full})
+        cached, cached_ms, _ = counted(f"{name} cached", knda, tally, lambda: call("cached"),
+                                       {"fwd": depth if frames > maxf else 0})
+        check_ids(f"{name} full", full, (1, n))
+        rates[name] = {"full": n / (full_ms / 1e3), "cached": n / (cached_ms / 1e3)}
+        print(f"NUWA {name} b=1, {frames} frames, bf16: method=full {full_ms:.0f} ms "
+              f"({rates[name]['full']:.1f} tokens/s, {got['fwd']} sparse_3dna_fwd launches "
+              f"= {n} re-forwards x {depth}), cached {cached_ms:.0f} ms "
+              f"({rates[name]['cached']:.1f} tokens/s)", flush=True)
+        check_full_rows(f"NUWA {name}", full, full_rows(model, ctx, cmask, full), cached)
+    return rates
+
+
+def full_sketch(NUWASketch, VQGanVAE, knda, tally):
+    """method="full" on the sketch serving model with a centered Sparse3DNA
+    sketch encoder (BASELINE config 4's sketch side at the serving widths),
+    bf16, a 2-frame sketch, CFG 2.0, greedy, one frame (256 re-forwards,
+    each 6 launches of the forward kernel and 6 of the cross forward at two
+    context frames; the encoder's 2 centered launches once): against
+    method="cached" on the card with the near-tie rule."""
+    model = sketch_models(NUWASketch, VQGanVAE, sketch_enc_use_sparse_3dna=True)
+    sketch = sketch_request(1, 2, torch.Generator().manual_seed(SEED + 82))[0]
+    depth, tpf = SKETCH["dec_depth"], SKETCH_FMAP**2
+    enc = SKETCH["sketch_enc_depth"]
+    kw = dict(filter_thres=greedy_thres(SKETCH_VAE["vq_codebook_size"]), cond_scale=2.0,
+              num_frames=1, decode_video=False)
+    full, full_ms, got = counted(
+        "sketch generate full", knda, tally, lambda: model.generate(sketch, method="full", **kw),
+        {"fwd": tpf * depth + enc, "fwd_centered": enc, "cross": tpf * depth})
+    cached, cached_ms, _ = counted(
+        "sketch generate cached", knda, tally, lambda: model.generate(sketch, **kw),
+        {"fwd": enc, "fwd_centered": enc})
+    rates = {"full": tpf / (full_ms / 1e3), "cached": tpf / (cached_ms / 1e3)}
+    print(f"NUWASketch generate b=1, 1 frame, bf16: method=full {full_ms:.0f} ms "
+          f"({rates['full']:.1f} tokens/s; launches sparse_3dna_fwd {got['fwd']} of which "
+          f"centered {got['fwd_centered']}, sparse_cross_2dna_fwd {got['cross']}), cached "
+          f"{cached_ms:.0f} ms ({rates['cached']:.1f} tokens/s)", flush=True)
+    with torch.no_grad():
+        ctx, cmask = model._sketch_context(sketch, None, True)
+    check_full_rows("NUWASketch generate", full, full_rows(model, ctx, cmask, full), cached)
+    del model
+    torch.cuda.empty_cache()
+    return rates
+
+
+def dual_gap(model, text, vids, aids, p, video):
+    """Top-2 logit gap of method="full" at the step that samples video (or
+    audio) position p, from the ids sampled before it."""
+    text = torch.as_tensor(text, device=model.device)
+    ctx, cmask = model._text_context(text, True)
+    vbuf, abuf = vids.clone().to(model.device), aids.clone().to(model.device)
+    if video:
+        vbuf[:, p:] = 0
+        abuf[:, (p // model.tokens_per_frame) * model.audio_tokens_per_frame:] = 0
+    else:
+        abuf[:, p:] = 0
+    with torch.no_grad():
+        logits = model._decode(vbuf[:, :-1].repeat(2, 1), abuf[:, :-1].repeat(2, 1), ctx, cmask)
+    top = mix(logits[0 if video else 1][:, p]).float().topk(2, dim=-1).values[0]
+    return (top[0] - top[1]).item()
+
+
+def dual_rows(model, text, vids, aids):
+    """The video and audio rows a one-frame b = 1 method="full" rollout at
+    H = 1 sampled from (see ``full_rows``): the video steps saw no audio of
+    the frame, the audio steps the whole video; within a tower the forward
+    is causal. CFG-mixed in the model's dtype, then fp32."""
+    text = torch.as_tensor(text, device=model.device)
+    vids, aids = vids.to(model.device), aids.to(model.device)
+    with torch.no_grad():
+        ctx, cmask = model._text_context(text, True)
+        v_inp = vids[:, :-1].repeat(2, 1)
+        vl, _ = model._decode(v_inp, torch.zeros_like(aids[:, :-1]).repeat(2, 1), ctx, cmask)
+        _, al = model._decode(v_inp, aids[:, :-1].repeat(2, 1), ctx, cmask)
+    return mix(vl)[0].float(), mix(al)[0].float()
+
+
+def check_dual_ids(name, a, b, model, text, tie):
+    """Video then audio ids of two rollouts of one frame, held by the
+    near-tie rule at the first step where they part: the video's, or, where
+    the videos agree, the audio's."""
+    (va, aa), (vb, ab) = a, b
+    check_near_tie(f"{name} (video)", va, vb,
+                   lambda p: dual_gap(model, text, va, aa, p, True), tie)
+    if torch.equal(va.cpu(), vb.cpu()):  # else the audio saw other video tokens
+        check_near_tie(f"{name} (audio)", aa, ab,
+                       lambda p: dual_gap(model, text, va, aa, p, False), tie)
+
+
+def full_dual(NUWAVideoAudio, VQGanVAE, knda, tally):
+    """method="full" on NUWAVideoAudio at width 512 (DUAL_FULL, CFG 2.0,
+    greedy, one frame: 64 video and 32 audio steps, each a re-forward of both
+    towers: 2 x depth launches of the forward kernel, depth of them audio):
+    at H = 1, bf16, against method="cached" on the card (near-tie rule); at
+    H = 4, fp32, against the CPU's method="full" ids (the full forward sees
+    the later tokens of a query's own timestep there, as the JAX one does).
+    """
+    depth, atpf = DUAL_FULL["dec_depth"], DUAL_FULL["num_audio_tokens_per_video_frame"]
+    text = request_text(1, torch.Generator().manual_seed(SEED + 83))
+    vocab = max(DUAL_FULL["num_audio_tokens"], DUAL12_VAE["vq_codebook_size"])
+    kw = dict(filter_thres=greedy_thres(vocab), cond_scale=2.0, num_frames=1,
+              decode_video=False)
+    model = dual_model(NUWAVideoAudio, VQGanVAE, DUAL_FULL, DUAL12_VAE)
+    steps = model.tokens_per_frame + atpf
+    want = {"fwd": steps * 2 * depth, "fwd_audio": steps * depth}
+    full, full_ms, got = counted("dual generate full", knda, tally,
+                                 lambda: model.generate(text, method="full", **kw), want)
+    cached, cached_ms, _ = counted("dual generate cached", knda, tally,
+                                   lambda: model.generate(text, **kw), {})
+    rates = {"full": steps / (full_ms / 1e3), "cached": steps / (cached_ms / 1e3)}
+    print(f"NUWAVideoAudio generate b=1, 1 frame, H=1, depth {depth}, bf16: method=full "
+          f"{full_ms:.0f} ms ({rates['full']:.1f} tokens/s; launches sparse_3dna_fwd "
+          f"{got['fwd']} of which audio {got['fwd_audio']}), cached {cached_ms:.0f} ms "
+          f"({rates['cached']:.1f} tokens/s)", flush=True)
+    vrows, arows = dual_rows(model, text, *full)
+    check_full_rows("NUWAVideoAudio H=1 generate (video)", full[0], vrows, cached[0])
+    check_full_rows("NUWAVideoAudio H=1 generate (audio)", full[1], arows,
+                    cached[1] if torch.equal(full[0].cpu(), cached[0].cpu()) else None)
+    del model
+    torch.cuda.empty_cache()
+
+    h4 = dict(DUAL_FULL, audio_tokens_per_timestep=4)
+    ids = []
+    for device in ("cuda", "cpu"):
+        model = dual_model(NUWAVideoAudio, VQGanVAE, h4, DUAL12_VAE, device=device,
+                           dtype=None, seed=SEED + 84)
+        start = time.perf_counter()
+        if device == "cuda":
+            out, _, _ = counted("dual generate full H=4 fp32", knda, tally,
+                                lambda: model.generate(text, method="full", **kw), want)
+        else:
+            out = model.generate(text, method="full", **kw)
+        ids.append(out)
+        print(f"NUWAVideoAudio H=4 method=full fp32 on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    check_dual_ids("NUWAVideoAudio H=4 full, GPU vs CPU fp32", ids[0], ids[1], model, text,
+                   TIE_GAP)
+    del model
+    torch.cuda.empty_cache()
+    return rates
+
+
+def int8_serving(NUWA, NUWAVideoAudio, VQGanVAE, knda, bf16_model, texts, tally):
+    """int8 weight-only serving (utils.quantize.quantize_int8_): the serving
+    model quantised (bf16 activations) against the bf16 one, cached generate
+    b = 8: weights held, tokens/s and peak memory; its forward launches the
+    forward kernel as the bf16 model does (6, and none in generate). Then
+    the same weights in fp32, quantised on the GPU and on the CPU: forward
+    logits and greedy cached ids (near-tie rule), and NUWAVideoAudio's
+    forward logits (DUAL_FULL, from token ids)."""
+    from nuwa_tpu_torch.utils.quantize import quantize_int8_
+
+    depth = FULL["dec_depth"]
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    q = quantize_int8_(NUWA(**FULL, compute_dtype="bfloat16", seed=SEED))
+    torch.cuda.empty_cache()
+    q_bytes = torch.cuda.memory_allocated() - before
+    bf16_bytes = sum(t.numel() * t.element_size()
+                     for t in itertools.chain(bf16_model.parameters(), bf16_model.buffers()))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
+    video = torch.randint(0, FULL["num_image_tokens"], (1, q.max_video_tokens),
+                          generator=torch.Generator().manual_seed(SEED + 86))
+    counted("int8 forward b=1", knda, tally, torch.no_grad()(lambda: q(texts[1], video)),
+            {"fwd": depth})
+    stats = {}
+    for name, model in (("bf16", bf16_model), ("int8", q)):
+        model.generate(texts[8], generator=gen)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # both models and earlier phases' tensors
+        ids, ms, _ = counted(f"{name} generate b=8", knda, tally,
+                             lambda: model.generate(texts[8], generator=gen), {})
+        check_ids(f"{name} generate b=8", ids, (8, model.max_video_tokens))
+        stats[name] = {"tokens_per_s": 8 * model.max_video_tokens / (ms / 1e3),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "request_mib": (torch.cuda.max_memory_allocated() - base) / 2**20}
+    print(f"int8 vs bf16 serving (cached generate b=8, 4 frames, CFG 2.0): "
+          f"{stats['int8']['tokens_per_s']:.1f} vs {stats['bf16']['tokens_per_s']:.1f} "
+          f"tokens/s; peak memory {stats['int8']['peak_gib']:.3f} vs "
+          f"{stats['bf16']['peak_gib']:.3f} GiB with both models resident, of which the "
+          f"request's own {stats['int8']['request_mib']:.1f} vs "
+          f"{stats['bf16']['request_mib']:.1f} MiB; weights held {q_bytes / 2**20:.1f} vs "
+          f"{bf16_bytes / 2**20:.1f} MiB (the bf16 model keeps fp32 weights and casts them)",
+          flush=True)
+    del q
+    torch.cuda.empty_cache()
+
+    gpu = quantize_int8_(NUWA(**FULL, seed=SEED + 7))
+    cpu = quantize_int8_(NUWA(**FULL, device="cpu", seed=SEED + 7))
+    text = texts[1]
+    with torch.no_grad():
+        err = (gpu(text, video).cpu() - cpu(text, video)).abs().max().item()
+    thres = greedy_thres(FULL["num_image_tokens"])
+    ids_gpu = gpu.generate(text, filter_thres=thres).cpu()
+    ids_cpu = cpu.generate(text, filter_thres=thres)
+    print(f"int8 fp32 forward logits GPU vs CPU: max abs err {err:.3e} (tolerance "
+          f"{LOGITS_ATOL:.0e})", flush=True)
+    if not err <= LOGITS_ATOL:
+        fail("int8 logits differ between GPU and CPU")
+    check_near_tie("int8 fp32 greedy generate GPU vs CPU", ids_gpu, ids_cpu,
+                   lambda p: cpu_top2_gap(cpu, text, ids_cpu, p, 2.0), TIE_GAP)
+    del gpu, cpu
+
+    frames, fmap = DUAL_FULL["max_video_frames"], DUAL12_VAE["image_size"] // 2 ** DUAL12_VAE[
+        "num_layers"]
+    gen = torch.Generator().manual_seed(SEED + 87)
+    ids = torch.randint(0, DUAL12_VAE["vq_codebook_size"], (1, frames * fmap**2), generator=gen)
+    audio = torch.randint(0, DUAL_FULL["num_audio_tokens"],
+                          (1, frames * DUAL_FULL["num_audio_tokens_per_video_frame"]),
+                          generator=gen)
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = quantize_int8_(dual_model(NUWAVideoAudio, VQGanVAE, DUAL_FULL, DUAL12_VAE,
+                                          device=device, dtype=None, seed=SEED + 89))
+        with torch.no_grad():
+            if device == "cuda":
+                out, _, _ = counted("int8 dual forward fp32", knda, tally,
+                                    lambda: model(text, ids, audio),
+                                    {"fwd": 2 * DUAL_FULL["dec_depth"],
+                                     "fwd_audio": DUAL_FULL["dec_depth"]})
+            else:
+                out = model(text, ids, audio)
+        outs.append([o.cpu() for o in out])
+    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
+    print(f"int8 NUWAVideoAudio fp32 forward GPU vs CPU: video logits {errs[0]:.3e}, audio "
+          f"logits {errs[1]:.3e} (tolerance {LOGITS_ATOL:.0e})", flush=True)
+    if not max(errs) <= LOGITS_ATOL:
+        fail("int8 NUWAVideoAudio logits differ between GPU and CPU")
+    torch.cuda.empty_cache()
+    return stats
+
+
+def resume_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
+    """Checkpoints and resume at 128 px (BASELINE config 3, train_128's model
+    and batch, bf16): NUWATrainer with save_model_every=1 takes 2 steps; a
+    fresh trainer over a model of other weights resumes from the folder; both
+    take step 3 on the same batch: the same loss and parameters. The file's
+    size and the save and load times."""
+    import os
+    import tempfile
+
+    from nuwa_tpu_torch.train import checkpoint
+
+    depth = NUWA128["dec_depth"]
+    per_step = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth}
+    text = nuwa128_text(tokenizer, NUWA128_BATCH).numpy()
+    video = moving_squares(NUWA128_BATCH, NUWA128["max_video_frames"], SIZE128,
+                           np.random.default_rng(SEED + 45))
+    with tempfile.TemporaryDirectory() as folder:
+        def trainer(model, **kw):
+            return NUWATrainer(
+                nuwa=model, dataset=list(zip(text, video)), num_train_steps=3, lr=3e-4,
+                wd=0.01, batch_size=NUWA128_BATCH, grad_accum_every=1, max_grad_norm=0.5,
+                cond_dropout_prob=0.2, save_results_every=1000, num_sampled_frames=1,
+                seed=SEED, results_folder=folder, **kw)
+
+        def step(t, name):
+            return counted(name, knda, tally, t.train_step, per_step)[0]["loss"]
+
+        first = trainer(nuwa128_model(NUWA, VQGanVAE), save_model_every=1)
+        for i in range(2):
+            step(first, f"128 px train step {i}, saving")
+        path = checkpoint.latest_checkpoint(folder, "nuwa_trainstate")[1]
+        size = os.path.getsize(path)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        first.save(99)
+        save_s = time.perf_counter() - start
+        os.remove(os.path.join(folder, "nuwa_trainstate.99.ckpt"))
+        os.remove(os.path.join(folder, "nuwa_trainstate.LATEST"))  # the scan finds step 1
+        model = nuwa128_model(NUWA, VQGanVAE, seed=SEED + 1)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        resumed = trainer(model, resume=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        if resumed.step != 2:
+            fail(f"resume restored step {resumed.step}, expected 2")
+        want, got = step(first, "128 px train step 2"), step(resumed, "128 px resumed step 2")
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(first.nuwa.parameters(), resumed.nuwa.parameters()))
+    print(f"resume at 128 px (BASELINE config 3, bf16, b={NUWA128_BATCH}): step 3 loss "
+          f"{got:.6f} resumed vs {want:.6f} uninterrupted ({'equal' if got == want else 'DIFFER'}"
+          f"); parameters after it: max abs difference {diff:.3e} (tolerance {RESUME_TOL:.0e}, "
+          f"{'bit-equal' if diff == 0 else 'not bit-equal'}); checkpoint "
+          f"{size / 2**20:.1f} MiB, save {1e3 * save_s:.0f} ms, load (a trainer with "
+          f"resume=True) {1e3 * load_s:.0f} ms", flush=True)
+    if got != want or not diff <= RESUME_TOL:
+        fail("the resumed step differs from the uninterrupted one")
+    del first, resumed, model
+    torch.cuda.empty_cache()
+    return {"mib": size / 2**20, "save_ms": 1e3 * save_s, "load_ms": 1e3 * load_s}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -2776,15 +3299,26 @@ def main():
               flush=True)
     sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=DROP_RATE)
     phase("training with attention and feed-forward dropout")
+    surface = collections.Counter()  # the surface phases' launches
+    dense_causal(knda, surface)
+    phase("dense causal decoder (BASELINE config 2)")
+    full_nuwa(model, texts, knda, surface)
+    full_sketch(NUWASketch, VQGanVAE, knda, surface)
+    full_dual(NUWAVideoAudio, VQGanVAE, knda, surface)
+    phase('method="full"')
+    int8_serving(NUWA, NUWAVideoAudio, VQGanVAE, knda, model, texts, surface)
+    phase("int8 serving")
+    resume_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, surface)
+    phase("checkpoint and resume at 128 px")
     throughput(model, texts)
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
     phase("throughput")
 
     # launches: the NUWA serving run's, the training run's, the sketch
-    # serving run's, the sketch training runs', the 128-px runs' and the
+    # serving run's, the sketch training runs', the 128-px runs', the
     # NUWAVideoAudio serving and training runs' (their audio launches under
-    # "audio");
+    # "audio") and the surface phases' (method="full", int8, resume);
     # Sparse3DNA times at the fmap-16 training shape, dilation 2, and under
     # "fmap_32" at the fmap-32 one, where the JAX package runs its
     # row-blocked kernels (rows 4-6 of the table); the cross forward's at the
@@ -2816,12 +3350,14 @@ def main():
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
             "launches": (serve_counts[name] + train_launches[name] + sketch_train_total[name]
                          + rb_launches + dual_train_launches[name] + drop128_launches[name]
-                         + drop_dual_launches[name] + drop_sketch_total[name]),
+                         + drop_dual_launches[name] + drop_sketch_total[name]
+                         + surface[name]),
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             # causal windows (the video decoder), centered ones (the sketch encoder)
             "modes": "causal, centered and audio, with and without attention dropout",
-            "centered_launches": sketch_train_total[f"{name}_centered"],
+            "centered_launches": (sketch_train_total[f"{name}_centered"]
+                                  + surface[f"{name}_centered"]),
             # frames past 256 tokens: the row-blocked TPU kernel's shapes
             "fmap_32": {
                 "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{rb_line}", "b": TRAIN_BATCH,
@@ -2848,7 +3384,8 @@ def main():
     fwd_audio = audio_rows["forward, H=4"]
     entries[0]["audio"] = {
         "replaces": "nuwa_tpu/kernels/nda_pallas.py:2251 and :2455",
-        "launches": dual_launches["fwd_audio"] + dual_train_launches["fwd_audio"],
+        "launches": (dual_launches["fwd_audio"] + dual_train_launches["fwd_audio"]
+                     + surface["fwd_audio"]),
         "max_abs_err": max(audio_err, *(r["max_abs_err"] for r in audio_rows.values())),
         **{k: fwd_audio[k] for k in timed_keys},
         "library_ms": None,
@@ -2906,8 +3443,10 @@ def main():
             "name": "sparse_cross_2dna_fwd", "context_frames": frames, "route": "cuda",
             "source": "nuwa_tpu_torch/kernels/csrc/sparse_cross2dna_fwd.cu",
             "replaces": f"nuwa_tpu/kernels/nda_pallas.py:{line}",
+            # the surface phases' cross launches are all at two context frames
             "launches": (cross_launches[frames] + sketch_train_launches[frames]["cross"]
-                         + drop_sketch_launches[frames]["cross"]),
+                         + drop_sketch_launches[frames]["cross"]
+                         + (surface["cross"] if frames == 2 else 0)),
             "max_abs_err": cross_err[frames],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None, "tiles": row["tiles"],

@@ -1,6 +1,7 @@
-"""Leaf layers: Dense, Embedding, LayerNorm, StableLayerNorm, dropout and
-the seeds of a stack's layers, and the codec's convolution layers (Conv2d,
-GroupNorm, LayerNormChan, leaky_relu, the bilinear upsample).
+"""Leaf layers: Dense (with its int8 weight-only form), Embedding,
+LayerNorm, StableLayerNorm, dropout and the seeds of a stack's layers, and
+the codec's convolution layers (Conv2d, GroupNorm, LayerNormChan,
+leaky_relu, the bilinear upsample).
 
 Counterpart of ``nuwa_tpu/core/layers.py``. Parameters keep the JAX
 package's names and layouts (``Dense.w`` is ``(din, dout)``), so
@@ -53,7 +54,7 @@ def init_weights_(model: nn.Module, seed: int, skip=()) -> nn.Module:
     return model
 
 
-def dropout(x, rate, seed, ids=None):
+def dropout(x, rate, seed, ids=None, index=None):
     """Inverted dropout: the counterpart of ``dropout`` in
     ``nuwa_tpu/core/layers.py``. No seed, or a rate of 0, is the identity
     (inference), as a key of None is there. The mask is not drawn from a
@@ -64,12 +65,15 @@ def dropout(x, rate, seed, ids=None):
     (q_ids (n,), k_ids (n, K) or (1, K)) for an x of (b, h, n, K), keying
     each element by (seed, batch row, head, query id, key id); None keys each
     element of an x of any shape by its flat index (the query id of batch row
-    0 and head 0, key id 0). The kept values are scaled by fp32 1 / keep."""
+    0 and head 0, key id 0), or by ``index``, an integer tensor of x's shape,
+    where x is a slice of a larger tensor whose flat indices these are. The
+    kept values are scaled by fp32 1 / keep."""
     if seed is None or rate <= 0:
         return x
     if ids is None:
-        keep = keep_mask(seed, rate, 1, 1, torch.arange(x.numel(), device=x.device))
-        keep = keep.view(x.shape)
+        if index is None:
+            index = torch.arange(x.numel(), device=x.device)
+        keep = keep_mask(seed, rate, 1, 1, index.reshape(-1)).view(x.shape)
     else:
         keep = keep_mask(seed, rate, x.shape[0], x.shape[1], *ids)
     return torch.where(keep, x * keep_params(rate)[1], 0.0)
@@ -91,10 +95,18 @@ def split_seed(seed, n):
 
 
 class Dense(nn.Module):
-    def __init__(self, din, dout, use_bias=False):
+    """``x @ w (+ b)`` in ``dtype`` (default: the activations' dtype). With
+    ``quantize_()`` the weight becomes int8 with an fp32 scale per output
+    channel (``w_scale``), both buffers, dequantised on the fly to the
+    compute dtype as the JAX ``Dense`` does: a quantised Dense is for serving
+    only."""
+
+    def __init__(self, din, dout, use_bias=False, dtype=None):
         super().__init__()
         self.din = din
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         self.w = nn.Parameter(torch.empty(din, dout))
+        self.register_buffer("w_scale", None)
         self.b = nn.Parameter(torch.empty(dout)) if use_bias else None
 
     def reset_parameters(self, generator):
@@ -102,10 +114,30 @@ class Dense(nn.Module):
         if self.b is not None:
             uniform_(self.b, generator, 1.0 / math.sqrt(self.din))
 
+    @property
+    def quantized(self):
+        return self.w_scale is not None
+
+    @torch.no_grad()
+    def quantize_(self):
+        """int8 weight-only in place; a quantised Dense stays as it is."""
+        if not self.quantized:
+            from ..utils.quantize import _quantize_w
+
+            q, scale = _quantize_w(self.w)
+            del self.w
+            self.register_buffer("w", q)
+            self.w_scale = scale
+        return self
+
     def forward(self, x):
-        out = x @ self.w.to(x.dtype)
+        dtype = self.dtype or x.dtype
+        w = self.w.to(dtype)
+        if self.quantized:
+            w = w * self.w_scale.to(dtype)
+        out = x.to(dtype) @ w
         if self.b is not None:
-            out = out + self.b.to(x.dtype)
+            out = out + self.b.to(dtype)
         return out
 
 

@@ -5,6 +5,8 @@ what one incremental step needs:
 
   * Sparse3DNA: a (b, h, T, dh) k/v buffer plus the bos k/v slot; a new
     token attends its neighbour-table row (at most Kn entries) plus bos;
+  * dense causal self-attention: a (b, h, T, dh) k/v buffer of every input
+    position, bos included; a new token attends null and positions 0..pos;
   * dense cross-attention: the context k/v, projected once per rollout;
   * SparseCross2DNA: the same, plus the context mask and the raw context,
     so that ``prefill`` can run the module's full forward; a new video token
@@ -35,6 +37,48 @@ from .transformer import ReversibleTransformer, Sandwich, ShiftVideo, Transforme
 def _th_mix(attn, w):
     """Talking heads for one query row: attn (b, h, J) -> mixed."""
     return torch.einsum("bhj,gh->bgj", attn, w.to(attn.dtype))
+
+
+class _DenseSelfStep:
+    """Dense causal self-attention over a k/v cache of every position."""
+
+    def __init__(self, mod: Attention, total_in: int):
+        self.mod = mod
+        self.total = total_in
+
+    def init_cache(self, b, dtype):
+        mod = self.mod
+        shape = (b, mod.heads, self.total, mod.dim_head)
+        device = mod.to_q.w.device
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def __call__(self, cache, x_i, pos):
+        mod = self.mod
+        h, dh = mod.heads, mod.dim_head
+        b = x_i.shape[0]
+        k_i, v_i = mod.to_kv(x_i).chunk(2, dim=-1)
+        cache["k"][:, :, pos] = k_i.reshape(b, h, dh)
+        cache["v"][:, :, pos] = v_i.reshape(b, h, dh)
+        q = mod.to_q(x_i).reshape(b, h, dh) * dh**-0.5
+        null_k = mod.null_k.to(q.dtype)[None, :, 0].expand(b, h, dh)
+        null_v = mod.null_v.to(q.dtype)[None, :, 0].expand(b, h, dh)
+        # null and positions 0..pos: the JAX step's mask over the whole
+        # buffer leaves exactly these
+        keys = torch.cat([null_k[:, :, None], cache["k"][:, :, : pos + 1]], dim=2)
+        vals = torch.cat([null_v[:, :, None], cache["v"][:, :, : pos + 1]], dim=2)
+        sim = torch.einsum("bhd,bhjd->bhj", q, keys)
+        attn = _th_mix(stable_softmax(sim), mod.talking_heads)
+        out = torch.einsum("bhj,bhjd->bhd", attn.to(vals.dtype), vals)
+        return mod.to_out(out.reshape(b, h * dh))
+
+    def prefill(self, cache, x):
+        mod = self.mod
+        b, n, _ = x.shape
+        k, v = mod.to_kv(x).chunk(2, dim=-1)
+        cache["k"][:, :, :n] = k.reshape(b, n, mod.heads, mod.dim_head).transpose(1, 2)
+        cache["v"][:, :, :n] = v.reshape(b, n, mod.heads, mod.dim_head).transpose(1, 2)
+        return mod(x)
 
 
 class _CrossAttnStep:
@@ -204,14 +248,17 @@ class _Sparse3DNAStep:
 
 
 class _FFStep:
+    """The feed-forward unchunked (a step is one position; a prefill's
+    chunks would give the same rows)."""
+
     def __init__(self, mod: FeedForward):
         self.mod = mod
 
     def __call__(self, cache, x_i, pos):
-        return self.mod(x_i)
+        return self.mod.net(x_i)
 
     def prefill(self, cache, x):
-        return self.mod(x)
+        return self.mod.net(x)
 
 
 class _ShiftVideoStep:
@@ -287,8 +334,9 @@ class TransformerDecoder:
             step = _Sparse3DNAStep(inner, self.total_in - 1)
         elif isinstance(inner, SparseCross2DNA):
             step = _SparseCross2DNAStep(inner)
-        elif isinstance(inner, Attention):  # dense attention decodes as cross
-            step = _CrossAttnStep(inner)
+        elif isinstance(inner, Attention):
+            step = (_DenseSelfStep(inner, self.total_in) if inner.causal
+                    else _CrossAttnStep(inner))
         elif isinstance(inner, FeedForward):
             step = _FFStep(inner)
         else:
@@ -306,7 +354,7 @@ class TransformerDecoder:
             if isinstance(inner, _ShiftVideoStep):
                 c["shift_buf"] = inner.init_buffer(b, dtype, device)
                 inner = inner.inner
-            if isinstance(inner, _Sparse3DNAStep):
+            if isinstance(inner, (_DenseSelfStep, _Sparse3DNAStep)):
                 c.update(inner.init_cache(b, dtype))
             elif isinstance(inner, (_CrossAttnStep, _SparseCross2DNAStep)):
                 c.update(inner.init_cache(context, context_mask))

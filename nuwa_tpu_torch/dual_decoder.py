@@ -22,7 +22,7 @@ reference's non-reversible layout. The context-parallel binding (``BindCP``)
 is not ported.
 
 ``attn_dropout`` reaches every attention of the schedule and ``ff_dropout``
-every feed-forward. ``forward(..., seed=...)`` gives each block four seeds,
+and ``ff_chunk_size`` every feed-forward. ``forward(..., seed=...)`` gives each block four seeds,
 one for each of f, g, j and k (``core.layers.split_seed``), as the JAX
 decoders split four keys a block; the reversible recompute and ``remat``'s
 both re-run each module with its seed, and the counter-hash masks replay.
@@ -123,7 +123,7 @@ class DualModalityDecoder(nn.Module):
                  sparse_2dna_dilation=(1,), sparse_2dna_rel_pos_bias=False,
                  shift_video_tokens=False, shift_audio_tokens=False,
                  audio_tokens_per_timestep=1, cross_modality_attn_every=3, remat=False,
-                 attn_dropout=0.0, ff_dropout=0.0):
+                 attn_dropout=0.0, ff_dropout=0.0, ff_chunk_size=None):
         super().__init__()
         self.dim = dim
         self.remat = remat
@@ -132,12 +132,15 @@ class DualModalityDecoder(nn.Module):
         def sand(inner):
             return Sandwich(dim, inner)
 
+        def feedforward():
+            return FeedForward(dim, dropout=ff_dropout, chunk_size=ff_chunk_size)
+
         def video_ff():
-            ff = FeedForward(dim, dropout=ff_dropout)
+            ff = feedforward()
             return sand(ShiftVideo(ff, image_size=fmap) if shift_video_tokens else ff)
 
         def audio_ff():
-            ff = FeedForward(dim, dropout=ff_dropout)
+            ff = feedforward()
             return sand(ShiftAudio(ff) if shift_audio_tokens else ff)
 
         def attention():
@@ -175,8 +178,8 @@ class DualModalityDecoder(nn.Module):
             if (ind + 1) % cross_modality_attn_every == 0:
                 # the xmod feed-forwards take no token shift
                 kinds.append("xmod")
-                quads.append(Quad(xmod(vtpf, atpf), sand(FeedForward(dim, dropout=ff_dropout)),
-                                  xmod(atpf, vtpf), sand(FeedForward(dim, dropout=ff_dropout))))
+                quads.append(Quad(xmod(vtpf, atpf), sand(feedforward()),
+                                  xmod(atpf, vtpf), sand(feedforward())))
         self.kinds = kinds
         self.layers = nn.ModuleList(quads)
         self.video_norm = StableLayerNorm(dim)

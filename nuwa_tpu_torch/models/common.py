@@ -1,10 +1,15 @@
-"""Shared sampling machinery: the cached AR rollout, the sliding-window
-frame decoder and the codec's decode of sampled ids. Counterpart of ``nuwa_tpu/models/common.py``; a Python loop
-over positions takes the place of ``lax.scan``.
+"""Shared sampling machinery: the cached AR rollout and the full-forward
+loop (``method="full"``), the sliding-window frame decoders of both methods
+and the codec's decode of sampled ids. Counterpart of
+``nuwa_tpu/models/common.py`` and of ``_long_frame_full_fn`` in
+``nuwa_tpu/models/nuwa.py``; a Python loop over positions takes the place
+of ``lax.scan``.
 
-Classifier-free guidance runs cond and uncond as one 2x batch whose caches
-were built with the context mask ``[mask; zeros]``. The frame decoder takes
-any model with NUWA's attribute names (``NUWA``, ``NUWASketch``).
+Classifier-free guidance runs cond and uncond as one 2x batch: the caches,
+or each full forward, see the context mask ``[mask; zeros]``. The frame
+decoders take any model with NUWA's attribute names (``NUWA``,
+``NUWASketch``). Logits heads are read through ``utils.quantize.dequant``,
+so an int8 model samples the same way.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import torch
 
 from ..decode import TransformerDecoder
 from ..ops.sampling import gumbel_sample, top_k_filter
+from ..utils.quantize import dequant
 
 
 def cached_ar_rollout(*, dec, caches, embed_table, pos_emb, bos_vec, to_logits,
@@ -35,7 +41,7 @@ def cached_ar_rollout(*, dec, caches, embed_table, pos_emb, bos_vec, to_logits,
         if use_cfg:
             x_i = torch.cat([x_i, x_i], dim=0)
         y = dec.step(caches, x_i, i)
-        logits = y @ to_logits.to(y.dtype)
+        logits = y @ dequant(to_logits, y.dtype)
         if use_cfg:
             cond, uncond = logits[:batch], logits[batch:]
             logits = uncond + (cond - uncond) * cond_scale
@@ -71,6 +77,50 @@ def long_frame_decoder(model, window, ctx, cmask, pos_emb, *, generator,
         cond_scale=cond_scale, dim=model.dim, dtype=model.dtype,
         start_pos=W, init_prev=window[:, -1],
     )
+
+
+def ar_decode_loop(*, indices, start, stop=None, step_logits_fn, generator, filter_thres,
+                   temperature, cond_scale):
+    """The full-forward AR loop (``method="full"``): fills ``indices[:,
+    start:stop]`` in place, one position at a time, and returns ``indices``.
+    ``step_logits_fn(indices, i)`` returns (cond logits (b, V), uncond logits
+    or None) at position i; the entries at i and later are still 0 and,
+    through causal attention, cannot reach position i."""
+    for i in range(start, indices.shape[1] if stop is None else stop):
+        logits, uncond = step_logits_fn(indices, i)
+        if cond_scale != 1 and uncond is not None:
+            logits = uncond + (logits - uncond) * cond_scale
+        filtered = top_k_filter(logits, thres=filter_thres)
+        indices[:, i] = gumbel_sample(filtered, temperature, generator=generator)
+    return indices
+
+
+def full_ar_rollout(model, ctx, cmask, indices, start=0, **sampling):
+    """Fills ``indices[:, start:]`` (b, n) of a single-tower model by
+    ``method="full"``: each token re-runs the decoder over the whole (b,
+    n - 1) input, under CFG one call on the doubled batch (``ctx`` and
+    ``cmask`` already doubled)."""
+    b, n = indices.shape
+    use_cfg = sampling["cond_scale"] != 1
+
+    def step_logits(indices, i):
+        inp = indices[:, : n - 1]
+        if use_cfg:
+            row = model._decode_logits(torch.cat([inp, inp]), ctx, cmask)[:, i]
+            return row[:b], row[b:]
+        return model._decode_logits(inp, ctx, cmask)[:, i], None
+
+    return ar_decode_loop(indices=indices, start=start, step_logits_fn=step_logits, **sampling)
+
+
+def long_frame_full(model, window, ctx, cmask, **sampling):
+    """``method="full"``'s next frame of a sliding-window rollout: each of
+    the frame's tokens re-runs the decoder over the whole window of
+    max_video_frames frames (the reference's pattern, the JAX package's
+    oracle). ``window``: (b, W) prior tokens. Returns (b, tokens_per_frame)."""
+    b, W = window.shape
+    buf = torch.cat([window, window.new_zeros(b, model.tokens_per_frame)], dim=1)
+    return full_ar_rollout(model, ctx, cmask, buf, W, **sampling)[:, W:]
 
 
 def ids_to_output(vae, indices, decode_video, decode_max_batchsize):

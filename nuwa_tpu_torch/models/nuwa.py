@@ -1,10 +1,17 @@
 """NUWA — text to video, autoregressive over video tokens.
 
-Counterpart of ``nuwa_tpu/models/nuwa.py``: rotary text encoder, axial video
-positions, learned bos, a causal Sparse3DNA decoder (plain or reversible)
-with dense cross-attention to the text, the teacher-forced cross-entropy
-loss with condition dropout, and cached ``generate`` / ``generate_long``
-with top-k, Gumbel sampling and classifier-free guidance. With a ``vae``
+Counterpart of ``nuwa_tpu/models/nuwa.py``: a text encoder with rotary
+positions (or, with ``text_rotary_pos_emb=False``, a learned absolute
+position table), axial video positions, learned bos, a causal Sparse3DNA
+decoder (plain or reversible) with dense cross-attention to the text, the
+teacher-forced cross-entropy loss with condition dropout, and
+``generate`` / ``generate_long`` with top-k, Gumbel sampling and
+classifier-free guidance: ``method="cached"`` (the default) steps
+per-layer caches one token at a time, ``method="full"`` re-runs the whole
+decoder for every token (the JAX package's oracle). ``ff_chunk_size`` runs
+the decoder's feed-forwards that many positions at a time. After
+``utils.quantize.quantize_int8_`` the projections and the logits head are
+int8 (serving only). With a ``vae``
 (a frozen ``VQGanVAE``) the model takes pixel videos, which the codec turns
 into tokens under no grad, and returns sampled videos as pixels; with an
 ``image_size`` instead it is in raw-fmap mode, and videos are token ids.
@@ -26,7 +33,11 @@ from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
-from .common import cached_ar_rollout, ids_to_output, long_frame_decoder
+from ..utils.quantize import dequant
+from .common import (cached_ar_rollout, full_ar_rollout, ids_to_output, long_frame_decoder,
+                     long_frame_full)
+
+METHODS = ("cached", "full")
 
 
 def cross_entropy(logits, targets):
@@ -54,12 +65,12 @@ class NUWA(nn.Module):
     def __init__(self, *, dim, vae: VQGanVAE | None = None, image_size=None,
                  num_image_tokens=None, max_video_frames=5,
                  text_num_tokens=49408, text_max_seq_len=256, text_enc_depth=6,
-                 text_enc_dim_head=64, text_enc_heads=8, enc_reversible=False,
-                 dec_depth=6, dec_dim_head=64, dec_heads=8, dec_reversible=False,
-                 embed_gradient_frac=0.2, shift_video_tokens=True,
+                 text_enc_dim_head=64, text_enc_heads=8, text_rotary_pos_emb=True,
+                 enc_reversible=False, dec_depth=6, dec_dim_head=64, dec_heads=8,
+                 dec_reversible=False, embed_gradient_frac=0.2, shift_video_tokens=True,
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
                  sparse_3dna_rel_pos_bias=False, attn_dropout=0.0, ff_dropout=0.0,
-                 compute_dtype=None, device=None, seed=0):
+                 ff_chunk_size=None, compute_dtype=None, device=None, seed=0):
         super().__init__()
         if (vae is None) == (image_size is None):
             raise ValueError("either VAE or image size must be specified")
@@ -78,6 +89,7 @@ class NUWA(nn.Module):
         self.max_video_tokens = max_video_frames * self.tokens_per_frame
         self.text_max_seq_len = text_max_seq_len
         self.text_enc_dim_head = text_enc_dim_head
+        self.text_rotary_pos_emb = text_rotary_pos_emb
         self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         self.dtype = getattr(torch, compute_dtype) if compute_dtype else None
         d = sparse_3dna_dilation
@@ -90,6 +102,8 @@ class NUWA(nn.Module):
                 dim=dim, depth=text_enc_depth, heads=text_enc_heads,
                 dim_head=text_enc_dim_head, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             )
+            if not text_rotary_pos_emb:
+                self.text_abs_pos_emb = Embedding(text_max_seq_len, dim)
             self.video_bos = nn.Parameter(torch.empty(dim))
             self.image_embedding = Embedding(num_image_tokens, dim, embed_gradient_frac)
             self.video_pos_emb = AxialPositionalEmbedding(dim, shape=video_shape)
@@ -101,7 +115,7 @@ class NUWA(nn.Module):
                 sparse_3dna_kernel_size=sparse_3dna_kernel_size,
                 sparse_3dna_dilations=dilations,
                 sparse_3dna_rel_pos_bias=sparse_3dna_rel_pos_bias,
-                attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout, ff_chunk_size=ff_chunk_size,
             )
             self.to_logits = nn.Parameter(torch.empty(dim, num_image_tokens))
         init_weights_(self, seed, skip=(self.vae,) if self.vae is not None else ())
@@ -112,7 +126,7 @@ class NUWA(nn.Module):
 
     @property
     def device(self):
-        return self.to_logits.device
+        return self.video_bos.device
 
     def _ids(self, x):
         return torch.as_tensor(x, dtype=torch.long, device=self.device)
@@ -139,7 +153,11 @@ class NUWA(nn.Module):
         tokens = self.text_embedding(text, train=train)
         if self.dtype is not None:
             tokens = tokens.to(self.dtype)
-        rot = rotary_freqs(seq_len, min(32, self.text_enc_dim_head), self.device)
+        rot = None
+        if self.text_rotary_pos_emb:
+            rot = rotary_freqs(seq_len, min(32, self.text_enc_dim_head), self.device)
+        else:  # added after the cast, as in the JAX package (fp32 + bf16 is fp32)
+            tokens = tokens + self.text_abs_pos_emb(torch.arange(seq_len, device=self.device))
         return self.text_transformer(tokens, mask=mask, rotary_pos_emb=rot, seed=seed)
 
     def _cfg_context(self, text_embeds, text_mask, use_cfg):
@@ -165,7 +183,7 @@ class NUWA(nn.Module):
             emb = emb.to(self.dtype)
         out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask,
                                      seed=seed)
-        return out @ self.to_logits.to(out.dtype)
+        return out @ dequant(self.to_logits, out.dtype)
 
     def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
                 train=False, generator=None, uncond=None):
@@ -205,11 +223,14 @@ class NUWA(nn.Module):
     @torch.no_grad()
     def generate(self, text, *, generator=None, filter_thres=0.9, temperature=1.0,
                  cond_scale=2.0, num_frames=None, decode_max_batchsize=10,
-                 decode_video=True):
-        """Sample a video with per-layer caches, one decoder step per token
-        (the JAX package's ``method="cached"``). Returns pixels (b,
-        num_frames, c, h, w) through the VAE or, without one or without
-        ``decode_video``, token ids (b, num_frames * tokens_per_frame)."""
+                 decode_video=True, method="cached"):
+        """Sample a video: ``method="cached"`` with per-layer caches, one
+        decoder step per token; ``method="full"`` re-runs the whole decoder
+        for every token. Returns pixels (b, num_frames, c, h, w) through the
+        VAE or, without one or without ``decode_video``, token ids (b,
+        num_frames * tokens_per_frame)."""
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got {method!r}")
         num_frames = num_frames or self.max_video_frames
         if num_frames > self.max_video_frames:
             raise ValueError("num_frames > max_video_frames: use generate_long")
@@ -219,6 +240,13 @@ class NUWA(nn.Module):
         text_mask = text != 0
         use_cfg = cond_scale != 1
         ctx, cmask = self._cfg_context(self.embed_text(text, text_mask), text_mask, use_cfg)
+        sampling = dict(generator=generator, filter_thres=filter_thres,
+                        temperature=temperature, cond_scale=cond_scale)
+        if method == "full":
+            indices = full_ar_rollout(
+                self, ctx, cmask, torch.zeros(b, total, dtype=torch.long, device=self.device),
+                **sampling)
+            return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)
         dec = TransformerDecoder(self.video_transformer, total_in=total)
         caches = dec.init_cache(
             2 * b if use_cfg else b, ctx, cmask, dtype=self.dtype or torch.float32
@@ -226,28 +254,29 @@ class NUWA(nn.Module):
         indices = cached_ar_rollout(
             dec=dec, caches=caches, embed_table=self.image_embedding.table,
             pos_emb=self.video_pos_emb(), bos_vec=self.video_bos,
-            to_logits=self.to_logits, batch=b, total=total, generator=generator,
-            filter_thres=filter_thres, temperature=temperature,
-            cond_scale=cond_scale, dim=self.dim, dtype=self.dtype,
+            to_logits=self.to_logits, batch=b, total=total, dim=self.dim, dtype=self.dtype,
+            **sampling,
         )
         return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)
 
     @torch.no_grad()
     def generate_long(self, text, *, num_frames, generator=None, filter_thres=0.9,
                       temperature=1.0, cond_scale=2.0, decode_max_batchsize=10,
-                      decode_video=True):
+                      decode_video=True, method="cached"):
         """Generate ``num_frames`` > max_video_frames with a sliding frame
         window: each new frame is decoded against the last
-        max_video_frames - 1 frames, after one prefill over that window.
-        Returns what ``generate`` does."""
+        max_video_frames - 1 frames, after one prefill over that window
+        (``method="cached"``) or by a full re-forward of the window for
+        each of its tokens (``method="full"``). Returns what ``generate``
+        does."""
         kw = dict(generator=generator, filter_thres=filter_thres,
                   temperature=temperature, cond_scale=cond_scale)
         if num_frames <= self.max_video_frames:
             return self.generate(text, num_frames=num_frames,
                                  decode_max_batchsize=decode_max_batchsize,
-                                 decode_video=decode_video, **kw)
+                                 decode_video=decode_video, method=method, **kw)
         indices = self.generate(text, num_frames=self.max_video_frames, decode_video=False,
-                                **kw)
+                                method=method, **kw)
         text = self._ids(text)
         text_mask = text != 0
         ctx, cmask = self._cfg_context(
@@ -256,10 +285,9 @@ class NUWA(nn.Module):
         pos_emb = self.video_pos_emb()
         W = (self.max_video_frames - 1) * self.tokens_per_frame
         for _ in range(num_frames - self.max_video_frames):
-            frame = long_frame_decoder(
-                self, indices[:, -W:], ctx, cmask, pos_emb, generator=generator,
-                filter_thres=filter_thres, temperature=temperature,
-                cond_scale=cond_scale,
-            )
+            if method == "full":
+                frame = long_frame_full(self, indices[:, -W:], ctx, cmask, **kw)
+            else:
+                frame = long_frame_decoder(self, indices[:, -W:], ctx, cmask, pos_emb, **kw)
             indices = torch.cat([indices, frame], dim=1)
         return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)

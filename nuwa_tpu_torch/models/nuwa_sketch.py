@@ -9,8 +9,11 @@ SparseCross2DNA; the video VAE turns video pixels into tokens for scoring
 and sampled tokens into pixels. Frame-level sketch masks
 become token masks, and condition dropout acts on the token mask the decoder
 sees (the JAX package's fix of the reference). Entry points: ``forward``
-(logits, or the loss), cached ``generate`` and sliding-window
-``generate_long``, with classifier-free guidance. Training is ``forward``
+(logits, or the loss), ``generate`` and sliding-window ``generate_long``,
+with classifier-free guidance, by ``method="cached"`` (per-layer caches,
+the default) or ``method="full"`` (the whole decoder re-run for every
+token, the JAX package's oracle). ``ff_chunk_size`` runs the decoder's
+feed-forwards that many positions at a time. Training is ``forward``
 with ``return_loss=True, train=True`` and ``loss.backward()``, through the
 kernels' backward on the card, with the AdamW of ``train.get_optimizer``,
 as the JAX package trains it (no trainer class); ``attn_dropout`` and
@@ -18,7 +21,7 @@ as the JAX package trains it (no trainer class); ``attn_dropout`` and
 training only. The model lives on one device, ``cuda`` unless the caller
 names another.
 
-Not taken: ``method="full"`` and the parallel meshes.
+Not taken: the parallel meshes.
 """
 from __future__ import annotations
 
@@ -34,8 +37,10 @@ from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
-from .common import cached_ar_rollout, ids_to_output, long_frame_decoder
-from .nuwa import cross_entropy, dropout_seeds
+from ..utils.quantize import dequant
+from .common import (cached_ar_rollout, full_ar_rollout, ids_to_output, long_frame_decoder,
+                     long_frame_full)
+from .nuwa import METHODS, cross_entropy, dropout_seeds
 
 
 def _dilations(d):
@@ -51,7 +56,8 @@ class NUWASketch(nn.Module):
                  embed_gradient_frac=0.2, shift_video_tokens=True,
                  cross_2dna_kernel_size=3, cross_2dna_dilation=1,
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
-                 attn_dropout=0.0, ff_dropout=0.0, compute_dtype=None, device=None, seed=0):
+                 attn_dropout=0.0, ff_dropout=0.0, ff_chunk_size=None, compute_dtype=None,
+                 device=None, seed=0):
         super().__init__()
         device = resolve_device(device)
         fmap = image_size // 2**vae.num_layers
@@ -98,7 +104,8 @@ class NUWASketch(nn.Module):
                 causal=True, cross_attend=True, cross_2dna_attn=True,
                 cross_2dna_image_size=fmap, cross_2dna_kernel_size=cross_2dna_kernel_size,
                 cross_2dna_dilations=_dilations(cross_2dna_dilation),
-                sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape, **stack,
+                sparse_3dna_attn=True, sparse_3dna_video_shape=video_shape,
+                ff_chunk_size=ff_chunk_size, **stack,
             )
             self.to_logits = nn.Parameter(torch.empty(dim, vae.codebook_size))
         init_weights_(self, seed, skip=(self.vae, self.sketch_vae))
@@ -109,7 +116,7 @@ class NUWASketch(nn.Module):
 
     @property
     def device(self):
-        return self.to_logits.device
+        return self.video_bos.device
 
     def _pixels(self, x):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -166,7 +173,7 @@ class NUWASketch(nn.Module):
             emb = emb.to(self.dtype)
         out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask,
                                      seed=seed)
-        return out @ self.to_logits.to(out.dtype)
+        return out @ dequant(self.to_logits, out.dtype)
 
     def forward(self, sketch, video, *, sketch_mask=None, return_loss=False,
                 cond_dropout_prob=0.2, train=False, generator=None, uncond=None):
@@ -204,9 +211,16 @@ class NUWASketch(nn.Module):
 
     # ---- sampling ---------------------------------------------------------
 
-    def _rollout(self, ctx, cmask, b, num_frames, **sampling):
-        """Cached sampling of ``num_frames`` frames of token ids (b, n)."""
+    def _rollout(self, ctx, cmask, b, num_frames, method="cached", **sampling):
+        """Sampling of ``num_frames`` frames of token ids (b, n) by
+        ``method``."""
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got {method!r}")
         total = num_frames * self.tokens_per_frame
+        if method == "full":
+            return full_ar_rollout(
+                self, ctx, cmask, torch.zeros(b, total, dtype=torch.long, device=self.device),
+                **sampling)
         dec = TransformerDecoder(self.video_transformer, total_in=total)
         caches = dec.init_cache(ctx.shape[0], ctx, cmask, dtype=self.dtype or torch.float32)
         return cached_ar_rollout(
@@ -220,11 +234,11 @@ class NUWASketch(nn.Module):
     def generate(self, sketch, *, generator=None, sketch_mask=None, filter_thres=0.9,
                  temperature=1.0, cond_scale=2.0, num_frames=None,
                  decode_max_batchsize=10, decode_video=True, method="cached"):
-        """Sample a video for each sketch with per-layer caches, one decoder
-        step per token. Returns pixels (b, num_frames, c, h, w) or, without
-        ``decode_video``, token ids (b, num_frames * HW)."""
-        if method != "cached":
-            raise NotImplementedError(f"method={method!r}: only the cached decoder is ported")
+        """Sample a video for each sketch: ``method="cached"`` with
+        per-layer caches, one decoder step per token; ``method="full"``
+        re-runs the whole decoder for every token. Returns pixels (b,
+        num_frames, c, h, w) or, without ``decode_video``, token ids (b,
+        num_frames * HW)."""
         num_frames = num_frames or self.max_video_frames
         if num_frames > self.max_video_frames:
             raise ValueError("num_frames > max_video_frames: use generate_long")
@@ -232,7 +246,7 @@ class NUWASketch(nn.Module):
         ctx, cmask = self._sketch_context(sketch, sketch_mask, use_cfg)
         b = ctx.shape[0] // (2 if use_cfg else 1)
         indices = self._rollout(
-            ctx, cmask, b, num_frames, generator=generator, filter_thres=filter_thres,
+            ctx, cmask, b, num_frames, method, generator=generator, filter_thres=filter_thres,
             temperature=temperature, cond_scale=cond_scale,
         )
         return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)
@@ -243,22 +257,25 @@ class NUWASketch(nn.Module):
                       decode_max_batchsize=10, decode_video=True, method="cached"):
         """Generate ``num_frames`` > max_video_frames with a sliding frame
         window: each new frame is decoded against the last
-        max_video_frames - 1 frames, after one prefill over that window."""
+        max_video_frames - 1 frames, after one prefill over that window
+        (``method="cached"``) or by a full re-forward of the window for each
+        of its tokens (``method="full"``)."""
         kw = dict(generator=generator, filter_thres=filter_thres,
                   temperature=temperature, cond_scale=cond_scale)
         if num_frames <= self.max_video_frames:
             return self.generate(sketch, sketch_mask=sketch_mask, num_frames=num_frames,
                                  decode_max_batchsize=decode_max_batchsize,
                                  decode_video=decode_video, method=method, **kw)
-        if method != "cached":
-            raise NotImplementedError(f"method={method!r}: only the cached decoder is ported")
         use_cfg = cond_scale != 1
         ctx, cmask = self._sketch_context(sketch, sketch_mask, use_cfg)
         b = ctx.shape[0] // (2 if use_cfg else 1)
-        indices = self._rollout(ctx, cmask, b, self.max_video_frames, **kw)
+        indices = self._rollout(ctx, cmask, b, self.max_video_frames, method, **kw)
         pos_emb = self.video_pos_emb()
         W = (self.max_video_frames - 1) * self.tokens_per_frame
         for _ in range(num_frames - self.max_video_frames):
-            frame = long_frame_decoder(self, indices[:, -W:], ctx, cmask, pos_emb, **kw)
+            if method == "full":
+                frame = long_frame_full(self, indices[:, -W:], ctx, cmask, **kw)
+            else:
+                frame = long_frame_decoder(self, indices[:, -W:], ctx, cmask, pos_emb, **kw)
             indices = torch.cat([indices, frame], dim=1)
         return ids_to_output(self.vae, indices, decode_video, decode_max_batchsize)

@@ -1,23 +1,28 @@
 """NUWAVideoAudio — text to joint video and audio, serving and training.
 
 Counterpart of ``nuwa_tpu/models/nuwa_video_audio.py``: a text encoder
-with absolute positions, twin decoder towers (``dual_decoder``: Sparse3DNA
+with absolute positions (or rotary ones with ``text_rotary_pos_emb``; plain
+or, with ``enc_reversible``, reversible), twin decoder towers (``dual_decoder``: Sparse3DNA
 over video, SparseCausal2DNA over audio, dense cross-attention to the text,
 chunk-aligned cross-modality attention every few depths), separate video
 and audio heads, the loss
 ``video_loss + audio_loss * audio_loss_weight`` with condition dropout, and
-cached ``generate`` and ``generate_long``, which alternate one video frame's
-tokens and one frame's worth of audio tokens. Pixels go in through the
-frozen codec under no grad and samples come out through it.
+``generate`` and ``generate_long``, which alternate one video frame's
+tokens and one frame's worth of audio tokens, by ``method="cached"`` (the
+default) or ``method="full"``, which re-runs both towers over the whole
+sequence for every token (the JAX package's oracle; at H > 1 its forward
+attends the later tokens of a query's own timestep, which the cached step
+does not, so the two methods may part there, as in the JAX package). Pixels
+go in through the frozen codec under no grad and samples come out through
+it. ``ff_chunk_size`` runs the decoder's feed-forwards that many positions
+at a time; after ``utils.quantize.quantize_int8_`` the projections and both
+heads are int8 (serving only).
 
 ``attn_dropout`` and ``ff_dropout`` act in training only (``forward(...,
 train=True)``), in the text encoder and both decoder towers; ``generate``
-and ``generate_long`` never drop. Left out: ``method="full"`` (the
-per-token re-forward oracle), int8 weights (``dequant``), context and
-pipeline parallelism, the rotary and reversible text encoders
-(``text_rotary_pos_emb``, ``enc_reversible``: no caller of the JAX model
-sets them). The model lives on one device, ``cuda`` unless the caller names
-another.
+and ``generate_long`` never drop. Left out: context and pipeline
+parallelism. The model lives on one device, ``cuda`` unless the caller
+names another.
 
 Training is ``forward(..., return_loss=True, train=True)``, its
 ``backward()``, ``train.clip_by_global_norm_`` and a ``train.get_optimizer``
@@ -33,13 +38,14 @@ from torch import nn
 from ..core.layers import Embedding, init_weights_, normal_
 from ..decode_dual import DualDecoderCache
 from ..dual_decoder import DualModalityDecoder, ReversibleDualModalityDecoder
-from ..ops.embeddings import AxialPositionalEmbedding
+from ..ops.embeddings import AxialPositionalEmbedding, rotary_freqs
 from ..ops.sampling import gumbel_sample, prob_mask_like, top_k_filter
 from ..ops.utils import resolve_device
-from ..transformer import Transformer
+from ..transformer import ReversibleTransformer, Transformer
+from ..utils.quantize import dequant
 from ..vqgan_vae import VQGanVAE
-from .common import ids_to_output
-from .nuwa import cross_entropy, dropout_seeds
+from .common import ar_decode_loop, ids_to_output
+from .nuwa import METHODS, cross_entropy, dropout_seeds
 
 
 def _dilations(d):
@@ -50,14 +56,16 @@ class NUWAVideoAudio(nn.Module):
     def __init__(self, *, vae: VQGanVAE, dim, image_size, num_audio_tokens,
                  num_audio_tokens_per_video_frame, audio_tokens_per_timestep=1,
                  max_video_frames=5, text_num_tokens=49408, text_max_seq_len=256,
-                 text_enc_depth=6, text_enc_dim_head=64, text_enc_heads=8, dec_reversible=True,
+                 text_enc_depth=6, text_enc_dim_head=64, text_enc_heads=8,
+                 text_rotary_pos_emb=False, enc_reversible=False, dec_reversible=True,
                  dec_depth=6, dec_dim_head=64, dec_heads=8, embed_gradient_frac=0.2,
                  shift_video_tokens=True, shift_audio_tokens=True,
                  sparse_3dna_kernel_size=3, sparse_3dna_dilation=1,
                  sparse_3dna_rel_pos_bias=True, sparse_2dna_kernel_size=7,
                  sparse_2dna_dilation=1, sparse_2dna_rel_pos_bias=True,
                  audio_loss_weight=1.0, cross_modality_attn_every=3, dec_remat=False,
-                 attn_dropout=0.0, ff_dropout=0.0, compute_dtype=None, device=None, seed=0):
+                 attn_dropout=0.0, ff_dropout=0.0, ff_chunk_size=None, compute_dtype=None,
+                 device=None, seed=0):
         super().__init__()
         device = resolve_device(device)
         self.vae = vae.to(device).requires_grad_(False)  # frozen codec
@@ -68,6 +76,8 @@ class NUWAVideoAudio(nn.Module):
         self.num_audio_tokens = num_audio_tokens
         self.audio_tokens_per_frame = num_audio_tokens_per_video_frame
         self.text_max_seq_len = text_max_seq_len
+        self.text_enc_dim_head = text_enc_dim_head
+        self.text_rotary_pos_emb = text_rotary_pos_emb
         self.audio_loss_weight = audio_loss_weight
         self.attn_dropout, self.ff_dropout = attn_dropout, ff_dropout
         self.dtype = getattr(torch, compute_dtype) if compute_dtype else None
@@ -76,11 +86,12 @@ class NUWAVideoAudio(nn.Module):
 
         with torch.device(device):
             self.text_embedding = Embedding(text_num_tokens, dim, embed_gradient_frac)
-            self.text_transformer = Transformer(
+            self.text_transformer = (ReversibleTransformer if enc_reversible else Transformer)(
                 dim=dim, depth=text_enc_depth, heads=text_enc_heads,
                 dim_head=text_enc_dim_head, attn_dropout=attn_dropout, ff_dropout=ff_dropout,
             )
-            self.text_abs_pos_emb = Embedding(text_max_seq_len, dim)
+            if not text_rotary_pos_emb:
+                self.text_abs_pos_emb = Embedding(text_max_seq_len, dim)
             self.video_bos = nn.Parameter(torch.empty(dim))
             self.image_embedding = Embedding(vae.codebook_size, dim, embed_gradient_frac)
             self.video_pos_emb = AxialPositionalEmbedding(dim, shape=video_shape)
@@ -103,7 +114,7 @@ class NUWAVideoAudio(nn.Module):
                 shift_video_tokens=shift_video_tokens, shift_audio_tokens=shift_audio_tokens,
                 audio_tokens_per_timestep=H,
                 cross_modality_attn_every=cross_modality_attn_every, remat=dec_remat,
-                attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+                attn_dropout=attn_dropout, ff_dropout=ff_dropout, ff_chunk_size=ff_chunk_size,
             )
             self.to_video_logits = nn.Parameter(torch.empty(dim, vae.codebook_size))
             self.to_audio_logits = nn.Parameter(torch.empty(dim, num_audio_tokens))
@@ -117,7 +128,7 @@ class NUWAVideoAudio(nn.Module):
 
     @property
     def device(self):
-        return self.to_video_logits.device
+        return self.video_bos.device
 
     def _ids(self, x):
         return torch.as_tensor(x, dtype=torch.long, device=self.device)
@@ -143,8 +154,13 @@ class NUWAVideoAudio(nn.Module):
         if seq_len > self.text_max_seq_len:
             raise ValueError(f"text of {seq_len} tokens > {self.text_max_seq_len}")
         tokens = self.text_embedding(text, train=train)
-        tokens = tokens + self.text_abs_pos_emb(torch.arange(seq_len, device=self.device))
-        return self.text_transformer(self._cast(tokens), mask=mask, seed=seed)
+        rot = None
+        if self.text_rotary_pos_emb:
+            rot = rotary_freqs(seq_len, min(32, self.text_enc_dim_head), self.device)
+        else:
+            tokens = tokens + self.text_abs_pos_emb(torch.arange(seq_len, device=self.device))
+        return self.text_transformer(self._cast(tokens), mask=mask, rotary_pos_emb=rot,
+                                     seed=seed)
 
     def _text_context(self, text, use_cfg):
         """Text embeddings and mask, doubled for classifier-free guidance
@@ -172,7 +188,8 @@ class NUWAVideoAudio(nn.Module):
         a = self._embed_audio_tokens(audio_inp, train)
         v, a = self.video_audio_transformer(v, a, context=text_embeds, context_mask=text_mask,
                                             seed=seed)
-        return v @ self.to_video_logits.to(v.dtype), a @ self.to_audio_logits.to(a.dtype)
+        return (v @ dequant(self.to_video_logits, v.dtype),
+                a @ dequant(self.to_audio_logits, a.dtype))
 
     def forward(self, text, video, audio, *, return_loss=False, cond_dropout_prob=0.2,
                 train=False, generator=None, uncond=None):
@@ -213,7 +230,7 @@ class NUWAVideoAudio(nn.Module):
     def _sampler(self, b, use_cfg, generator, filter_thres, temperature, cond_scale):
         """Logits of the (doubled under CFG) batch -> (b,) samples."""
         def sample(y, to_logits):
-            logits = y @ to_logits.to(y.dtype)
+            logits = y @ dequant(to_logits, y.dtype)
             if use_cfg:
                 cond, uncond = logits[:b], logits[b:]
                 logits = uncond + (cond - uncond) * cond_scale
@@ -253,17 +270,44 @@ class NUWAVideoAudio(nn.Module):
                 y_audio = dec.step_audio(caches, x, ap + 1)
         return vbuf, abuf
 
+    def _full_frames(self, vbuf, abuf, frames, vstart, astart, ctx, cmask, *, b, use_cfg,
+                     **sampling):
+        """``method="full"``'s rollout of ``frames`` frames: per frame its
+        video tokens and then its audio tokens, each sampled from a full
+        re-forward of both towers over the whole buffers (under CFG one call
+        on the doubled batch), written at video positions from ``vstart``
+        and audio positions from ``astart``."""
+        n_v, n_a = vbuf.shape[1] - 1, abuf.shape[1] - 1
+
+        def step_logits(video):
+            def logits(_, i):
+                v_inp, a_inp = vbuf[:, :n_v], abuf[:, :n_a]
+                if use_cfg:
+                    v_inp, a_inp = torch.cat([v_inp, v_inp]), torch.cat([a_inp, a_inp])
+                row = self._decode(v_inp, a_inp, ctx, cmask)[0 if video else 1][:, i]
+                return (row[:b], row[b:]) if use_cfg else (row, None)
+            return logits
+
+        vtpf, atpf = self.tokens_per_frame, self.audio_tokens_per_frame
+        for f in range(frames):
+            for video, buf, tpf, start in ((True, vbuf, vtpf, vstart + f * vtpf),
+                                           (False, abuf, atpf, astart + f * atpf)):
+                ar_decode_loop(indices=buf, start=start, stop=start + tpf,
+                               step_logits_fn=step_logits(video), **sampling)
+        return vbuf, abuf
+
     @torch.no_grad()
     def generate(self, text, *, generator=None, filter_thres=0.9, temperature=1.0,
                  cond_scale=2.0, num_frames=None, decode_max_batchsize=10,
                  decode_video=True, method="cached"):
-        """Sample video and audio with per-layer caches, one decoder step per
-        token. Returns (video, audio ids (b, num_frames * audio tokens a
-        frame)): video as pixels (b, num_frames, c, h, w) through the VAE,
-        or with ``decode_video=False`` as ids (b, num_frames * tokens a
-        frame)."""
-        if method != "cached":
-            raise NotImplementedError("only method='cached' is ported")
+        """Sample video and audio: ``method="cached"`` with per-layer caches,
+        one decoder step per token; ``method="full"`` re-runs the whole dual
+        decoder for every token. Returns (video, audio ids (b, num_frames *
+        audio tokens a frame)): video as pixels (b, num_frames, c, h, w)
+        through the VAE, or with ``decode_video=False`` as ids (b,
+        num_frames * tokens a frame)."""
+        if method not in METHODS:
+            raise ValueError(f"method must be one of {METHODS}, got {method!r}")
         num_frames = num_frames or self.max_video_frames
         if num_frames > self.max_video_frames:
             raise ValueError("num_frames > max_video_frames: use generate_long")
@@ -273,6 +317,14 @@ class NUWAVideoAudio(nn.Module):
         total_v = num_frames * self.tokens_per_frame
         total_a = num_frames * self.audio_tokens_per_frame
         ctx, cmask = self._text_context(text, use_cfg)
+        if method == "full":
+            zeros = torch.zeros(b, dtype=torch.long, device=self.device)
+            vbuf, abuf = self._full_frames(
+                zeros.new_zeros(b, total_v), zeros.new_zeros(b, total_a), num_frames, 0, 0,
+                ctx, cmask, b=b, use_cfg=use_cfg, generator=generator,
+                filter_thres=filter_thres, temperature=temperature, cond_scale=cond_scale,
+            )
+            return ids_to_output(self.vae, vbuf, decode_video, decode_max_batchsize), abuf
         # one more audio slot: the last peek step lands in an unused position
         dec = DualDecoderCache(self.video_audio_transformer, total_v_in=total_v,
                                total_a_in=total_a + 1)
@@ -322,7 +374,9 @@ class NUWAVideoAudio(nn.Module):
         """Generate ``num_frames`` > max_video_frames of video and audio with a
         frame-aligned sliding window over both modalities: each new frame is
         decoded against the previous max_video_frames - 1 frames of video
-        and audio tokens. Returns what ``generate`` does."""
+        and audio tokens, after one prefill of both towers over them
+        (``method="cached"``) or by a full re-forward of the window pair for
+        each token (``method="full"``). Returns what ``generate`` does."""
         kw = dict(generator=generator, filter_thres=filter_thres, temperature=temperature,
                   cond_scale=cond_scale, method=method)
         maxf = self.max_video_frames
@@ -337,10 +391,19 @@ class NUWAVideoAudio(nn.Module):
         use_cfg = cond_scale != 1
         ctx, cmask = self._text_context(text, use_cfg)
         sample = self._sampler(b, use_cfg, generator, filter_thres, temperature, cond_scale)
-        Wv = (maxf - 1) * self.tokens_per_frame
-        Wa = (maxf - 1) * self.audio_tokens_per_frame
+        vtpf, atpf = self.tokens_per_frame, self.audio_tokens_per_frame
+        Wv, Wa = (maxf - 1) * vtpf, (maxf - 1) * atpf
         for _ in range(num_frames - maxf):
-            vfr, afr = self._long_frame(vidx[:, -Wv:], aidx[:, -Wa:], ctx, cmask, sample,
-                                        use_cfg)
+            wv, wa = vidx[:, -Wv:], aidx[:, -Wa:]
+            if method == "full":  # the whole window pair re-run for every token
+                vwin, awin = self._full_frames(
+                    torch.cat([wv, wv.new_zeros(b, vtpf)], dim=1),
+                    torch.cat([wa, wa.new_zeros(b, atpf)], dim=1), 1, Wv, Wa, ctx, cmask,
+                    b=b, use_cfg=use_cfg, generator=generator, filter_thres=filter_thres,
+                    temperature=temperature, cond_scale=cond_scale,
+                )
+                vfr, afr = vwin[:, Wv:], awin[:, Wa:]
+            else:
+                vfr, afr = self._long_frame(wv, wa, ctx, cmask, sample, use_cfg)
             vidx, aidx = torch.cat([vidx, vfr], dim=1), torch.cat([aidx, afr], dim=1)
         return ids_to_output(self.vae, vidx, decode_video, decode_max_batchsize), aidx

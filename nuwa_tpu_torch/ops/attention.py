@@ -1,12 +1,15 @@
 """Dense multi-head attention with null key/value, talking heads, fp32
-softmax, key masking and rotary embeddings: the text encoder's
-self-attention and the video decoder's cross-attention.
+softmax, key masking, causal masking and rotary embeddings: the text
+encoder's self-attention, the video decoder's cross-attention and, with
+``causal``, the self-attention of a dense decoder.
 
-Counterpart of ``nuwa_tpu/ops/attention.py`` without the causal mode (no
-dense causal self-attention is on the ported path); heads are
-``(b, h, n, d)``. Attention dropout comes after the talking-heads mix, as
-there; its mask is keyed by (seed, batch row, head, query, key), the null
-column's key id being -1 (``NULL_KEY``), the keys' their positions.
+Counterpart of ``nuwa_tpu/ops/attention.py``; heads are ``(b, h, n, d)``.
+The causal mask is the JAX package's ``triu(ones(i, j), k=j-i+1)`` over
+[null, keys], so the null column is never masked. The JAX package computes
+this attention with einsums outside any Pallas kernel, and so does the port.
+Attention dropout comes after the talking-heads mix, as there; its mask is
+keyed by (seed, batch row, head, query, key), the null column's key id
+being -1 (``NULL_KEY``), the keys' their positions.
 """
 from __future__ import annotations
 
@@ -41,9 +44,10 @@ def key_ids(n, device):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim, heads=8, dim_head=64, dropout=0.0):
+    def __init__(self, dim, heads=8, dim_head=64, causal=False, dropout=0.0):
         super().__init__()
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.causal = causal
         self.dropout = dropout
         inner = heads * dim_head
         self.inner_dim = inner
@@ -88,6 +92,10 @@ class Attention(nn.Module):
         if key_mask is not None:
             key_mask = nn.functional.pad(key_mask, (1, 0), value=True)
             sim = masked_fill(sim, ~key_mask[:, None, None, :], neg)
+        if self.causal:
+            i, j = sim.shape[-2:]
+            causal_mask = torch.ones(i, j, dtype=torch.bool, device=sim.device).triu(j - i + 1)
+            sim = masked_fill(sim, causal_mask, neg)
 
         attn = talking_heads(stable_softmax(sim), self.talking_heads)
         n, m = sim.shape[-2], sim.shape[-1] - 1

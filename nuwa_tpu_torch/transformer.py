@@ -68,22 +68,22 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                       sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
                       sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
                       sparse_3dna_rel_pos_bias=False, shift_video_tokens=False,
-                      include_cross_ff=False, attn_dropout=0.0, ff_dropout=0.0):
+                      include_cross_ff=False, attn_dropout=0.0, ff_dropout=0.0,
+                      ff_chunk_size=None):
     """(kind, Sandwich) entries in the order of the JAX package's menu: per
     depth a self block, a cross block when cross-attending (followed by its
     own "ff_cross" when ``include_cross_ff``, the reversible layout), and one
     ff. The self block is Sparse3DNA, causal (the video decoder) or centered
-    (the sketch encoder), or bidirectional dense attention (the text and
-    sketch encoders); the cross block is dense attention (to text) or
-    SparseCross2DNA (to sketch frames, dilation
+    (the sketch encoder), or dense attention, causal (a dense decoder) or
+    bidirectional (the text and sketch encoders); the cross block is dense
+    attention (to text) or SparseCross2DNA (to sketch frames, dilation
     ``cross_2dna_dilations[depth % len]``). Every attention takes
-    ``attn_dropout`` and every feed-forward ``ff_dropout``."""
+    ``attn_dropout`` and every feed-forward ``ff_dropout`` and
+    ``ff_chunk_size``."""
     if sparse_3dna_attn and sparse_3dna_video_shape is None:
         raise ValueError("sparse_3dna_attn needs sparse_3dna_video_shape")
     if cross_2dna_attn and cross_2dna_image_size is None:
         raise ValueError("cross_2dna_attn needs cross_2dna_image_size")
-    if causal and not sparse_3dna_attn:
-        raise NotImplementedError("causal dense self-attention is not ported")
     shift = sparse_3dna_attn and shift_video_tokens
     fmap = sparse_3dna_video_shape[-1] if shift else None
     entries = []
@@ -97,8 +97,9 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                 rel_pos_bias=sparse_3dna_rel_pos_bias, dropout=attn_dropout,
             )
         else:
-            self_attn = Attention(dim=dim, heads=heads, dim_head=dim_head, dropout=attn_dropout)
-        ff = FeedForward(dim=dim, dropout=ff_dropout)
+            self_attn = Attention(dim=dim, heads=heads, dim_head=dim_head, causal=causal,
+                                  dropout=attn_dropout)
+        ff = FeedForward(dim=dim, dropout=ff_dropout, chunk_size=ff_chunk_size)
         if shift:
             self_attn = ShiftVideo(self_attn, image_size=fmap)
             ff = ShiftVideo(ff, image_size=fmap)
@@ -117,7 +118,7 @@ def _build_layer_menu(dim, depth, heads=8, dim_head=64, causal=False, cross_atte
                                   dropout=attn_dropout)
             entries.append(("cross", Sandwich(dim, cross)))
             if include_cross_ff:
-                ff_cross = FeedForward(dim=dim, dropout=ff_dropout)
+                ff_cross = FeedForward(dim=dim, dropout=ff_dropout, chunk_size=ff_chunk_size)
                 if shift:
                     ff_cross = ShiftVideo(ff_cross, image_size=fmap)
                 entries.append(("ff_cross", Sandwich(dim, ff_cross)))
@@ -134,7 +135,7 @@ class Transformer(nn.Module):
                  sparse_3dna_attn=False, sparse_3dna_kernel_size=3,
                  sparse_3dna_video_shape=None, sparse_3dna_dilations=(1,),
                  sparse_3dna_rel_pos_bias=False, shift_video_tokens=False,
-                 attn_dropout=0.0, ff_dropout=0.0):
+                 attn_dropout=0.0, ff_dropout=0.0, ff_chunk_size=None):
         super().__init__()
         self.dim = dim
         self._assemble(_build_layer_menu(
@@ -150,7 +151,7 @@ class Transformer(nn.Module):
             sparse_3dna_rel_pos_bias=sparse_3dna_rel_pos_bias,
             shift_video_tokens=shift_video_tokens,
             include_cross_ff=self.include_cross_ff,
-            attn_dropout=attn_dropout, ff_dropout=ff_dropout,
+            attn_dropout=attn_dropout, ff_dropout=ff_dropout, ff_chunk_size=ff_chunk_size,
         ))
         self.norm = StableLayerNorm(dim)
 

@@ -847,3 +847,114 @@ def test_sparse_cross2dna_bwd_kv_tiles_match_plain(dtype, tol, case, drop):
             assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
             err = _rel_err(a, b)
             assert err <= tol, f"{name} {mname}: {err}"
+
+
+# ---------------------------------------------------------------------------
+# the surface on the card: method="full", int8 weights, the dense causal
+# decoder and checkpoints, small, fp32, against the same module on the CPU
+# ---------------------------------------------------------------------------
+
+SMALL_NUWA = dict(dim=32, image_size=4, num_image_tokens=64, max_video_frames=2,
+                  text_num_tokens=100, text_max_seq_len=8, text_enc_depth=1,
+                  text_enc_dim_head=16, text_enc_heads=2, dec_depth=2, dec_dim_head=16,
+                  dec_heads=2, sparse_3dna_kernel_size=3, sparse_3dna_dilation=2,
+                  shift_video_tokens=True, sparse_3dna_rel_pos_bias=True)
+SMALL_TEXT = [[1, 2, 3, 0, 0], [4, 5, 6, 7, 0]]
+
+
+def _small_nuwa(device, seed=0, **kw):
+    from nuwa_tpu_torch import NUWA
+
+    return NUWA(**dict(SMALL_NUWA, **kw), device=device, seed=seed)
+
+
+@pytest.mark.cuda
+def test_full_generate_launches_the_kernel_and_equals_cached():
+    """Greedy method="full" on the card: every token re-runs the decoder
+    (its depth launches of the forward kernel), and gives the ids of
+    method="cached" on the card and of method="full" on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu, cpu = _small_nuwa("cuda"), _small_nuwa("cpu")
+    kw = dict(filter_thres=1 - 0.5 / 64, cond_scale=2.0)
+    knda.reset_launches()
+    full = gpu.generate(SMALL_TEXT, method="full", **kw)
+    assert knda.sparse_3dna_fwd.launches == 32 * 2
+    assert torch.equal(full, gpu.generate(SMALL_TEXT, **kw))
+    assert torch.equal(full.cpu(), cpu.generate(SMALL_TEXT, method="full", **kw))
+    long = gpu.generate_long(SMALL_TEXT, num_frames=3, method="full", **kw)
+    assert torch.equal(long, gpu.generate_long(SMALL_TEXT, num_frames=3, **kw))
+
+
+@pytest.mark.cuda
+def test_int8_model_on_the_card_matches_the_cpu():
+    """quantize_int8_ on the card and on the CPU: the same int8 weights, the
+    logits within 1e-4, the forward kernel launched as by the float model."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nuwa_tpu_torch.utils.quantize import quantize_int8_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu, cpu = quantize_int8_(_small_nuwa("cuda")), quantize_int8_(_small_nuwa("cpu"))
+    assert torch.equal(gpu.to_logits.w.cpu(), cpu.to_logits.w)
+    video = torch.randint(0, 64, (2, 32), generator=torch.Generator().manual_seed(1))
+    knda.reset_launches()
+    with torch.no_grad():
+        a, b = gpu(SMALL_TEXT, video), cpu(SMALL_TEXT, video)
+    assert knda.sparse_3dna_fwd.launches == 2
+    assert (a.cpu() - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_dense_causal_decoder_on_the_card_matches_the_cpu():
+    """BASELINE config 2's decoder, small: the forward against the CPU and
+    the cached steps after a prefill against the forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from nuwa_tpu_torch.core.layers import init_weights_
+    from nuwa_tpu_torch.decode import TransformerDecoder
+    from nuwa_tpu_torch.transformer import Transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = init_weights_(Transformer(dim=32, depth=2, heads=2, dim_head=16, causal=True,
+                                    cross_attend=True), 3)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    x, ctx = torch.randn(2, 17, 32, generator=gen), torch.randn(2, 8, 32, generator=gen)
+    mask = torch.tensor([[True] * 8, [True] * 5 + [False] * 3])
+    with torch.no_grad():
+        out = gpu(x.cuda(), context=ctx.cuda(), context_mask=mask.cuda())
+        assert (out.cpu() - cpu(x, context=ctx, context_mask=mask)).abs().max() <= 1e-5
+        dec = TransformerDecoder(gpu, total_in=17)
+        caches = dec.init_cache(2, ctx.cuda(), mask.cuda())
+        dec.prefill(caches, x[:, :9].cuda())
+        steps = torch.stack([dec.step(caches, x[:, i].cuda(), i) for i in range(9, 17)], 1)
+    assert (steps - out[:, 9:]).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card_equals_the_uninterrupted_run(tmp_path):
+    """NUWATrainer on the card: 2 steps with a checkpoint after each, a fresh
+    trainer resumed from the folder, step 3 of both: the same loss and
+    parameters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from nuwa_tpu_torch.train import NUWATrainer
+
+    rng = np.random.default_rng(0)
+    pair = (np.array([3, 4, 5, 0, 0]), rng.integers(0, 64, 32))
+    kw = dict(dataset=[pair, pair], num_train_steps=3, lr=1e-3, batch_size=2,
+              grad_accum_every=1, save_results_every=100, cond_dropout_prob=0.5,
+              results_folder=tmp_path)
+    first = NUWATrainer(nuwa=_small_nuwa("cuda", seed=1), save_model_every=1, **kw)
+    first.train_step(), first.train_step()
+    resumed = NUWATrainer(nuwa=_small_nuwa("cuda", seed=2), resume=True, **kw)
+    assert resumed.step == 2
+    assert first.train_step()["loss"] == resumed.train_step()["loss"]
+    for a, b in zip(first.nuwa.parameters(), resumed.nuwa.parameters()):
+        assert (a - b).abs().max().item() <= 1e-6

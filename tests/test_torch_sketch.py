@@ -189,7 +189,9 @@ def test_unported_options_raise():
     """``sketch_enc_use_sparse_3dna``, the centered Sparse3DNA encoder
     (depth 2, dilations 1 and 2, token shift on the sketch grid), gives
     JAX's sketch embeddings and forward logits (atol 1e-4), its params tree
-    loading every leaf once. ``method="full"`` raises."""
+    loading every leaf once. ``method="full"`` (tests/test_torch_full_generate.py)
+    gives the cached greedy ids of one frame here too; an unknown method
+    raises."""
     cfg = dict(CFG, sketch_enc_use_sparse_3dna=True, sketch_enc_depth=2)
     jmodel = JNUWASketch(vae=JVQGanVAE(**VAE), sketch_vae=JVQGanVAE(**VAE, channels=5), **cfg)
     tmodel = _port(cfg)
@@ -203,6 +205,9 @@ def test_unported_options_raise():
                                np.asarray(want_embeds), atol=1e-4, rtol=0)
     np.testing.assert_allclose(tmodel(SKETCH, VIDEO, sketch_mask=SKETCH_MASK).numpy(),
                                np.asarray(want), atol=1e-4, rtol=0)
+    kw = dict(sketch_mask=SKETCH_MASK, num_frames=1, filter_thres=GREEDY, decode_video=False)
+    torch.testing.assert_close(tmodel.generate(SKETCH, method="full", **kw),
+                               tmodel.generate(SKETCH, method="cached", **kw), atol=0, rtol=0)
     for call in (tmodel.generate, tmodel.generate_long):
-        with pytest.raises(NotImplementedError):
-            call(SKETCH, method="full", num_frames=3)
+        with pytest.raises(ValueError, match="method"):
+            call(SKETCH, method="fast", num_frames=3 if call == tmodel.generate_long else 1)

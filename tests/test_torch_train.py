@@ -168,7 +168,9 @@ def test_trainer_lowers_the_loss():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """Checkpoints and resume are ported (tests/test_torch_checkpoint.py);
+    without a results_folder to write to and read from, they refuse."""
     model = NUWA(**CFG, device="cpu")
     for kw in (dict(save_model_every=10), dict(resume=True)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="results_folder"):
             NUWATrainer(nuwa=model, dataset=_dataset(2), num_train_steps=1, **kw)
