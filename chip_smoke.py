@@ -151,7 +151,22 @@ Phases, each of which exits non-zero on failure:
    save and load times;
 16. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
    (CUDA events, one more run after the serving phase's warm one), and the
-   device's busy share of a generate of each model.
+   device's busy share of a generate of each model;
+17. codec training (VQGanVAETrainer): (a) the README's codec and trainer
+   at full width (VQGanVAE(dim=256, image_size=256, num_layers=4,
+   vq_codebook_size=8192): GAN, random-weight VGG16 perceptual loss, k-means
+   init; lr 3e-4, batch 8, 4 microbatches; fp32) on 64 seeded 256-px
+   moving-square frames read from a uint8 memmap, 3 steps with the EMA on
+   from step 0: each step's losses and codebook usage, k-means run once, the
+   EMA moved, generator and discriminator ms, images/s, peak memory, the
+   parameters of the codec, discriminator and VGG16, and no kernel launch;
+   (b) BASELINE config 1 with the GAN and the random VGG, b = 2, fp32 on the
+   GPU against the CPU: the generator loss with every gradient and the
+   codebook state after the update (k-means), the discriminator loss with
+   the gradient penalty and every discriminator gradient; (c) a resume at
+   that config: 2 steps saving each, a fresh trainer resumed from the
+   folder, the next step of both bit for bit (deterministic cuDNN), the
+   file's size, save and load times.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -3195,6 +3210,240 @@ def resume_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
     return {"mib": size / 2**20, "save_ms": 1e3 * save_s, "load_ms": 1e3 * load_s}
 
 
+# ---------------------------------------------------------------------------
+# codec training (VQGanVAETrainer)
+# ---------------------------------------------------------------------------
+
+# README.md:12-14: the codec and its trainer, every other option at its
+# default (GAN on, VGG16 perceptual loss with random weights, attention and a
+# res block on the last layer, a 256-dim cosine codebook of 8,192 with
+# k-means init, hinge loss, fp32)
+README_VAE = dict(dim=256, image_size=256, num_layers=4, vq_codebook_size=8192)
+README_TRAINER = dict(lr=3e-4, batch_size=8, grad_accum_every=4)
+CODEC_FRAMES, CODEC_STEPS = 64, 3
+# BASELINE config 1 with the GAN on and the random-feature perceptual loss
+CONFIG1_GAN = dict(dim=64, image_size=64, num_layers=2, vq_codebook_size=512,
+                   perceptual="random_vgg")
+# fp32 GPU vs CPU codec losses, relative: the gradient penalty of a random
+# discriminator is in the tens of thousands
+CODEC_LOSS_REL = 1e-5
+
+
+def codec_frames(n, size, seed):
+    """n seeded moving-square frames (n // 4 clips of 4), (n, 3, size, size)."""
+    video = moving_squares(n // 4, 4, size, np.random.default_rng(seed))
+    return video.reshape(n, 3, size, size)
+
+
+def train_codec(VQGanVAE, VQGanVAETrainer, knda):
+    """The README's codec and trainer at full width, fp32, on CODEC_FRAMES
+    256-px frames read from a uint8 memmap (MemmappedImageDataset, random
+    90-degree rotations), no results folder: CODEC_STEPS steps with the EMA
+    on from step 0. Step 0 runs k-means and the gradient penalty. Launches
+    no kernel of the port (the JAX package runs the codec outside Pallas)."""
+    import os
+    import tempfile
+
+    frames = codec_frames(CODEC_FRAMES, README_VAE["image_size"], SEED + 60)
+    with tempfile.TemporaryDirectory() as folder:
+        path = os.path.join(folder, "frames.u8")
+        mm = np.memmap(path, mode="w+", dtype=np.uint8, shape=frames.shape)
+        mm[:] = np.round(frames * 255).astype(np.uint8)
+        mm.flush()
+        torch.cuda.reset_peak_memory_stats()
+        vae = VQGanVAE(**README_VAE, device="cuda", seed=SEED + 61)
+        trainer = VQGanVAETrainer(
+            vae, num_train_steps=CODEC_STEPS, **README_TRAINER, images_memmap_path=path,
+            images_memmap_shape=frames.shape, ema_update_after_step=0, ema_update_every=1,
+            seed=SEED)
+        counts = {"codec": sum(p.numel() for p in vae.parameters()),
+                  "discriminator": sum(p.numel() for p in trainer.gan.discr.parameters()),
+                  "vgg": sum(p.numel() for p in trainer.gan.vgg.parameters())}
+        times = {"gen": [], "discr": []}
+
+        def timed_part(name, fn):
+            def call(*args):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - start))
+                return out
+            return call
+
+        trainer.gen_step = timed_part("gen", trainer.gen_step)
+        trainer.discr_step = timed_part("discr", trainer.discr_step)
+        initted = [vae.vq.initted.item()]
+        logs = []
+        reset_launches(knda)
+        for _ in range(CODEC_STEPS):
+            logs.append(trainer.train_step())
+            initted.append(vae.vq.initted.item())
+        got = launch_counts(knda)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ema_gap = max((trainer.ema[n] - p).abs().max().item()
+                      for n, p in vae.named_parameters())
+    window = README_TRAINER["batch_size"] * README_TRAINER["grad_accum_every"]
+    for i, log in enumerate(logs):
+        print(f"codec train step {i} (README codec, fp32, b={README_TRAINER['batch_size']} x "
+              f"{README_TRAINER['grad_accum_every']}): generator loss {log['loss']:.6f}, "
+              f"discriminator loss {log['discr_loss']:.6f}"
+              f"{' (gradient penalty)' if i % trainer.apply_grad_penalty_every == 0 else ''}, "
+              f"codebook usage {log['codebook_usage']:.4f}; generator {times['gen'][i]:.1f} ms, "
+              f"discriminator {times['discr'][i]:.1f} ms", flush=True)
+    step_ms = [g + d for g, d in zip(times["gen"], times["discr"])]
+    steady = statistics.mean(step_ms[1:])
+    print(f"codec training: k-means initted {initted[0]:.0f} -> {initted[1]:.0f} at step 0; EMA "
+          f"max abs distance from the parameters {ema_gap:.3e}; steps 1-{CODEC_STEPS - 1}: "
+          f"{steady:.1f} ms a step (generator {statistics.mean(times['gen'][1:]):.1f}, "
+          f"discriminator {statistics.mean(times['discr'][1:]):.1f}), "
+          f"{1e3 * window / steady:.2f} images/s ({window} images a step); peak memory "
+          f"{peak:.2f} GiB; parameters: codec {counts['codec'] / 1e6:.1f} M, discriminator "
+          f"{counts['discriminator'] / 1e6:.1f} M, VGG16 {counts['vgg'] / 1e6:.1f} M; "
+          f"kernel launches {sum(got.values())}", flush=True)
+    if not all(math.isfinite(log[k]) for log in logs for k in ("loss", "discr_loss")):
+        fail("codec training gave a non-finite loss")
+    if initted != [0.0] + [1.0] * CODEC_STEPS:
+        fail(f"k-means did not run once at step 0: initted {initted}")
+    if not ema_gap > 0:
+        fail("the EMA did not move away from the parameters")
+    if not 0 < logs[-1]["codebook_usage"] <= 1:
+        fail(f"codebook usage {logs[-1]['codebook_usage']}")
+    if got != expect_launches():
+        fail(f"codec training launched kernels of the port: {got}")
+    result = {"step_ms": steady, "gen_ms": statistics.mean(times["gen"][1:]),
+              "discr_ms": statistics.mean(times["discr"][1:]), "first_step_ms": step_ms[0],
+              "images_per_s": 1e3 * window / steady, "peak_gib": peak, **counts}
+    del trainer, vae
+    torch.cuda.empty_cache()
+    return result
+
+
+def grad_error(got, want):
+    """(largest error, where) of {name: gradient} against {name: reference},
+    each over its reference's max abs, or over 1e-3 of the largest max abs
+    for a gradient that is zero but for rounding (the position bias's last
+    bias, which the softmax cancels)."""
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    worst, where = 0.0, None
+    for name, ref in want.items():
+        rel = (got[name] - ref).abs().max().item() / max(ref.abs().max().item(), floor)
+        if rel > worst:
+            worst, where = rel, name
+    return worst, where
+
+
+def codec_against_cpu(VQGanVAE):
+    """BASELINE config 1 with the GAN on (random-feature VGG), b = 2, fp32:
+    the generator loss (k-means on the first update) with every gradient and
+    the updated codebook state, then the discriminator loss with the gradient
+    penalty and every discriminator gradient, on the GPU against the CPU."""
+    img = torch.from_numpy(codec_frames(4, CONFIG1_GAN["image_size"], SEED + 62)[:2])
+    runs = []
+    for device in ("cuda", "cpu"):
+        vae = VQGanVAE(**CONFIG1_GAN, device=device, seed=SEED + 63)
+        gan = vae.gan_parts(seed=SEED + 64)
+        start = time.perf_counter()
+        loss = vae(img, gan=gan, return_loss=True, generator=torch.Generator().manual_seed(0))
+        loss.backward()
+        grads = {n: p.grad.cpu() for m in (vae, gan) for n, p in m.named_parameters()
+                 if p.grad is not None}
+        state = {n: b.cpu().clone() for n, b in vae.vq.named_buffers()}
+        vae.zero_grad(set_to_none=True)
+        gan.zero_grad(set_to_none=True)
+        dloss = vae(img, gan=gan, return_discr_loss=True, apply_grad_penalty=True)
+        dloss.backward()
+        dgrads = {n: p.grad.cpu() for n, p in gan.discr.named_parameters()}
+        runs.append((loss.item(), grads, state, dloss.item(), dgrads))
+        print(f"config 1 codec loss, discriminator loss and their gradients on {device}: "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        del vae, gan
+    (loss_g, g_g, s_g, d_g, dg_g), (loss_c, g_c, s_c, d_c, dg_c) = runs
+    worst, where = grad_error(g_g, g_c)
+    dworst, dwhere = grad_error(dg_g, dg_c)
+    state_err = max((s_g[n] - s_c[n]).abs().max().item() for n in s_c)
+    print(f"codec fp32 GPU vs CPU (BASELINE config 1, GAN, random VGG, b=2): generator loss "
+          f"{loss_g:.6f} vs {loss_c:.6f}, {len(g_c)} gradients, largest error {worst:.3e} of "
+          f"the max abs at {where}; codebook state after the update (k-means) max abs err "
+          f"{state_err:.3e}; discriminator loss with the penalty {d_g:.6f} vs {d_c:.6f}, "
+          f"{len(dg_c)} gradients, largest error {dworst:.3e} at {dwhere} (tolerances: losses "
+          f"{CODEC_LOSS_REL:.0e} relative, gradients {GRAD_REL:.0e}, state {LOSS_ATOL:.0e})",
+          flush=True)
+    if set(g_g) != set(g_c) or not worst <= GRAD_REL or not dworst <= GRAD_REL:
+        fail("codec training gradients differ between GPU and CPU")
+    if not all(abs(a - b) <= CODEC_LOSS_REL * abs(b) for a, b in ((loss_g, loss_c), (d_g, d_c))):
+        fail("codec training losses differ between GPU and CPU")
+    if not state_err <= LOSS_ATOL or s_g["initted"].item() != 1.0:
+        fail("the codebook state after the update differs between GPU and CPU")
+    torch.cuda.empty_cache()
+    return {"max_grad_err": max(worst, dworst), "state_err": state_err}
+
+
+def codec_resume(VQGanVAE, VQGanVAETrainer):
+    """VQGanVAETrainer at BASELINE config 1 (GAN, random VGG, b = 2, fp32)
+    with save_model_every=1 on one frame repeated (every batch the same: a
+    resume starts the data order again from the seed) takes 2 steps; a
+    fresh trainer over other weights resumes the newest file, which holds
+    the step count from before its step, as the JAX trainer writes it; both
+    take a step: the same losses and parameters, bit for bit. cuDNN runs
+    its deterministic algorithms here (its weight gradients otherwise sum
+    with atomics; the codec's upsample has a fixed-order backward), so any
+    difference is the resume's. The file's size, the second step's save and
+    the load times."""
+    import os
+    import tempfile
+
+    frame = codec_frames(4, CONFIG1_GAN["image_size"], SEED + 65)[0]
+    saves = []
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as folder:
+        def trainer(seed, **kw):
+            return VQGanVAETrainer(
+                VQGanVAE(**CONFIG1_GAN, device="cuda", seed=seed), num_train_steps=4, lr=3e-4,
+                batch_size=2, grad_accum_every=1, dataset=[frame] * 2, valid_frac=0.0,
+                results_folder=folder, seed=SEED, **kw)
+
+        def timed_save(save):
+            def call(steps):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                path = save(steps)
+                saves.append((time.perf_counter() - start, os.path.getsize(path)))
+                return path
+            return call
+
+        first = trainer(SEED + 66, save_model_every=1)
+        first.save = timed_save(first.save)
+        for _ in range(2):
+            first.train_step()
+        first.save_model_every = 1000  # the step compared below writes nothing
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        resumed = trainer(SEED + 67, resume=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        if resumed.step != 1:
+            fail(f"codec resume restored step {resumed.step}, expected 1")
+        want, got = first.train_step(), resumed.train_step()
+        diff = max((a - b).abs().max().item() for a, b in zip(
+            first.gen_params + first.discr_params, resumed.gen_params + resumed.discr_params))
+    torch.backends.cudnn.deterministic = False
+    save_s, size = saves[-1]
+    loss_diff = max(abs(want[k] - got[k]) for k in ("loss", "discr_loss"))
+    print(f"codec resume (BASELINE config 1, GAN, random VGG, b=2, fp32, deterministic cuDNN): "
+          f"the step after it generator loss {got['loss']:.6f} resumed vs {want['loss']:.6f} "
+          f"uninterrupted, discriminator {got['discr_loss']:.6f} vs {want['discr_loss']:.6f} "
+          f"(max diff {loss_diff:.3e}); parameters after it: max abs difference {diff:.3e} "
+          f"({'bit-equal' if diff == 0 else 'NOT bit-equal'}); checkpoint "
+          f"{size / 2**20:.1f} MiB, save {1e3 * save_s:.0f} ms (step 1's, with its EMA file), "
+          f"load (a trainer with resume=True) {1e3 * load_s:.0f} ms", flush=True)
+    if loss_diff != 0 or diff != 0:
+        fail("the resumed codec step differs from the uninterrupted one")
+    del first, resumed
+    torch.cuda.empty_cache()
+    return {"mib": size / 2**20, "save_ms": 1e3 * save_s, "load_ms": 1e3 * load_s}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -3202,7 +3451,7 @@ def main():
     from nuwa_tpu_torch.kernels import build
     from nuwa_tpu_torch.kernels import cross as kcross
     from nuwa_tpu_torch.kernels import nda as knda
-    from nuwa_tpu_torch.train import NUWATrainer
+    from nuwa_tpu_torch.train import NUWATrainer, VQGanVAETrainer
 
     # fp32 matmuls in full fp32 (no TF32) for every fp32 comparison below
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3314,6 +3563,12 @@ def main():
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
     phase("throughput")
+    del model, sketch, short
+    torch.cuda.empty_cache()
+    train_codec(VQGanVAE, VQGanVAETrainer, knda)
+    codec_against_cpu(VQGanVAE)
+    codec_resume(VQGanVAE, VQGanVAETrainer)
+    phase("codec training (VQGanVAETrainer)")
 
     # launches: the NUWA serving run's, the training run's, the sketch
     # serving run's, the sketch training runs', the 128-px runs', the

@@ -105,6 +105,17 @@ def _as_tensor(leaf, dtype):
     return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(dtype)
 
 
+def jax_layout(owner, leaf, tensor):
+    """A tensor of ``owner.<leaf>`` in the JAX package's layout: a
+    ``Conv2d`` weight OIHW -> HWIO, anything else as it is."""
+    return tensor.permute(2, 3, 1, 0) if isinstance(owner, Conv2d) and leaf == "w" else tensor
+
+
+def port_layout(owner, leaf, value):
+    """The inverse of ``jax_layout``: a JAX-layout value for ``owner.<leaf>``."""
+    return value.permute(3, 2, 0, 1) if isinstance(owner, Conv2d) and leaf == "w" else value
+
+
 @torch.no_grad()
 def load_jax_params(module: nn.Module, params) -> nn.Module:
     leaves = flatten_params(params)
@@ -115,9 +126,7 @@ def load_jax_params(module: nn.Module, params) -> nn.Module:
     if missing or unused:
         raise ValueError(f"params do not match: missing {missing}, unused {unused}")
     for path, (tensor, owner, leaf) in names.items():
-        value = _as_tensor(leaves[path], tensor.dtype)
-        if isinstance(owner, Conv2d) and leaf == "w":
-            value = value.permute(3, 2, 0, 1)  # HWIO -> OIHW
+        value = port_layout(owner, leaf, _as_tensor(leaves[path], tensor.dtype))
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{path}: shape {tuple(value.shape)} != {tuple(tensor.shape)}")
         tensor.copy_(value)
@@ -128,13 +137,8 @@ def export_jax_params(module: nn.Module) -> dict:
     """{dotted JAX path: tensor} of every parameter and buffer of
     ``module`` in the JAX package's layout (``Conv2d.w`` as HWIO): the
     leaves ``load_jax_params`` takes back. The tensors are detached views."""
-    out = {}
-    for path, (tensor, owner, leaf) in _tensors(module).items():
-        tensor = tensor.detach()
-        if isinstance(owner, Conv2d) and leaf == "w":
-            tensor = tensor.permute(2, 3, 1, 0)  # OIHW -> HWIO
-        out[path] = tensor
-    return out
+    return {path: jax_layout(owner, leaf, tensor.detach())
+            for path, (tensor, owner, leaf) in _tensors(module).items()}
 
 
 def load_vqgan_vae(vae: VQGanVAE, params, state) -> VQGanVAE:
@@ -144,6 +148,18 @@ def load_vqgan_vae(vae: VQGanVAE, params, state) -> VQGanVAE:
     params = {k: v for k, v in params.items() if k not in ("discr", "vgg")}
     state = state if "vq" in state else {"vq": state}
     return load_jax_params(vae, {"params": params, "state": state})
+
+
+def load_vqgan_vae_train(vae: VQGanVAE, gan, params, state):
+    """Load a JAX training ``VQGanVAE`` (params with their ``discr`` and,
+    for a VGG perceptual loss, ``vgg`` subtrees) into the port's codec and
+    its ``GanParts`` (``vae.gan_parts()``, None for a codec without the
+    GAN), plus the codebook state; every leaf is used once. Returns (vae,
+    gan)."""
+    load_vqgan_vae(vae, params, state)
+    load_jax_params(gan if gan is not None else nn.Module(),
+                    {k: v for k, v in params.items() if k in ("discr", "vgg")})
+    return vae, gan
 
 
 def load_nuwa_vae(nuwa, params):

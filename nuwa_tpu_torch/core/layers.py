@@ -244,7 +244,8 @@ def _same_padding(size, k, stride):
 
 class Conv2d(nn.Module):
     """2D convolution over NCHW inputs with an OIHW kernel. ``padding`` is
-    XLA's "SAME" or ((top, bottom), (left, right)), as in the JAX package."""
+    XLA's "SAME" or "VALID" or ((top, bottom), (left, right)), as in the JAX
+    package."""
 
     def __init__(self, cin, cout, kernel_size, stride=(1, 1), padding="SAME",
                  use_bias=True):
@@ -264,6 +265,8 @@ class Conv2d(nn.Module):
         if self.padding == "SAME":
             return tuple(_same_padding(n, k, s) for n, k, s in
                          zip(x.shape[2:], self.kernel_size, self.stride))
+        if self.padding == "VALID":
+            return ((0, 0), (0, 0))
         return tuple(tuple(p) for p in self.padding)
 
     def forward(self, x):
@@ -281,7 +284,17 @@ def leaky_relu(x, negative_slope=0.1):
     return F.leaky_relu(x, negative_slope)
 
 
-def upsample_bilinear(x, scale=2):
-    """NCHW bilinear upsample with half-pixel centres, clamped at the
-    borders: ``jax.image.resize(method="bilinear")`` when upsampling."""
-    return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)
+def upsample_bilinear(x):
+    """NCHW bilinear 2x upsample with half-pixel centres, clamped at the
+    borders: ``jax.image.resize(method="bilinear")`` when doubling. Each
+    output row (then column) blends its input row 0.75 with the clamped
+    neighbour on its side 0.25; built from slices, sums and a stack, so its
+    backward sums in a fixed order (F.interpolate's backward on CUDA adds
+    with atomics, which makes training runs differ from run to run)."""
+    for dim in (2, 3):
+        n = x.shape[dim]
+        prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+        nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+        x = torch.stack([0.75 * x + 0.25 * prev, 0.75 * x + 0.25 * nxt], dim + 1).flatten(
+            dim, dim + 1)
+    return x

@@ -42,24 +42,31 @@ class CheckpointMismatchError(ValueError):
     """A checkpoint's leaves are not those its reader expects."""
 
 
+class Attr(str):
+    """A path part that is an attribute (a field of one of optax's named
+    tuples, such as ``ScaleByAdamState.mu``): ``keystr`` writes it
+    ``.mu``."""
+
+
 def keystr(path) -> str:
-    """A leaf's path (dict keys and list indices) as
+    """A leaf's path (dict keys, list indices and ``Attr`` fields) as
     ``jax.tree_util.keystr`` writes it."""
-    return "".join(f"[{p}]" if isinstance(p, int) else f"[{p!r}]" for p in path)
+    return "".join(f".{p}" if isinstance(p, Attr) else f"[{p}]" if isinstance(p, int)
+                   else f"[{str(p)!r}]" for p in path)
 
 
 _PART = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]|\.(\w+)")
 
 
 def parse_keystr(key: str) -> tuple:
-    """The parts of a ``keystr`` path: dict keys and attribute names as
-    strings, list indices as ints."""
+    """The parts of a ``keystr`` path: dict keys as strings, attribute
+    names as ``Attr``, list indices as ints."""
     parts, end = [], 0
     for m in _PART.finditer(key):
         if m.start() != end:
             raise ValueError(f"not a key path: {key!r}")
         name, index, attr = m.groups()
-        parts.append(int(index) if index is not None else (name if name is not None else attr))
+        parts.append(int(index) if index is not None else (name if name is not None else Attr(attr)))
         end = m.end()
     if end != len(key):
         raise ValueError(f"not a key path: {key!r}")
@@ -199,9 +206,14 @@ def restore_latest(directory, name, keys=None):
 def unflatten(leaves: dict):
     """A nested dict / list tree of ``{key path: leaf}``: the inverse of
     ``flatten`` for trees of dicts and lists."""
+    return tree_of({parse_keystr(key): leaf for key, leaf in leaves.items()})
+
+
+def tree_of(items: dict):
+    """A nested dict / list tree of ``{path tuple: leaf}``, a node whose keys
+    are all ints becoming a list."""
     root = {}
-    for key, leaf in leaves.items():
-        parts = parse_keystr(key)
+    for parts, leaf in items.items():
         node = root
         for part, nxt in zip(parts, parts[1:]):
             node = node.setdefault(part, {})

@@ -1,10 +1,11 @@
-"""Image grids and PNG files, in numpy and the standard library.
+"""Image grids and PNG files, in numpy and the standard library, and the
+gif helpers.
 
-Counterpart of ``make_grid`` and ``save_image_grid`` in
-``nuwa_tpu/utils/image.py``. The JAX package writes the PNG with Pillow; the
-port writes the same image itself (8-bit RGB or grey, one IDAT chunk, no
-filter) with ``zlib`` and ``struct``, so it needs no imaging package. The
-gif helpers are not ported yet.
+Counterpart of ``nuwa_tpu/utils/image.py``. The JAX package writes the PNG
+with Pillow; the port writes the same image itself (8-bit RGB or grey, one
+IDAT chunk, no filter) with ``zlib`` and ``struct``, so the trainers need no
+imaging package. The gif helpers (``gif_to_array``, ``array_to_gif`` and
+the reference's names for them) need Pillow and import it when called.
 """
 from __future__ import annotations
 
@@ -13,6 +14,50 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+
+def seek_all_images(img, channels=3):
+    """The frames of an open PIL image, converted to ``channels`` channels."""
+    mode = {1: "L", 3: "RGB", 4: "RGBA"}.get(channels)
+    if mode is None:
+        raise ValueError("channels must be 1, 3, or 4")
+    i = 0
+    while True:
+        try:
+            img.seek(i)
+        except EOFError:
+            return
+        yield img.convert(mode)
+        i += 1
+
+
+def gif_to_array(path, channels=3):
+    """An animated gif -> float32 (frames, channels, h, w) in [0, 1]."""
+    from PIL import Image
+
+    frames = []
+    for frame in seek_all_images(Image.open(path), channels=channels):
+        arr = np.asarray(frame, dtype=np.float32) / 255.0
+        if arr.ndim == 2:
+            arr = arr[:, :, None]
+        frames.append(arr.transpose(2, 0, 1))
+    return np.stack(frames)
+
+
+def array_to_gif(arr, path, duration=120, loop=0, optimize=True):
+    """float32 (frames, channels, h, w) in [0, 1] -> an animated gif."""
+    from PIL import Image
+
+    frames = (np.clip(np.asarray(arr), 0.0, 1.0) * 255).astype(np.uint8).transpose(0, 2, 3, 1)
+    images = [Image.fromarray(f[..., 0] if f.shape[-1] == 1 else f) for f in frames]
+    images[0].save(str(path), save_all=True, append_images=images[1:], duration=duration,
+                   loop=loop, optimize=optimize)
+    return path
+
+
+# the reference's names
+gif_to_tensor = gif_to_array
+video_tensor_to_gif = array_to_gif
 
 
 def make_grid(images, nrow=8, padding=2, pad_value=0.0):

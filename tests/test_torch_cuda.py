@@ -958,3 +958,42 @@ def test_resume_on_the_card_equals_the_uninterrupted_run(tmp_path):
     assert first.train_step()["loss"] == resumed.train_step()["loss"]
     for a, b in zip(first.nuwa.parameters(), resumed.nuwa.parameters()):
         assert (a - b).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_codec_training_on_the_card_matches_the_cpu():
+    """VQGanVAETrainer on the card and on the CPU from one seed (a GAN codec
+    with the random-feature VGG, fp32, no TF32): the first step's generator
+    loss (k-means on its first update), discriminator loss (with the
+    gradient penalty) and codebook usage within 1e-4, the codebook state
+    after it within 1e-4; the second step's losses within 1e-3 (Adam moved
+    the weights by lr once, from gradients summed in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from nuwa_tpu_torch import VQGanVAE, VQGanVAETrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    images = [rng.uniform(0, 1, (3, 32, 32)).astype(np.float32) for _ in range(8)]
+    cfg = dict(dim=8, image_size=32, num_layers=2, num_resnet_blocks=(0, 1),
+               use_attn=(False, True), attn_heads=2, attn_dim_head=4, resnet_groups=4,
+               vq_codebook_size=16, vq_codebook_dim=4, perceptual="random_vgg")
+    logs, states = {}, {}
+    for device in ("cuda", "cpu"):
+        trainer = VQGanVAETrainer(VQGanVAE(**cfg, device=device, seed=1), num_train_steps=2,
+                                  lr=1e-3, batch_size=2, grad_accum_every=2, dataset=images,
+                                  valid_frac=0.0, seed=2)
+        logs[device] = [trainer.train_step()]
+        states[device] = {n: b.cpu().clone() for n, b in trainer.vae.vq.named_buffers()}
+        logs[device].append(trainer.train_step())
+    for key in ("loss", "discr_loss", "codebook_usage"):
+        assert abs(logs["cuda"][0][key] - logs["cpu"][0][key]) <= 1e-4 * max(
+            1.0, abs(logs["cpu"][0][key])), key
+        assert abs(logs["cuda"][1][key] - logs["cpu"][1][key]) <= 1e-3 * max(
+            1.0, abs(logs["cpu"][1][key])), key
+    for name, value in states["cpu"].items():
+        assert (states["cuda"][name] - value).abs().max().item() <= 1e-4, name
+    assert states["cuda"]["initted"].item() == 1.0

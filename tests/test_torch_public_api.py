@@ -7,9 +7,9 @@ import nuwa_tpu_torch
 
 REPO = Path(__file__).resolve().parents[1]
 PORTED = ("NUWA", "NUWASketch", "NUWAVideoAudio", "Sparse3DNA", "SparseCausal2DNA",
-          "CrossModalityCrossAttention", "VQGanVAE", "NUWATrainer")
+          "CrossModalityCrossAttention", "VQGanVAE", "NUWATrainer", "VQGanVAETrainer")
 EXTRAS = ("Attention", "SparseCross2DNA")
-NOT_YET = ("VQGanVAETrainer",)
+NOT_YET = ()
 
 
 def test_public_exports():
@@ -29,6 +29,7 @@ def test_exports_are_the_modules_classes():
     from nuwa_tpu_torch.ops.crossmodality import CrossModalityCrossAttention
     from nuwa_tpu_torch.tokenizer import SimpleTokenizer
     from nuwa_tpu_torch.train.trainer_nuwa import NUWATrainer
+    from nuwa_tpu_torch.train.trainer_vqgan import VQGanVAETrainer
 
     assert nuwa_tpu_torch.NUWA is NUWA
     assert nuwa_tpu_torch.Sparse3DNA is Sparse3DNA
@@ -38,6 +39,7 @@ def test_exports_are_the_modules_classes():
     assert nuwa_tpu_torch.CrossModalityCrossAttention is CrossModalityCrossAttention
     assert nuwa_tpu_torch.Attention is Attention
     assert nuwa_tpu_torch.NUWATrainer is NUWATrainer
+    assert nuwa_tpu_torch.VQGanVAETrainer is VQGanVAETrainer
     assert isinstance(nuwa_tpu_torch.tokenizer, SimpleTokenizer)
 
 
