@@ -166,15 +166,33 @@ Phases, each of which exits non-zero on failure:
    the gradient penalty and every discriminator gradient; (c) a resume at
    that config: 2 steps saving each, a fresh trainer resumed from the
    folder, the next step of both bit for bit (deterministic cuDNN), the
-   file's size, save and load times.
+   file's size, save and load times;
+18. data and tensor parallelism, after the throughput phase: a process
+   group of one rank over NCCL and ``make_mesh(data=1, model=1)`` on the
+   card; NUWATrainer at 128 px (phase 8's model and batch, bf16) for 3
+   steps with and without the mesh from one seed (the step-0 sample left
+   out), the launches of each step checked: the losses and parameters
+   (bit-equal, or within tests/test_parallel.py's tolerances), the meshed
+   step's CUDA-event ms beside ``utils.profiling.StepTimer``'s and
+   ``utils.timing.device_rate``'s; one meshed step under
+   ``utils.profiling.trace`` with an ``annotate`` region, whose name must be
+   in the trace file; the NUWA serving model's cached generate (b = 8, one
+   frame) under the mesh: the unmeshed ids; VQGanVAETrainer at BASELINE
+   config 1 (GAN, random VGG, k-means, b = 2, fp32, deterministic cuDNN) for
+   2 steps with and without the mesh; ``shift_video_tokens`` on the card at
+   its four ``shift_space`` / ``shift_time`` settings against the CPU. The
+   group is destroyed at the end. Several ranks on one card are not
+   possible over NCCL: the multi-rank arithmetic is held by the CPU tests.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 import collections
+import contextlib
 import itertools
 import json
 import math
+import os
 import statistics
 import struct
 import subprocess
@@ -1771,7 +1789,10 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, dropout=0.0):
     ``attn_dropout`` and ``ff_dropout`` of the model; the codec and the
     sample at step 0 none). The step-0 sample (one frame) is written as a
     PNG, which must decode to the logged frame inside the grid's 2-pixel
-    border. Returns the launches of all steps and the step's median ms."""
+    border; with ``dropout`` the trainer does not sample (about 30 s of
+    1,024 tokens: ``generate`` drops nothing, so the run without dropout
+    checks the same path). Returns the launches of all steps and the
+    step's median ms."""
     depth = NUWA128["dec_depth"]
     drop = depth if dropout else 0
     expect = expect_launches(fwd=2 * depth, bwd_q=depth, bwd_kv=depth, fwd_dropout=2 * drop,
@@ -1788,6 +1809,8 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, dropout=0.0):
         cond_dropout_prob=0.2, save_results_every=1000, num_sampled_frames=1, seed=SEED,
         results_folder=results, tokenizer=tokenizer,
     )
+    if dropout:
+        trainer._sample = lambda *a: None
     if any(p.requires_grad for p in model.vae.parameters()) or any(
             p is q for p in trainer.params for q in model.vae.parameters()):
         fail("the codec's parameters are trained")
@@ -1807,7 +1830,7 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, dropout=0.0):
         if got != expect:
             fail(f"{label} step {step}: launches {got}, expected {expect}")
         total = {k: total[k] + got[k] for k in total}
-        if step == 0:
+        if step == 0 and not dropout:
             sample, side = logs.get("sampled_video"), SIZE128
             if sample is None or sample.shape != (1, 3, side, side):
                 fail(f"{label} step 0 logged no (1, 3, {side}, {side}) sample")
@@ -1824,13 +1847,14 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, dropout=0.0):
         fail(f"{label} losses not finite: {losses}")
     if not losses[-1] < losses[0]:
         fail(f"{label} loss did not fall: {losses}")
-    ms = statistics.median(times[1:])  # step 0 also samples 1,024 tokens
+    ms = statistics.median(times[1:])  # step 0 also samples 1,024 tokens (not with dropout)
     tokens = NUWA128_BATCH * NUWA128["max_video_frames"] * FMAP128**2
     shown = {k: v for k, v in expect.items() if v}
     print(f"{label}: losses {', '.join(f'{x:.4f}' for x in losses)} (finite, falling); "
           f"launches per step {shown} (as expected, every step)", flush=True)
     print(f"{label} step (b={NUWA128_BATCH}, {tokens} video tokens): {ms:.1f} ms median "
-          f"of steps 1-{NUWA128_STEPS - 1} (step 0 with its sample: {times[0]:.1f} ms), "
+          f"of steps 1-{NUWA128_STEPS - 1} (step 0{'' if dropout else ' with its sample'}: "
+          f"{times[0]:.1f} ms), "
           f"{tokens / (ms / 1e3):.0f} video tokens/s, peak memory {peak:.2f} GiB", flush=True)
     train_device_share(trainer)
     del trainer, model
@@ -3166,11 +3190,14 @@ def resume_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
                            np.random.default_rng(SEED + 45))
     with tempfile.TemporaryDirectory() as folder:
         def trainer(model, **kw):
-            return NUWATrainer(
+            t = NUWATrainer(
                 nuwa=model, dataset=list(zip(text, video)), num_train_steps=3, lr=3e-4,
                 wd=0.01, batch_size=NUWA128_BATCH, grad_accum_every=1, max_grad_norm=0.5,
                 cond_dropout_prob=0.2, save_results_every=1000, num_sampled_frames=1,
                 seed=SEED, results_folder=folder, **kw)
+            # the step-0 sample (about 22 s of 1,024 tokens) is train_128's check
+            t._sample = lambda *a: None
+            return t
 
         def step(t, name):
             return counted(name, knda, tally, t.train_step, per_step)[0]["loss"]
@@ -3444,6 +3471,243 @@ def codec_resume(VQGanVAE, VQGanVAETrainer):
     return {"mib": size / 2**20, "save_ms": 1e3 * save_s, "load_ms": 1e3 * load_s}
 
 
+# ---------------------------------------------------------------------------
+# data and tensor parallelism on torch.distributed (world size 1 over NCCL),
+# the tracing and timing helpers, and the token shift along time
+# ---------------------------------------------------------------------------
+
+# meshed against unmeshed training on one card: the JAX package's tolerances
+# (tests/test_parallel.py), held when the two are not bit-equal
+MESH_LOSS_RTOL, MESH_PARAM_ATOL, MESH_PARAM_RTOL = 2e-4, 3e-5, 3e-4
+MESH_STEPS, MESH_CODEC_STEPS = 3, 2
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def params_diff(a, b):
+    """(max abs difference, whether every pair is within the mesh
+    tolerances) of two parameter lists."""
+    worst, ok = 0.0, True
+    for x, y in zip(a, b, strict=True):
+        worst = max(worst, (x - y).abs().max().item())
+        ok = ok and torch.allclose(x, y, atol=MESH_PARAM_ATOL, rtol=MESH_PARAM_RTOL)
+    return worst, ok
+
+
+def mesh_against_unmeshed(name, losses, want, diff, ok):
+    """Print and hold a meshed run against the unmeshed one."""
+    equal = losses == want and diff == 0
+    print(f"{name}: losses {', '.join(f'{x:.6f}' for x in losses)} meshed vs "
+          f"{', '.join(f'{x:.6f}' for x in want)} unmeshed; parameters max abs difference "
+          f"{diff:.3e} ({'bit-equal' if equal else 'NOT bit-equal'}; tolerances losses rtol "
+          f"{MESH_LOSS_RTOL:.0e}, parameters atol {MESH_PARAM_ATOL:.0e} / rtol "
+          f"{MESH_PARAM_RTOL:.0e})", flush=True)
+    if not (ok and np.allclose(losses, want, rtol=MESH_LOSS_RTOL, atol=0)):
+        fail(f"{name}: the meshed run is not the unmeshed one")
+
+
+def mesh_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, mesh):
+    """NUWATrainer at 128 px (train_128's model and batch, bf16) with and
+    without ``mesh`` on copies of one seeded model, MESH_STEPS steps each,
+    in turns (unmeshed first, then meshed first, ...), the step-0 sample
+    left out (train_128 has it): the losses and parameters; the meshed
+    steps' CUDA-event ms beside the unmeshed ones, StepTimer's and
+    device_rate's."""
+    import copy
+
+    from nuwa_tpu_torch.utils.profiling import StepTimer
+    from nuwa_tpu_torch.utils.timing import device_rate
+
+    depth = NUWA128["dec_depth"]
+    per_step = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth}
+    text = nuwa128_text(tokenizer, NUWA128_BATCH).numpy()
+    video = moving_squares(NUWA128_BATCH, NUWA128["max_video_frames"], SIZE128,
+                           np.random.default_rng(SEED + 45))
+    model = nuwa128_model(NUWA, VQGanVAE)
+    runs = {}
+    for label, m in (("unmeshed", None), ("meshed", mesh)):
+        t = NUWATrainer(nuwa=copy.deepcopy(model), dataset=list(zip(text, video)),
+                        num_train_steps=10**9, lr=3e-4, wd=0.01, batch_size=NUWA128_BATCH,
+                        grad_accum_every=1, max_grad_norm=0.5, cond_dropout_prob=0.2,
+                        seed=SEED, mesh=m)
+        t._sample = lambda *a: None  # 1,024 sampled tokens: train_128's
+        runs[label] = (t, [], [])
+    del model
+    timer = StepTimer(warmup=1)
+    for i in range(MESH_STEPS):
+        for label in ("unmeshed", "meshed")[::1 if i % 2 == 0 else -1]:
+            t, losses, ms = runs[label]
+            with timer if label == "meshed" else contextlib.nullcontext():
+                logs, step_ms, _ = counted(f"128 px {label} train step {i}", knda, tally,
+                                           t.train_step, per_step)
+            losses.append(logs["loss"])
+            ms.append(step_ms)
+    (plain, want, plain_ms), (meshed, losses, ms) = runs.pop("unmeshed"), runs.pop("meshed")
+    diff, ok = params_diff(list(meshed.nuwa.parameters()), list(plain.nuwa.parameters()))
+    mesh_against_unmeshed(f"128 px NUWATrainer, mesh (data 1, model 1) over NCCL, "
+                          f"{MESH_STEPS} steps", losses, want, diff, ok)
+    del plain
+    steps = [0]
+
+    def dispatch():
+        steps[0] += 1
+        return torch.tensor(meshed.train_step()["loss"])
+
+    reset_launches(knda)
+    rate_s = device_rate(dispatch, k_lo=1, k_hi=3, reps=1)
+    got = launch_counts(knda)
+    want_launches = expect_launches(**{k: v * steps[0] for k, v in per_step.items()})
+    if got != want_launches:
+        fail(f"device_rate's {steps[0]} meshed steps: launches {got}, expected {want_launches}")
+    tally.update(got)
+    summary = timer.summary()
+    print(f"128 px train step (b={NUWA128_BATCH}), CUDA events, steps 1-{MESH_STEPS - 1} in "
+          f"turns: meshed {', '.join(f'{x:.1f}' for x in ms[1:])} ms, unmeshed "
+          f"{', '.join(f'{x:.1f}' for x in plain_ms[1:])} ms (step 0: {ms[0]:.1f}, "
+          f"{plain_ms[0]:.1f}); meshed StepTimer {summary['steps']} steps p50 "
+          f"{1e3 * summary['p50_s']:.1f} ms, mean {1e3 * summary['mean_s']:.1f} ms; "
+          f"device_rate (k 1 and 3, {steps[0]} steps) {1e3 * rate_s:.1f} ms", flush=True)
+    return meshed
+
+
+def mesh_trace(meshed, knda, tally):
+    """One meshed step under utils.profiling.trace with an annotate region:
+    the region's name in the trace file, and the trace's CUDA time."""
+    import glob
+    import tempfile
+
+    from nuwa_tpu_torch.utils.profiling import annotate, trace
+
+    depth = NUWA128["dec_depth"]
+    with tempfile.TemporaryDirectory() as logdir:
+        reset_launches(knda)
+        with trace(logdir) as prof:
+            with annotate("mesh_train_step"):
+                meshed.train_step()
+        got = launch_counts(knda)
+        files = glob.glob(f"{logdir}/*.pt.trace.json")
+        text = open(files[0]).read() if len(files) == 1 else ""
+        size = sum(os.path.getsize(f) for f in files)
+    if got != expect_launches(fwd=2 * depth, bwd_q=depth, bwd_kv=depth):
+        fail(f"the traced step's launches {got}")
+    tally.update(got)
+    if '"mesh_train_step"' not in text:
+        fail(f"the annotate region is not in the trace ({files})")
+    cuda_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    print(f"trace of one meshed 128 px step: one file of {size / 2**20:.1f} MiB holding the "
+          f"'mesh_train_step' region; its ops' self CUDA time {cuda_ms:.1f} ms", flush=True)
+
+
+def mesh_generate(model, texts, knda, tally, mesh):
+    """Cached generate of the NUWA serving model (b = 8, one frame, bf16,
+    CFG 2.0) under the mesh (this rank's rows: every row at one rank)
+    against the same call without it: the same ids."""
+    from nuwa_tpu_torch.parallel.sharding import data_rows
+
+    text = texts[8]
+
+    def generate(rows):
+        return lambda: model.generate(
+            text[rows], generator=torch.Generator("cuda").manual_seed(SEED + 90), num_frames=1,
+            decode_video=False)
+
+    want, plain_ms, _ = counted("generate b=8 unmeshed", knda, tally, generate(slice(None)), {})
+    got, ms, _ = counted("generate b=8 meshed", knda, tally,
+                         generate(data_rows(mesh, text.shape[0])), {})
+    print(f"NUWA serving model, cached generate b=8 (one frame, {want.shape[1]} tokens a row) "
+          f"under the mesh: ids {'equal' if torch.equal(got, want) else 'DIFFER'} to the "
+          f"unmeshed ones; {ms:.1f} ms against {plain_ms:.1f} ms", flush=True)
+    if not torch.equal(got, want):
+        fail("meshed generate ids differ from the unmeshed ones")
+
+
+def mesh_codec(VQGanVAE, VQGanVAETrainer, mesh):
+    """VQGanVAETrainer at BASELINE config 1 (GAN, random VGG, k-means, b = 2,
+    fp32, deterministic cuDNN) with and without the mesh, MESH_CODEC_STEPS
+    steps each: the losses and the parameters."""
+    frames = list(codec_frames(8, CONFIG1_GAN["image_size"], SEED + 91))
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for label, m in (("unmeshed", None), ("meshed", mesh)):
+        t = VQGanVAETrainer(VQGanVAE(**CONFIG1_GAN, device="cuda", seed=SEED + 92),
+                            num_train_steps=MESH_CODEC_STEPS, lr=3e-4, batch_size=2,
+                            grad_accum_every=1, dataset=frames, valid_frac=0.0, seed=SEED,
+                            mesh=m)
+        losses = []
+        t.train(log_fn=lambda logs: losses.extend((logs["loss"], logs["discr_loss"])))
+        runs[label] = (t, losses)
+    torch.backends.cudnn.deterministic = False
+    (plain, want), (meshed, losses) = runs["unmeshed"], runs["meshed"]
+    diff, ok = params_diff(meshed.gen_params + meshed.discr_params,
+                           plain.gen_params + plain.discr_params)
+    mesh_against_unmeshed(f"VQGanVAETrainer (BASELINE config 1), mesh (data 1, model 1), "
+                          f"{MESH_CODEC_STEPS} steps (generator, discriminator)",
+                          losses, want, diff, ok)
+
+
+def shift_on_the_card():
+    """shift_video_tokens on the card at its four flag settings against the
+    CPU: the same values (data movement)."""
+    from nuwa_tpu_torch.ops.shift import shift_video_tokens
+
+    x = torch.randn(2, 1 + 10 * FMAP128**2 - 37, 512, generator=torch.Generator().manual_seed(5))
+    for space, time_ in ((False, False), (True, False), (False, True), (True, True)):
+        got = shift_video_tokens(x.cuda(), FMAP128, space, time_).cpu()
+        if not torch.equal(got, shift_video_tokens(x, FMAP128, space, time_)):
+            fail(f"shift_video_tokens(shift_space={space}, shift_time={time_}) on the card "
+                 "differs from the CPU")
+    print(f"shift_video_tokens on the card at shift_space / shift_time = (0, 0), (1, 0), "
+          f"(0, 1), (1, 1), (2, {x.shape[1]}, 512) at fmap {FMAP128}: equal to the CPU",
+          flush=True)
+
+
+def mesh_phase(NUWA, VQGanVAE, NUWATrainer, VQGanVAETrainer, tokenizer, knda, tally, model,
+               texts):
+    """A process group of one rank over NCCL and make_mesh(data=1, model=1)
+    on the card: the 128-px NUWATrainer, the serving model's generate and
+    the config-1 codec trainer under it against the same without it; the
+    tracing and timing helpers; the token shift along time. The group is
+    destroyed at the end."""
+    import torch.distributed as dist
+
+    from nuwa_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    start = time.perf_counter()
+
+    def took(what):
+        print(f"  ({what}: {time.perf_counter() - start:.1f} s into the phase)", flush=True)
+
+    try:
+        mesh = make_mesh(data=1, model=1, device="cuda")
+        print(f"process group: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}; mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+              f"{mesh.device_type}", flush=True)
+        took("the group and the mesh")
+        meshed = mesh_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, mesh)
+        took("the 128 px trainers")
+        mesh_trace(meshed, knda, tally)
+        del meshed
+        torch.cuda.empty_cache()
+        took("the trace")
+        mesh_generate(model, texts, knda, tally, mesh)
+        took("generate")
+        mesh_codec(VQGanVAE, VQGanVAETrainer, mesh)
+        took("the codec trainers")
+        shift_on_the_card()
+        took("the shift")
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -3563,6 +3827,9 @@ def main():
     device_share(model, texts)
     sketch_throughput(sketch, short, inputs)
     phase("throughput")
+    mesh_phase(NUWA, VQGanVAE, NUWATrainer, VQGanVAETrainer, tokenizer, knda, surface, model,
+               texts)
+    phase("mesh (NCCL, world size 1), tooling and the token shift along time")
     del model, sketch, short
     torch.cuda.empty_cache()
     train_codec(VQGanVAE, VQGanVAETrainer, knda)

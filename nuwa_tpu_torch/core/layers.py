@@ -18,14 +18,19 @@ gets the same weights on every device.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.nda import _avalanche, keep_mask, keep_params
+from .tp import column, gathered_features, row, shard_of
 
 _U32 = 0xFFFFFFFF
+# the masks hash seed * 0x9E3779B9 + row (mod 2**32); the constant is odd, so
+# it has an inverse and a row offset can be folded into the seed
+_INV_GOLDEN = pow(0x9E3779B9, -1, 2**32)
 
 
 @torch.no_grad()
@@ -67,16 +72,53 @@ def dropout(x, rate, seed, ids=None, index=None):
     element of an x of any shape by its flat index (the query id of batch row
     0 and head 0, key id 0), or by ``index``, an integer tensor of x's shape,
     where x is a slice of a larger tensor whose flat indices these are. The
-    kept values are scaled by fp32 1 / keep."""
+    kept values are scaled by fp32 1 / keep. With a ``RowSeed`` batch row j
+    is keyed as global row ``row0 + j``: through the seed with ``ids``,
+    through the flat index of x's whole rows (x's leading axis being the
+    batch's) without (``index`` is then the caller's to offset)."""
     if seed is None or rate <= 0:
         return x
     if ids is None:
+        base, row0 = seed_parts(seed)
         if index is None:
-            index = torch.arange(x.numel(), device=x.device)
-        keep = keep_mask(seed, rate, 1, 1, index.reshape(-1)).view(x.shape)
+            start = row0 * (x[0].numel() if x.ndim else 0)
+            index = torch.arange(start, start + x.numel(), device=x.device)
+        keep = keep_mask(base, rate, 1, 1, index.reshape(-1)).view(x.shape)
     else:
-        keep = keep_mask(seed, rate, x.shape[0], x.shape[1], *ids)
+        keep = keep_mask(kernel_seed(seed), rate, x.shape[0], x.shape[1], *ids)
     return torch.where(keep, x * keep_params(rate)[1], 0.0)
+
+
+@dataclass(frozen=True)
+class RowSeed:
+    """A dropout seed for a batch that is rows [row0, row0 + b) of a global
+    batch (a rank's share under data parallelism): every mask keys batch
+    row j as global row ``row0 + j``, so the rank drops what one process
+    running the global batch drops. A model's forward makes it from its
+    ``row0`` argument; ``split_seed`` passes the rows on to each layer."""
+
+    seed: int
+    row0: int
+
+
+def with_row0(seed, row0):
+    """``seed`` for a batch whose row 0 is global row ``row0``."""
+    return seed if seed is None or not row0 else RowSeed(int(seed), int(row0))
+
+
+def seed_parts(seed):
+    """(the int seed or None, the global row of the batch's row 0)."""
+    return (seed.seed, seed.row0) if isinstance(seed, RowSeed) else (seed, 0)
+
+
+def kernel_seed(seed):
+    """The int seed whose batch row j draws the mask that ``seed`` draws for
+    global row ``row0 + j`` (the masks keyed by batch row: the Sparse3DNA
+    kernels' and ``dropout``'s with ``ids``)."""
+    base, row0 = seed_parts(seed)
+    if base is None or row0 == 0:
+        return base
+    return (int(base) + row0 * _INV_GOLDEN) & _U32
 
 
 def split_seed(seed, n):
@@ -84,6 +126,8 @@ def split_seed(seed, n):
     without a seed; the sequence itself when one is given (an int or None a
     layer: the tests pass the seeds that JAX's split keys draw); else n ints
     in [0, 2**31 - 1) hashed from the one int and the layer's index."""
+    if isinstance(seed, RowSeed):
+        return [with_row0(s, seed.row0) for s in split_seed(seed.seed, n)]
     if seed is None:
         return [None] * n
     if isinstance(seed, (list, tuple)):
@@ -99,7 +143,10 @@ class Dense(nn.Module):
     ``quantize_()`` the weight becomes int8 with an fp32 scale per output
     channel (``w_scale``), both buffers, dequantised on the fly to the
     compute dtype as the JAX ``Dense`` does: a quantised Dense is for serving
-    only."""
+    only. A ``w`` split over the model axis (``parallel.shard_params``; a
+    quantised one with its ``w_scale``) runs column- or row-parallel
+    (``core.tp``) and gives the whole output; the bias is whole on every
+    rank and added after."""
 
     def __init__(self, din, dout, use_bias=False, dtype=None):
         super().__init__()
@@ -135,7 +182,11 @@ class Dense(nn.Module):
         w = self.w.to(dtype)
         if self.quantized:
             w = w * self.w_scale.to(dtype)
-        out = x.to(dtype) @ w
+        shard = shard_of(self.w)
+        if shard is None:
+            out = x.to(dtype) @ w
+        else:
+            out = (column if shard.dim == 1 else row)(x.to(dtype), w, shard)
         if self.b is not None:
             out = out + self.b.to(dtype)
         return out
@@ -145,7 +196,8 @@ class Embedding(nn.Module):
     """Token embedding. Under ``train=True`` only ``frac_gradient`` of the
     gradient reaches the table (the CogView stability trick); the value is
     unchanged. Scaling after the gather gives the table the same gradient as
-    the JAX package's scaling of the whole table, without a copy of it."""
+    the JAX package's scaling of the whole table, without a copy of it. A
+    table split along its features over the model axis gathers them."""
 
     def __init__(self, num_embeddings, dim, frac_gradient=1.0):
         super().__init__()
@@ -157,6 +209,9 @@ class Embedding(nn.Module):
 
     def forward(self, ids, *, train=False):
         out = self.table[ids]
+        shard = shard_of(self.table)
+        if shard is not None:
+            out = gathered_features(out, shard)
         if train and self.frac_gradient < 1.0:
             f = self.frac_gradient
             out = out * f + out.detach() * (1.0 - f)

@@ -13,7 +13,9 @@ what one incremental step needs:
     attends the F·Kn context rows of its spatial window (the bos token the
     whole context), in plain PyTorch;
   * token shift: a (b, T, dim) buffer of the layer's inputs, so the shifted
-    channels can be read from positions p - W and p - 1.
+    channels can be read from positions p - HW (the frame before, with
+    ``shift_time``), p - W and p - 1 (the token above and to the left, with
+    ``shift_space``).
 
 Positions are Python ints (PyTorch runs eagerly, so nothing is traced) and
 the caches are updated in place, which keeps one buffer per layer instead
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .core.tp import whole
 from .nda import Sparse3DNA, SparseCross2DNA, build_nda_indices
 from .ops.attention import Attention
 from .ops.feedforward import FeedForward
@@ -61,8 +64,8 @@ class _DenseSelfStep:
         cache["k"][:, :, pos] = k_i.reshape(b, h, dh)
         cache["v"][:, :, pos] = v_i.reshape(b, h, dh)
         q = mod.to_q(x_i).reshape(b, h, dh) * dh**-0.5
-        null_k = mod.null_k.to(q.dtype)[None, :, 0].expand(b, h, dh)
-        null_v = mod.null_v.to(q.dtype)[None, :, 0].expand(b, h, dh)
+        null_k = whole(mod.null_k).to(q.dtype)[None, :, 0].expand(b, h, dh)
+        null_v = whole(mod.null_v).to(q.dtype)[None, :, 0].expand(b, h, dh)
         # null and positions 0..pos: the JAX step's mask over the whole
         # buffer leaves exactly these
         keys = torch.cat([null_k[:, :, None], cache["k"][:, :, : pos + 1]], dim=2)
@@ -102,8 +105,8 @@ class _CrossAttnStep:
         mod = self.mod
         b = q.shape[0]
         shape = (b, mod.heads, 1, mod.dim_head)
-        keys = torch.cat([mod.null_k.to(q.dtype).expand(shape), cache["ck"]], dim=2)
-        vals = torch.cat([mod.null_v.to(q.dtype).expand(shape), cache["cv"]], dim=2)
+        keys = torch.cat([whole(mod.null_k).to(q.dtype).expand(shape), cache["ck"]], dim=2)
+        vals = torch.cat([whole(mod.null_v).to(q.dtype).expand(shape), cache["cv"]], dim=2)
         sim = torch.einsum("bhid,bhjd->bhij", q * mod.dim_head**-0.5, keys)
         kmask = torch.nn.functional.pad(cache["cmask"], (1, 0), value=True)
         sim = masked_fill(sim, ~kmask[:, None, None, :], max_neg_value(sim.dtype))
@@ -148,8 +151,8 @@ class _SparseCross2DNAStep:
         h, dh = mod.heads, mod.dim_head
         b = x_i.shape[0]
         q = mod.to_q(x_i).reshape(b, h, dh) * dh**-0.5
-        null_k = mod.null_k.to(q.dtype)[None, :, 0].expand(b, h, dh)
-        null_v = mod.null_v.to(q.dtype)[None, :, 0].expand(b, h, dh)
+        null_k = whole(mod.null_k).to(q.dtype)[None, :, 0].expand(b, h, dh)
+        null_v = whole(mod.null_v).to(q.dtype)[None, :, 0].expand(b, h, dh)
         sim_null = torch.einsum("bhd,bhd->bh", q, null_k)[..., None]
         if pos == 0:  # bos: the whole context, no talking heads
             keys, vals, ok = cache["ck"], cache["cv"], cache["cmask"]
@@ -277,16 +280,21 @@ class _ShiftVideoStep:
     def __call__(self, cache, x_i, pos):
         buf = cache["shift_buf"]
         buf[:, pos] = x_i
-        if pos > 0:  # bos passes unshifted
-            W = self.w.image_size
+        w = self.w
+        if pos > 0 and (w.shift_space or w.shift_time):  # bos passes unshifted
+            W = w.image_size
+            HW = W * W
             v = pos - 1  # video coordinate of this input position
-            # the first quarter of the channels comes from the row above
-            # (pos - W), the second from the token to the left (pos - 1)
-            sources = ((pos - W, (v % (W * W)) // W > 0), (pos - 1, v % W > 0))
+            # (source position, whether it is in the video) of each shifted
+            # chunk, in the order of ``shift_video_tokens``: the same token of
+            # the frame before, the token above, the token to the left
+            sources = ([(pos - HW, v // HW > 0)] if w.shift_time else []) + (
+                [(pos - W, (v % HW) // W > 0), (pos - 1, v % W > 0)] if w.shift_space else [])
+            chunks = 5 if w.shift_space and w.shift_time else 4 if w.shift_space else 3
             parts, offset = [], 0
-            for (src, ok), size in zip(sources, _torch_chunk_sizes(self.dim, 4)):
-                part = buf[:, src, offset : offset + size]
-                parts.append(part if ok else torch.zeros_like(part))
+            for (src, ok), size in zip(sources, _torch_chunk_sizes(self.dim, chunks)):
+                parts.append(buf[:, src, offset : offset + size] if ok
+                             else x_i.new_zeros(x_i.shape[0], size))
                 offset += size
             parts.append(x_i[:, offset:])
             x_i = torch.cat(parts, dim=-1)
@@ -294,7 +302,9 @@ class _ShiftVideoStep:
 
     def prefill(self, cache, x):
         cache["shift_buf"][:, : x.shape[1]] = x
-        return self.inner.prefill(cache, shift_video_tokens(x, self.w.image_size))
+        w = self.w
+        return self.inner.prefill(
+            cache, shift_video_tokens(x, w.image_size, w.shift_space, w.shift_time))
 
 
 class _SandwichStep:

@@ -8,7 +8,7 @@ of ``lax.scan``.
 Classifier-free guidance runs cond and uncond as one 2x batch: the caches,
 or each full forward, see the context mask ``[mask; zeros]``. The frame
 decoders take any model with NUWA's attribute names (``NUWA``,
-``NUWASketch``). Logits heads are read through ``utils.quantize.dequant``,
+``NUWASketch``). Logits heads are read through ``utils.quantize.head_logits``,
 so an int8 model samples the same way.
 """
 from __future__ import annotations
@@ -17,7 +17,8 @@ import torch
 
 from ..decode import TransformerDecoder
 from ..ops.sampling import gumbel_sample, top_k_filter
-from ..utils.quantize import dequant
+from ..core.tp import whole
+from ..utils.quantize import head_logits
 
 
 def cached_ar_rollout(*, dec, caches, embed_table, pos_emb, bos_vec, to_logits,
@@ -41,7 +42,7 @@ def cached_ar_rollout(*, dec, caches, embed_table, pos_emb, bos_vec, to_logits,
         if use_cfg:
             x_i = torch.cat([x_i, x_i], dim=0)
         y = dec.step(caches, x_i, i)
-        logits = y @ dequant(to_logits, y.dtype)
+        logits = head_logits(y, to_logits)
         if use_cfg:
             cond, uncond = logits[:batch], logits[batch:]
             logits = uncond + (cond - uncond) * cond_scale
@@ -62,7 +63,7 @@ def long_frame_decoder(model, window, ctx, cmask, pos_emb, *, generator,
     dec = TransformerDecoder(model.video_transformer, total_in=model.max_video_tokens)
     cache_dtype = model.dtype or torch.float32
     caches = dec.init_cache(2 * b if use_cfg else b, ctx, cmask, dtype=cache_dtype)
-    table = model.image_embedding.table
+    table = whole(model.image_embedding.table)
     emb = table[window[:, : W - 1]] + pos_emb[: W - 1][None]
     bos = model.video_bos.expand(b, 1, model.dim)
     x = torch.cat([bos, emb], dim=1)

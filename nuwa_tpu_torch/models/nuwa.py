@@ -26,14 +26,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.layers import Embedding, init_weights_, normal_, split_seed
+from ..core.layers import Embedding, init_weights_, normal_, split_seed, with_row0
+from ..core.tp import whole
 from ..decode import TransformerDecoder
 from ..ops.embeddings import AxialPositionalEmbedding, rotary_freqs
 from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
-from ..utils.quantize import dequant
+from ..utils.quantize import head_logits
 from .common import (cached_ar_rollout, full_ar_rollout, ids_to_output, long_frame_decoder,
                      long_frame_full)
 
@@ -45,16 +46,17 @@ def cross_entropy(logits, targets):
     return F.cross_entropy(logits.float().flatten(0, -2), targets.reshape(-1).long())
 
 
-def dropout_seeds(model, train, generator, n):
+def dropout_seeds(model, train, generator, n, row0=0):
     """The dropout seeds of a training forward's ``n`` stacks: one int drawn
     from ``generator`` (on its device) and ``n`` derived from it, as the JAX
     models split their key; None each when not training or when the model
-    drops nothing, so that no draw moves the generator then."""
+    drops nothing, so that no draw moves the generator then. With ``row0``
+    the batch's row 0 is that row of a global batch (``RowSeed``)."""
     if not train or (model.attn_dropout <= 0 and model.ff_dropout <= 0):
         return [None] * n
     device = generator.device if generator is not None else model.device
     seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device))
-    return split_seed(seed, n)
+    return [with_row0(s, row0) for s in split_seed(seed, n)]
 
 
 class NUWA(nn.Module):
@@ -183,10 +185,10 @@ class NUWA(nn.Module):
             emb = emb.to(self.dtype)
         out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask,
                                      seed=seed)
-        return out @ dequant(self.to_logits, out.dtype)
+        return head_logits(out, self.to_logits)
 
     def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
-                train=False, generator=None, uncond=None):
+                train=False, generator=None, uncond=None, row0=0):
         """Teacher-forced logits of a video given text ids, or with
         ``return_loss`` the mean cross-entropy of predicting each token from
         the ones before it (the input is shifted by one, so the decoder sees
@@ -199,12 +201,14 @@ class NUWA(nn.Module):
         drawn from ``generator``, or where ``uncond`` (b,) bool says so; with
         ``attn_dropout`` or ``ff_dropout`` it draws one dropout seed from
         ``generator`` too, and the text encoder's and the decoder's layers
-        take seeds derived from it.
+        take seeds derived from it. ``row0``: the batch is rows [row0, row0 +
+        b) of a global batch (a rank's share under data parallelism), and
+        the dropout masks key its rows as those global rows.
         """
         text = self._ids(text)
         b = text.shape[0]
         text_mask = text != 0
-        text_seed, dec_seed = dropout_seeds(self, train, generator, 2)
+        text_seed, dec_seed = dropout_seeds(self, train, generator, 2, row0)
         text_embeds = self.embed_text(text, text_mask, train=train, seed=text_seed)
         frame_indices = self._frame_indices(video, b)
         inp = frame_indices[:, :-1] if return_loss else frame_indices
@@ -252,7 +256,7 @@ class NUWA(nn.Module):
             2 * b if use_cfg else b, ctx, cmask, dtype=self.dtype or torch.float32
         )
         indices = cached_ar_rollout(
-            dec=dec, caches=caches, embed_table=self.image_embedding.table,
+            dec=dec, caches=caches, embed_table=whole(self.image_embedding.table),
             pos_emb=self.video_pos_emb(), bos_vec=self.video_bos,
             to_logits=self.to_logits, batch=b, total=total, dim=self.dim, dtype=self.dtype,
             **sampling,

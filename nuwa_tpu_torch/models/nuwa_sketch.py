@@ -31,13 +31,14 @@ import torch
 from torch import nn
 
 from ..core.layers import Embedding, init_weights_, normal_
+from ..core.tp import whole
 from ..decode import TransformerDecoder
 from ..ops.embeddings import AxialPositionalEmbedding
 from ..ops.sampling import prob_mask_like
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
-from ..utils.quantize import dequant
+from ..utils.quantize import head_logits
 from .common import (cached_ar_rollout, full_ar_rollout, ids_to_output, long_frame_decoder,
                      long_frame_full)
 from .nuwa import METHODS, cross_entropy, dropout_seeds
@@ -173,7 +174,7 @@ class NUWASketch(nn.Module):
             emb = emb.to(self.dtype)
         out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask,
                                      seed=seed)
-        return out @ dequant(self.to_logits, out.dtype)
+        return head_logits(out, self.to_logits)
 
     def forward(self, sketch, video, *, sketch_mask=None, return_loss=False,
                 cond_dropout_prob=0.2, train=False, generator=None, uncond=None):
@@ -224,7 +225,7 @@ class NUWASketch(nn.Module):
         dec = TransformerDecoder(self.video_transformer, total_in=total)
         caches = dec.init_cache(ctx.shape[0], ctx, cmask, dtype=self.dtype or torch.float32)
         return cached_ar_rollout(
-            dec=dec, caches=caches, embed_table=self.image_embedding.table,
+            dec=dec, caches=caches, embed_table=whole(self.image_embedding.table),
             pos_emb=self.video_pos_emb(), bos_vec=self.video_bos,
             to_logits=self.to_logits, batch=b, total=total, dim=self.dim,
             dtype=self.dtype, **sampling,

@@ -36,13 +36,14 @@ import torch
 from torch import nn
 
 from ..core.layers import Embedding, init_weights_, normal_
+from ..core.tp import whole
 from ..decode_dual import DualDecoderCache
 from ..dual_decoder import DualModalityDecoder, ReversibleDualModalityDecoder
 from ..ops.embeddings import AxialPositionalEmbedding, rotary_freqs
 from ..ops.sampling import gumbel_sample, prob_mask_like, top_k_filter
 from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
-from ..utils.quantize import dequant
+from ..utils.quantize import head_logits
 from ..vqgan_vae import VQGanVAE
 from .common import ar_decode_loop, ids_to_output
 from .nuwa import METHODS, cross_entropy, dropout_seeds
@@ -188,8 +189,7 @@ class NUWAVideoAudio(nn.Module):
         a = self._embed_audio_tokens(audio_inp, train)
         v, a = self.video_audio_transformer(v, a, context=text_embeds, context_mask=text_mask,
                                             seed=seed)
-        return (v @ dequant(self.to_video_logits, v.dtype),
-                a @ dequant(self.to_audio_logits, a.dtype))
+        return head_logits(v, self.to_video_logits), head_logits(a, self.to_audio_logits)
 
     def forward(self, text, video, audio, *, return_loss=False, cond_dropout_prob=0.2,
                 train=False, generator=None, uncond=None):
@@ -230,7 +230,7 @@ class NUWAVideoAudio(nn.Module):
     def _sampler(self, b, use_cfg, generator, filter_thres, temperature, cond_scale):
         """Logits of the (doubled under CFG) batch -> (b,) samples."""
         def sample(y, to_logits):
-            logits = y @ dequant(to_logits, y.dtype)
+            logits = head_logits(y, to_logits)
             if use_cfg:
                 cond, uncond = logits[:b], logits[b:]
                 logits = uncond + (cond - uncond) * cond_scale
@@ -253,7 +253,7 @@ class NUWAVideoAudio(nn.Module):
         0..n-1) and ``generate_long`` (one window-relative frame)."""
         vtpf, atpf = self.tokens_per_frame, self.audio_tokens_per_frame
         vpos_emb, apos_emb = self.video_pos_emb(), self.audio_pos_emb()
-        vtable, atable = self.image_embedding.table, self.audio_embedding.table
+        vtable, atable = whole(self.image_embedding.table), whole(self.audio_embedding.table)
         for f in frame_ids:
             for i in range(vtpf):
                 vp = f * vtpf + i

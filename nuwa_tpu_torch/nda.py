@@ -37,7 +37,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .core.layers import Dense, kaiming_uniform_, normal_
+from .core.layers import Dense, kaiming_uniform_, kernel_seed, normal_
+from .core.tp import whole
 from .kernels.cross import sparse_cross_2dna
 from .kernels.nda import sparse_3dna
 from .ops.attention import merge_heads, split_heads
@@ -155,7 +156,7 @@ class Sparse3DNA(nn.Module):
         out = sparse_3dna(
             q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
             fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
-            mode="causal" if self.causal else "centered", dropout=(self.dropout, seed),
+            mode="causal" if self.causal else "centered", dropout=(self.dropout, kernel_seed(seed)),
         )
         out = torch.cat([bos_v_out, out], dim=2)
         return self.to_out(merge_heads(out))
@@ -212,7 +213,7 @@ class SparseCausal2DNA(nn.Module):
         out = sparse_3dna(q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
                           fmap=(1, H), kernel=(self.kernel_size, 1, H),
                           dilation=(self.dilation, 1, 1), mode="audio",
-                          dropout=(self.dropout, seed))
+                          dropout=(self.dropout, kernel_seed(seed)))
         out = torch.cat([bos_v_out, out], dim=2)
         return self.to_out(merge_heads(out))
 
@@ -257,8 +258,8 @@ class SparseCross2DNA(nn.Module):
             context_mask = torch.ones(context.shape[:2], dtype=torch.bool, device=x.device)
         q = split_heads(self.to_q(x), h) * dh**-0.5
         k, v = (split_heads(t, h) for t in self.to_kv(context).chunk(2, dim=-1))
-        null_k = self.null_k.to(k.dtype).expand(b, h, 1, dh)
-        null_v = self.null_v.to(v.dtype).expand(b, h, 1, dh)
+        null_k = whole(self.null_k).to(k.dtype).expand(b, h, 1, dh)
+        null_v = whole(self.null_v).to(v.dtype).expand(b, h, 1, dh)
 
         # bos: full attention over [null, context]
         k_full, v_full = torch.cat([null_k, k], dim=2), torch.cat([null_v, v], dim=2)
@@ -272,7 +273,7 @@ class SparseCross2DNA(nn.Module):
             out_nb = sparse_cross_2dna(
                 q[:, :, 1:], k, v, null_k, null_v, self.talking_heads, context_mask,
                 fmap=self.image_size, kernel_size=self.kernel_size, dilation=self.dilation,
-                dropout=(self.dropout, seed),
+                dropout=(self.dropout, kernel_seed(seed)),
             )
             out = torch.cat([out, out_nb.to(out.dtype)], dim=2)
         return self.to_out(merge_heads(out))

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..core.layers import Dense, dropout, kaiming_uniform_, normal_
+from ..core.tp import whole
 from .embeddings import apply_rotary_pos_emb
 from .utils import masked_fill, max_neg_value, stable_softmax
 
@@ -82,8 +83,8 @@ class Attention(nn.Module):
         q, k, v = self._qkv(x, context, rotary_pos_emb)
 
         shape = (b, self.heads, 1, self.dim_head)
-        k = torch.cat([self.null_k.to(k.dtype).expand(shape), k], dim=2)
-        v = torch.cat([self.null_v.to(v.dtype).expand(shape), v], dim=2)
+        k = torch.cat([whole(self.null_k).to(k.dtype).expand(shape), k], dim=2)
+        v = torch.cat([whole(self.null_v).to(v.dtype).expand(shape), v], dim=2)
 
         sim = torch.einsum("bhid,bhjd->bhij", q * self.dim_head**-0.5, k)
 

@@ -5,14 +5,15 @@ its mask keyed by (seed, flat element index). With ``chunk_size`` a
 (b, chunk, inner) activations, and each chunk's mask is keyed by its
 elements' indices in the whole (b, n, inner) tensor, so chunked and
 unchunked training drop the same elements (the JAX package's per-chunk
-keys draw other bits; see ``core.layers.dropout``)."""
+keys draw other bits; see ``core.layers.dropout``), at the global rows of
+a ``core.layers.RowSeed``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.layers import Dense, dropout
+from ..core.layers import Dense, dropout, seed_parts
 
 
 def geglu(x):
@@ -47,7 +48,8 @@ class FeedForward(nn.Module):
             xc = x[:, start:start + c]
             index = None
             if seed is not None and self.dropout > 0:
-                rows = torch.arange(b, device=x.device)[:, None, None] * (n * inner)
+                row0 = seed_parts(seed)[1]
+                rows = torch.arange(row0, row0 + b, device=x.device)[:, None, None] * (n * inner)
                 cols = torch.arange(start, start + xc.shape[1], device=x.device)
                 index = rows + cols[None, :, None] * inner + torch.arange(
                     inner, device=x.device)

@@ -1,8 +1,8 @@
 """Token shift: roll channel slices down the height and width axes of the
 video, or one token along the audio sequence.
 
-Counterpart of ``nuwa_tpu/ops/shift.py``: video in its one used mode, the
-spatial shift (no caller of the JAX package sets ``shift_time``), and audio.
+Counterpart of ``nuwa_tpu/ops/shift.py``: video along height and width
+(``shift_space``) and along the frames (``shift_time``), and audio.
 """
 from __future__ import annotations
 
@@ -30,13 +30,20 @@ def _torch_chunk_sizes(dim: int, chunks: int):
 def _shift_axis(x, axis):
     """Shift by +1 along ``axis``: zeros in front, last entry dropped."""
     n = x.shape[axis]
+    if n == 0:  # no frame: bos alone
+        return x
     zeros = torch.zeros_like(x.narrow(axis, 0, 1))
     return torch.cat([zeros, x.narrow(axis, 0, n - 1)], dim=axis)
 
 
-def shift_video_tokens(x, image_size):
-    """Shift 1/4 of the channels down H and 1/4 along W within each frame,
-    keeping the leading bos token. x: (b, 1 + video tokens, d)."""
+def shift_video_tokens(x, image_size, shift_space=True, shift_time=False):
+    """Shift channel chunks of the video tokens by one along their axes,
+    keeping the leading bos token; x: (b, 1 + video tokens, d). The channels
+    split in ``torch.chunk`` sizes: with both flags five chunks (frame, h, w,
+    and two left as they are), with ``shift_space`` alone four (h, w, rest),
+    with ``shift_time`` alone three (frame, rest); neither flag returns x."""
+    if not shift_space and not shift_time:
+        return x
     img_seq_len = image_size * image_size
     x_bos, x_video = x[:, :1], x[:, 1:]
     b, n, d = x_video.shape
@@ -46,9 +53,12 @@ def shift_video_tokens(x, image_size):
     f = x_video.shape[1] // img_seq_len
     x_video = x_video.reshape(b, f, image_size, image_size, d)
 
-    parts = list(x_video.split(_torch_chunk_sizes(d, 4), dim=-1))
-    parts[0] = _shift_axis(parts[0], 2)  # down the height axis
-    parts[1] = _shift_axis(parts[1], 3)  # along the width axis
+    chunks = 5 if shift_space and shift_time else 4 if shift_space else 3
+    parts = list(x_video.split(_torch_chunk_sizes(d, chunks), dim=-1))
+    # (axis, chunk): frames first, then height and width
+    axes = ([1] if shift_time else []) + ([2, 3] if shift_space else [])
+    for i, axis in enumerate(axes):
+        parts[i] = _shift_axis(parts[i], axis)
     x_video = torch.cat(parts, dim=-1).reshape(b, f * img_seq_len, d)[:, :n]
     return torch.cat([x_bos, x_video], dim=1)
 

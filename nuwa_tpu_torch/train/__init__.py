@@ -1,7 +1,8 @@
 """Training: the optimizer, the host-side data pipeline, checkpoints, the
 EMA, ``NUWATrainer`` and ``VQGanVAETrainer``.
 
-Counterpart of ``nuwa_tpu/train`` on one device (no mesh).
+Counterpart of ``nuwa_tpu/train``: the trainers on one device or, with
+``mesh=``, data- and tensor-parallel (``nuwa_tpu_torch.parallel``).
 """
 from .checkpoint import latest_checkpoint, load_checkpoint, restore_latest, save_checkpoint
 from .data import (

@@ -11,6 +11,9 @@ as NUWASketch's frozen VAEs.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from ..core.tp import shard_of
 
 
 def weight_decay_mask(params):
@@ -38,9 +41,22 @@ def clip_by_global_norm_(params, max_norm):
     """Scale the gradients in place so that their global norm is at most
     ``max_norm``, as ``optax.clip_by_global_norm``: unchanged when the norm is
     below it, else ``g / norm * max_norm``. (``clip_grad_norm_`` divides by
-    ``norm + 1e-6`` instead.) Returns the norm before clipping."""
+    ``norm + 1e-6`` instead.) Returns the norm before clipping. Gradients of
+    parameters split over the model axis (``parallel.shard_params``) are
+    parts: their sum of squares is all-reduced over the axis, and each
+    replicated gradient counts once, so the norm is the whole model's."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    split = [p for p in params if p.grad is not None and shard_of(p) is not None]
+    if not split:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        def squares(gs):
+            return torch.stack([torch.linalg.vector_norm(g) for g in gs]).square().sum()
+
+        total = squares([p.grad for p in split])
+        dist.all_reduce(total, group=shard_of(split[0]).group)
+        whole = [p.grad for p in params if p.grad is not None and shard_of(p) is None]
+        norm = (total + squares(whole) if whole else total).sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

@@ -1,6 +1,7 @@
-"""VQGanVAETrainer: the codec's alternating GAN training on one device.
+"""VQGanVAETrainer: the codec's alternating GAN training, on one device or,
+with ``mesh=``, data-parallel over a ``torch.distributed`` mesh.
 
-Counterpart of ``nuwa_tpu/train/trainer_vqgan.py`` without a mesh. Each
+Counterpart of ``nuwa_tpu/train/trainer_vqgan.py``. Each
 step: a generator step over ``grad_accum_every`` microbatches (gradients
 summed, then divided by the count; each microbatch updates the codebook,
 the next quantises with it; the discriminator held constant), then a
@@ -31,6 +32,18 @@ the newest ``vae_trainstate`` of the folder, the port's or one the JAX
 trainer wrote (whose PRNG key is not in its file: the k-means and dead-code
 draws start again from ``seed``, as the JAX trainer's key does); the data
 order starts again from ``seed`` too.
+
+With ``mesh`` (``parallel.make_mesh``) every rank runs this trainer with
+the same arguments and keeps pjit's global-batch semantics: each reads the
+same windows and takes its rows of each microbatch (``batch_size``
+divisible by the 'data' axis); the codebook's statistics, k-means and
+dead-code picks are the global batch's (``VectorQuantizeEMA``'s
+``batch_group``), and so are the two gradients of the adaptive GAN weight;
+both optimizers step on gradients averaged over 'data'; the EMA runs on
+every rank. The TP rules split no parameter of the codec, its
+discriminator or the VGG16 (convolutions, norms, the quantizer's
+projections), so every rank holds the whole train state; rank 0 writes the
+grids and checkpoints.
 """
 from __future__ import annotations
 
@@ -39,8 +52,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import _tensors, jax_layout, load_vqgan_vae_train, port_layout
+from ..core.tp import shard_of
+from ..parallel.mesh import axis_size
+from ..parallel.sharding import all_reduce_grads_, all_reduce_mean, data_rows, shard_params
 from ..utils.image import save_image_grid
 from ..vqgan_vae import VQGanVAE
 from . import checkpoint
@@ -97,8 +114,10 @@ class VQGanVAETrainer:
         if not isinstance(vae, VQGanVAE):
             raise TypeError("vae must be a nuwa_tpu_torch VQGanVAE")
         if mesh is not None:
-            raise NotImplementedError("mesh= belongs to the parallel layouts, which the port "
-                                      "does not have yet")
+            dp = axis_size(mesh, "data")
+            assert batch_size % dp == 0, f"batch_size {batch_size} not divisible by data axis {dp}"
+        self.mesh = mesh
+        self.main = mesh is None or dist.get_rank() == 0  # prints and writes the files
         if resume and results_folder is None:
             raise ValueError("resume needs a results_folder")
         self.vae = vae
@@ -139,6 +158,11 @@ class VQGanVAETrainer:
 
         self.seed = seed
         self.gan = vae.gan_parts(seed=seed + 1)
+        if mesh is not None:
+            for module in (vae, self.gan):
+                if module is not None and any(shard_of(p) is not None for p in
+                                              shard_params(module, mesh).parameters()):
+                    raise NotImplementedError("the trainer keeps the codec whole on every rank")
         vgg = self.gan.vgg if self.gan is not None else None
         self.gen_params = list(vae.parameters()) + (list(vgg.parameters()) if vgg else [])
         self.gen_opt = get_optimizer(self.gen_params, lr=lr, wd=wd)
@@ -152,7 +176,7 @@ class VQGanVAETrainer:
         self.step = 0
         if resume:
             step = self.restore()
-            if step is not None:
+            if step is not None and self.main:
                 print(f"resumed from checkpoint at step {step}")
 
     # ---- the train state in the JAX trainer's tree -------------------------
@@ -210,11 +234,17 @@ class VQGanVAETrainer:
                 for name, t in self.ema.items()}
 
     def save(self, steps):
-        """Write ``vae_trainstate.<steps>.ckpt`` and ``vae_ema.<steps>.ckpt``."""
-        path = checkpoint.save_checkpoint(self.results_folder, CKPT_NAME, steps,
-                                          self.state_tree())
-        checkpoint.save_checkpoint(self.results_folder, EMA_NAME, steps,
-                                   checkpoint.tree_of(self._ema_items(prefix=())))
+        """Write ``vae_trainstate.<steps>.ckpt`` and ``vae_ema.<steps>.ckpt``
+        (rank 0 under a mesh, which returns the path there and None on the
+        other ranks)."""
+        path = None
+        if self.main:
+            path = checkpoint.save_checkpoint(self.results_folder, CKPT_NAME, steps,
+                                              self.state_tree())
+            checkpoint.save_checkpoint(self.results_folder, EMA_NAME, steps,
+                                       checkpoint.tree_of(self._ema_items(prefix=())))
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     @torch.no_grad()
@@ -298,18 +328,33 @@ class VQGanVAETrainer:
         opt.zero_grad(set_to_none=True)
 
     def _window(self):
-        return torch.as_tensor(next(self.dl), device=self.vae.device)
+        """The next window of microbatches, this rank's rows of each under a
+        mesh."""
+        images = torch.as_tensor(next(self.dl), device=self.vae.device)
+        if self.mesh is None:
+            return images
+        return images[:, data_rows(self.mesh, images.shape[1])]
+
+    def _reduced(self, params, loss_sum):
+        """Under a mesh, the gradients and the loss averaged over 'data'."""
+        if self.mesh is None:
+            return loss_sum
+        all_reduce_grads_(params, self.mesh)
+        return all_reduce_mean(loss_sum, self.mesh)
 
     def gen_step(self):
         """One generator step over an accumulation window; returns the mean
         loss (a device scalar)."""
         images = self._window()
+        group = self.mesh.get_group("data") if self.mesh is not None else None
         loss_sum = 0.0
         with _frozen(self.gan.discr if self.gan is not None else None):
             for img in images:
-                loss = self.vae(img, gan=self.gan, return_loss=True, generator=self.generator)
+                loss = self.vae(img, gan=self.gan, return_loss=True, generator=self.generator,
+                                batch_group=group)
                 loss.backward()
                 loss_sum = loss_sum + loss.detach()
+        loss_sum = self._reduced(self.gen_params, loss_sum)
         self._apply(self.gen_opt, self.gen_params, len(images))
         return loss_sum / len(images)
 
@@ -323,6 +368,7 @@ class VQGanVAETrainer:
                             apply_grad_penalty=apply_gp)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
+        loss_sum = self._reduced(self.discr_params, loss_sum)
         self._apply(self.discr_opt, self.discr_params, len(images))
         return loss_sum / len(images)
 
@@ -334,17 +380,17 @@ class VQGanVAETrainer:
         if self.gan is not None:
             apply_gp = steps % self.apply_grad_penalty_every == 0
             accum_log(logs, {"discr_loss": float(self.discr_step(apply_gp))})
-            print(f"{steps}: vae loss: {logs['loss']} - discr loss: {logs['discr_loss']}")
+            self._print(f"{steps}: vae loss: {logs['loss']} - discr loss: {logs['discr_loss']}")
         else:
-            print(f"{steps}: vae loss: {logs['loss']}")
+            self._print(f"{steps}: vae loss: {logs['loss']}")
         new_step = steps + 1
         ema_update(self.ema, self.vae.eval_params(), new_step, **self.ema_kw)
         if self.results_folder is not None:
-            if steps % self.save_results_every == 0:
+            if steps % self.save_results_every == 0 and self.main:
                 self._save_recon_grid(steps, logs)
             if steps % self.save_model_every == 0:
                 self.save(steps)
-                print(f"{steps}: saving model to {self.results_folder}")
+                self._print(f"{steps}: saving model to {self.results_folder}")
         self.step = new_step
         return logs
 
@@ -363,7 +409,11 @@ class VQGanVAETrainer:
             logs["reconstructions"] = pair
         print(f"{steps}: saving to {self.results_folder}")
 
+    def _print(self, *args):
+        if self.main:
+            print(*args)
+
     def train(self, log_fn=noop):
         while self.step < self.num_train_steps:
             log_fn(self.train_step())
-        print("training complete")
+        self._print("training complete")

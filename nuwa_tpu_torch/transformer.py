@@ -37,17 +37,22 @@ class Sandwich(nn.Module):
 
 
 class ShiftVideo(nn.Module):
-    """Token shift before the inner block. It owns no parameters of its own:
-    in the JAX params tree its inner block's parameters sit in its place
-    (``convert`` skips this level)."""
+    """Token shift before the inner block, along height and width
+    (``shift_space``) and along the frames (``shift_time``), with the JAX
+    module's defaults; the stacks build it with the defaults. It owns no
+    parameters of its own: in the JAX params tree its inner block's
+    parameters sit in its place (``convert`` skips this level)."""
 
-    def __init__(self, inner, image_size):
+    def __init__(self, inner, image_size, shift_space=True, shift_time=False):
         super().__init__()
         self.inner = inner
         self.image_size = image_size
+        self.shift_space = shift_space
+        self.shift_time = shift_time
 
     def forward(self, x, **kw):
-        return self.inner(shift_tokens(x, self.image_size), **kw)
+        x = shift_tokens(x, self.image_size, self.shift_space, self.shift_time)
+        return self.inner(x, **kw)
 
 
 class ShiftAudio(nn.Module):

@@ -5,7 +5,7 @@ the projection weights of every ``Dense`` (``to_q``, ``to_kv``, ``to_qkv``,
 ``to_out``, ``w_in``, ``w_out``, ``project_in``, ``project_out``) become
 int8 with an fp32 scale per output channel, and so do the bare logits heads
 (``to_logits``, ``to_video_logits``, ``to_audio_logits``), which the models
-read through ``dequant``. Norms, biases, embeddings, convolutions and the
+read through ``head_logits``. Norms, biases, embeddings, convolutions and the
 frozen VAEs stay in fp32. Weights are selected by the JAX package's path
 regexes, matched against each weight's path in the JAX params tree
 (``convert.jax_path``, '/'-joined), so the same weights are quantised, to
@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..core.layers import Dense
+from ..core.tp import column, shard_of
 
 # '/'-joined param paths whose {"w": (din, dout)} leaf gets quantized
 _QUANT_W_RE = re.compile(
@@ -62,6 +63,15 @@ def quantize_head_(owner: nn.Module, name: str):
     q, scale = _quantize_w(getattr(owner, name))
     delattr(owner, name)
     setattr(owner, name, Int8Weight(q, scale))
+
+
+def head_logits(x, head):
+    """``x @ head``: the logits of a head, parameter or ``Int8Weight``,
+    column-parallel when its output (vocabulary) axis is split over the
+    model axis (``core.tp``)."""
+    w = dequant(head, x.dtype)
+    shard = shard_of(head.w if isinstance(head, Int8Weight) else head)
+    return x @ w if shard is None else column(x, w, shard)
 
 
 def dequant(head, dtype=torch.float32):

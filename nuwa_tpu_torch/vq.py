@@ -15,10 +15,23 @@ writes them in place, where the JAX package returns a new state. The random
 draws (k-means' starting points, the vectors that re-seed dead codes) come
 from a ``torch.Generator`` (``draw``), not from ``jax.random``, so they are
 not the JAX package's bits; the tests inject JAX's draws through ``draw``.
+
+Across ranks an update takes one of two semantics. ``axis_name`` (a
+process group, or a one-axis device mesh such as ``mesh["data"]``) is the
+JAX package's ``shard_map`` one: the counts and sums are all-reduced over
+it, the k-means start is each rank's own, and the dead-code seeds are rank
+0's picks from its rows, broadcast. ``batch_group`` is pjit's global batch,
+which the data-parallel trainers use: x is this rank's equal share of a
+batch split in rank order over the group, the statistics are the global
+batch's, k-means runs on the gathered batch, and the dead-code picks are
+drawn over the global batch's rows (every rank draws the same indices and
+contributes the rows it holds), so every rank's codebook is the one
+process's.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -27,6 +40,19 @@ from .core.layers import Dense
 
 def l2norm(t, eps=1e-12):
     return t * torch.rsqrt((t * t).sum(dim=-1, keepdim=True) + eps)
+
+
+def _group(axis):
+    """The process group of ``axis``: a group, or a one-axis device mesh."""
+    if isinstance(axis, str):
+        raise TypeError(f"axis_name takes a process group or a one-axis device mesh, not the "
+                        f"name {axis!r}")
+    return axis.get_group() if hasattr(axis, "get_group") else axis
+
+
+def _all_reduce(x, group):
+    dist.all_reduce(x, group=group)
+    return x
 
 
 def _kmeans(data, means, num_clusters, iters):
@@ -101,13 +127,18 @@ class VectorQuantizeEMA(nn.Module):
         return torch.randint(high, (self.codebook_size,), generator=generator)
 
     @torch.no_grad()
-    def _update(self, zq, indices, generator):
+    def _update(self, zq, indices, generator, axis=None, batch=None):
         """The EMA of cluster sizes and sums, Laplace smoothing, and the
-        dead-code expiry, written into the buffers."""
+        dead-code expiry, written into the buffers; ``axis`` / ``batch``
+        the process group of ``forward``'s ``axis_name`` / ``batch_group``."""
         onehot = F.one_hot(indices, self.codebook_size).to(zq.dtype)
+        counts, sums = onehot.sum(0), onehot.T @ zq
+        group = axis if axis is not None else batch
+        if group is not None:
+            counts, sums = _all_reduce(counts, group), _all_reduce(sums, group)
         d = self.decay
-        cluster_size = self.cluster_size * d + onehot.sum(0) * (1 - d)
-        embed_avg = self.embed_avg * d + (onehot.T @ zq) * (1 - d)
+        cluster_size = self.cluster_size * d + counts * (1 - d)
+        embed_avg = self.embed_avg * d + sums * (1 - d)
         n = cluster_size.sum()
         smoothed = (cluster_size + self.eps) / (n + self.codebook_size * self.eps) * n
         embed = embed_avg / smoothed.clamp_min(1e-12)[:, None]
@@ -115,7 +146,18 @@ class VectorQuantizeEMA(nn.Module):
             embed = l2norm(embed)
         thr = self.threshold_ema_dead_code
         if thr > 0:
-            seeds = zq[self.draw(zq.shape[0], generator, "dead_code").to(zq.device)]
+            if batch is not None:  # picks over the global batch's rows
+                n = zq.shape[0]
+                start = dist.get_rank(batch) * n
+                pick = self.draw(n * dist.get_world_size(batch), generator,
+                                 "dead_code").to(zq.device) - start
+                mine = (pick >= 0) & (pick < n)
+                seeds = _all_reduce(torch.where(mine[:, None], zq[pick.clamp(0, n - 1)], 0.0),
+                                    batch)
+            else:
+                seeds = zq[self.draw(zq.shape[0], generator, "dead_code").to(zq.device)]
+                if axis is not None:  # rank 0's picks
+                    dist.broadcast(seeds, src=dist.get_global_rank(axis, 0), group=axis)
             dead = (cluster_size < thr)[:, None]
             embed = torch.where(dead, seeds, embed)
             embed_avg = torch.where(dead, seeds * thr, embed_avg)
@@ -124,20 +166,25 @@ class VectorQuantizeEMA(nn.Module):
         self.embed_avg.copy_(embed_avg)
         self.cluster_size.copy_(cluster_size)
 
-    def forward(self, x, *, update=False, generator=None, axis_name=None):
+    def forward(self, x, *, update=False, generator=None, axis_name=None, batch_group=None):
         """Quantize ``x`` (..., dim). Returns (quantized (..., dim), indices
         (...), commit loss). ``update=True`` runs the k-means init (first
-        call) and the EMA update on the buffers."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                "axis_name (the EMA statistics summed over a mesh axis) belongs to the "
-                "parallel layouts, which the port does not have yet")
+        call) and the EMA update on the buffers, over the ranks of
+        ``axis_name`` or ``batch_group`` (the module's docstring)."""
+        if axis_name is not None and batch_group is not None:
+            raise ValueError("axis_name and batch_group exclude each other")
+        axis = _group(axis_name) if axis_name is not None else None
+        batch = _group(batch_group) if batch_group is not None else None
         flat = x.reshape(-1, self.dim)
         z = self._project_in(flat)
         zq = l2norm(z) if self.cosine_sim else z
         if update and self.kmeans_init and not self.initted.item():
             with torch.no_grad():
                 data = zq.detach()
+                if batch is not None:  # the global batch, in rank order
+                    parts = [torch.empty_like(data) for _ in range(dist.get_world_size(batch))]
+                    dist.all_gather(parts, data.contiguous(), group=batch)
+                    data = torch.cat(parts)
                 start = data[self.draw(data.shape[0], generator, "kmeans").to(data.device)]
                 means = _kmeans(data, start, self.codebook_size, self.kmeans_iters)
                 if self.cosine_sim:
@@ -151,9 +198,9 @@ class VectorQuantizeEMA(nn.Module):
             if self.cosine_sim:
                 indices = (zq @ embed.T).argmax(dim=-1)
             else:
-                dist = ((z * z).sum(-1, keepdim=True) - 2 * z @ embed.T
+                distance = ((z * z).sum(-1, keepdim=True) - 2 * z @ embed.T
                         + (embed * embed).sum(-1)[None])
-                indices = dist.argmin(dim=-1)
+                indices = distance.argmin(dim=-1)
         codes = embed[indices]
         commit = self.commitment_weight * ((codes - z) ** 2).mean()
         if self.orthogonal_reg_weight > 0:
@@ -165,5 +212,5 @@ class VectorQuantizeEMA(nn.Module):
         # the straight-through output is taken from the codes before the update
         quantized = flat + (self._project_out(codes) - flat).detach()
         if update:
-            self._update(zq.detach(), indices, generator)
+            self._update(zq.detach(), indices, generator, axis, batch)
         return quantized.reshape(x.shape), indices.reshape(x.shape[:-1]), commit

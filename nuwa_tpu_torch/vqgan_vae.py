@@ -31,6 +31,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -39,7 +40,7 @@ from .core.layers import (
     upsample_bilinear,
 )
 from .ops.utils import batch_process, resolve_device, stable_softmax
-from .vq import VectorQuantizeEMA, l2norm
+from .vq import VectorQuantizeEMA, _group, l2norm
 
 PERCEPTUAL = ("vgg", "random_vgg", "none")
 
@@ -326,18 +327,23 @@ class VQGanVAE(nn.Module):
     def _decode_fmap(self, x):
         return self.dec["last"](self._decode_trunk(x))
 
-    def _quantize(self, img, update, generator):
+    def _quantize(self, img, update, generator, axis_name=None, batch_group=None):
         """Encode and quantize (fp32) channels-first pixels: (quantized fmap,
         indices (b, h' * w'), commit loss)."""
         x = self._encode_fmap(img).float()
         quant, indices, commit = self.vq(x.permute(0, 2, 3, 1), update=update,
-                                         generator=generator)
+                                         generator=generator, axis_name=axis_name,
+                                         batch_group=batch_group)
         return quant.permute(0, 3, 1, 2), indices.reshape(x.shape[0], -1), commit
 
-    def encode(self, img):
+    def encode(self, img, *, update_vq=False, generator=None, axis_name=None,
+               batch_group=None):
         """img (b, c, h, w) -> (quantized fmap (b, c', h', w'), indices
-        (b, h' * w'), commit loss). The quantizer runs in fp32."""
-        return self._quantize(torch.as_tensor(img, device=self.device), False, None)
+        (b, h' * w'), commit loss). The quantizer runs in fp32; with
+        ``update_vq`` it updates the codebook (draws from ``generator``),
+        over the ranks of ``axis_name`` or ``batch_group`` (``vq``)."""
+        return self._quantize(torch.as_tensor(img, device=self.device), update_vq, generator,
+                              axis_name, batch_group)
     def decode(self, fmap):
         """fmap (b, c', h', w') -> pixels (b, c, h, w) in fp32."""
         return self._decode_fmap(fmap).float()
@@ -390,11 +396,13 @@ class VQGanVAE(nn.Module):
             x = x.to(self.dtype)
         return gan.discr(x).float()
 
-    def _adaptive_weight(self, gan, img, trunk, gen_loss_fn):
+    def _adaptive_weight(self, gan, img, trunk, gen_loss_fn, batch_group=None):
         """‖∂perceptual/∂w‖ / (‖∂gen/∂w‖ + 1e-6), capped, where w is the
         decoder's last conv weight (not its bias): both gradients taken
         through that conv alone, re-run on the trunk held constant, as the
-        JAX package does. 0 without a perceptual net."""
+        JAX package does. 0 without a perceptual net. With ``batch_group``
+        (this rank's rows of a global batch) both gradients are averaged
+        over the group first: pjit's gradients of the global batch."""
         w = self.dec["last"].w
         trunk, img = trunk.detach(), img.detach()
         with torch.enable_grad():
@@ -404,12 +412,17 @@ class VQGanVAE(nn.Module):
             (g_perc,) = torch.autograd.grad(perceptual, w)
             gen = gen_loss_fn(self._logits(gan, self.dec["last"](trunk).float()))
             (g_gen,) = torch.autograd.grad(gen, w)
+        if batch_group is not None:
+            group = _group(batch_group)
+            pair = torch.stack([g_perc, g_gen])
+            dist.all_reduce(pair, group=group)
+            g_perc, g_gen = pair / dist.get_world_size(group)
         weight = g_perc.norm() / (g_gen.norm() + 1e-6)
         return weight.clamp(max=self.adaptive_weight_cap).detach()
 
     def forward(self, img, *, gan=None, return_loss=False, return_discr_loss=False,
                 return_recons=False, apply_grad_penalty=False, update_vq=None,
-                generator=None):
+                generator=None, axis_name=None, batch_group=None):
         """The JAX package's ``forward`` modes; img (b, c, h, w).
 
         Returns the reconstruction (fp32); with ``return_loss`` the generator
@@ -421,7 +434,9 @@ class VQGanVAE(nn.Module):
         graph), plus the gradient penalty in fp32 with
         ``apply_grad_penalty``. ``return_recons`` adds the reconstruction
         after the loss. The JAX package also returns the new codebook state:
-        here it is in the quantizer's buffers."""
+        here it is in the quantizer's buffers. ``axis_name`` and
+        ``batch_group`` are the quantizer's (``vq``); ``batch_group`` also
+        takes the adaptive GAN weight's gradients over the global batch."""
         img = torch.as_tensor(img, device=self.device)
         if img.shape[1] != self.channels or img.shape[-2:] != (self.image_size,) * 2:
             raise ValueError(f"expected (b, {self.channels}, {self.image_size}, "
@@ -430,7 +445,7 @@ class VQGanVAE(nn.Module):
             raise ValueError("return_loss and return_discr_loss exclude each other")
         update_vq = return_loss if update_vq is None else update_vq
         with torch.set_grad_enabled(torch.is_grad_enabled() and not return_discr_loss):
-            quant, _, commit = self._quantize(img, update_vq, generator)
+            quant, _, commit = self._quantize(img, update_vq, generator, axis_name, batch_group)
             if self.dtype is not None:
                 quant = quant.to(self.dtype)
             trunk = self._decode_trunk(quant)
@@ -455,6 +470,6 @@ class VQGanVAE(nn.Module):
             perceptual = self._perceptual_loss(gan, img, recon)
             if perceptual is not None:
                 loss = loss + perceptual
-            weight = self._adaptive_weight(gan, img, trunk, gen_loss_fn)
+            weight = self._adaptive_weight(gan, img, trunk, gen_loss_fn, batch_group)
             loss = loss + commit + weight * gen_loss_fn(self._logits(gan, recon))
         return (loss, recon) if return_recons else loss

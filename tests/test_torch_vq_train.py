@@ -143,8 +143,11 @@ def test_codebook_usage_matches_jax():
 
 
 def test_axis_name_is_refused():
+    """A bare axis name means nothing without the mesh: ``axis_name`` takes
+    a process group or a one-axis device mesh (tests/test_torch_parallel_vq.py
+    runs them)."""
     tvq = VectorQuantizeEMA(dim=8, codebook_size=16)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="process group"):
         tvq(torch.zeros(2, 8), update=True, axis_name="data")
 
 

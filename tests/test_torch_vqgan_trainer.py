@@ -177,7 +177,7 @@ def test_port_resumes_a_jax_checkpoint_with_the_resumed_jax_losses(tmp_path):
 def test_refused_options(tmp_path):
     vae = VQGanVAE(**CFG, device="cpu")
     kw = dict(KW, dataset=_images())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="make_mesh"):  # a mesh is make_mesh's
         VQGanVAETrainer(vae, mesh=object(), **kw)
     with pytest.raises(ValueError, match="results_folder"):
         VQGanVAETrainer(vae, resume=True, **kw)
