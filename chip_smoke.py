@@ -183,6 +183,18 @@ Phases, each of which exits non-zero on failure:
    its four ``shift_space`` / ``shift_time`` settings against the CPU. The
    group is destroyed at the end. Several ranks on one card are not
    possible over NCCL: the multi-rank arithmetic is held by the CPU tests.
+19. context parallelism, after phase 18: (a) B1-B3 over the query window
+   of each virtual shard at context 2 and 4 (the key buffer the shard's
+   frames and its lookback halo, ``q_lo`` and ``tok0``; the last shard
+   ragged, at dilation 2 and context 4 a halo of 3 ranks) at the fmap-32
+   and fmap-16 training shapes, dilations 1 and 2, fp32 and bf16, with and
+   without dropout 0.1, against their windowed plain versions; (b) in fp32
+   the shards' outputs reassembled (halo gradients added to their owners)
+   against one unsharded launch of each kernel, the dropout masks equal;
+   each shard's B1-B3 timed at fmap 32, dilation 2, bf16, beside the
+   unsharded time; (c) NUWATrainer(context_parallel=True) at 128 px on a
+   one-rank NCCL mesh, 2 steps against 2 unmeshed in turns: losses and
+   parameters bit-equal, each step's launches checked.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -349,7 +361,8 @@ def cross_tiles_text(kcross, q, lc, kw, names=("cross_fwd", "cross_bwd_q", "cros
         plan_text(which, kcross.launch_plan(q, lc, which=which, **geometry)) for which in names)
 
 
-def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="causal"):
+def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="causal",
+               keys=None, q_lo=0):
     """{kernel: (least time, what bounds it)} for the work this input needs:
     each input read once, each output written once; operations (multiply and
     add counted apart) for the valid (query, neighbour) pairs of this
@@ -357,27 +370,32 @@ def nda_bounds(knda, b, t, dil, dtype, bias, fmap=FMAP, kernel=KERNEL, mode="cau
     included. "bwd" is the whole backward as a function (q, k, v, g, bos,
     lse in; dq, dk, dv, the bos and parameter cotangents out), with no dS or
     mix between its two kernels. ``dil``: one dilation for every axis, or
-    the per-axis triple."""
+    the per-axis triple. A query window: the t queries are tokens [q_lo,
+    q_lo + t) of ``keys`` keys (t by default)."""
     h, d, kn = HEADS, DIM_HEAD, kernel[0] * kernel[1] * kernel[2]
+    keys = t if keys is None else keys
     es = torch.finfo(dtype).bits // 8
-    row, bos, lse = b * h * t * d * es, b * h * d * es, b * h * t * 4
+    row, key_row = b * h * t * d * es, b * h * keys * d * es
+    bos, lse = b * h * d * es, b * h * t * 4
     params = h * h * 4 + (h * kn * 4 if bias else 0)
     slots = 2 * b * h * t * (kn + 1) * 4  # dS and mix, fp32
     dilation = dil if isinstance(dil, tuple) else (dil,) * 3
-    pairs = b * h * (knda.valid_pairs(t, fmap, kernel, dilation, mode) + t)
+    pairs = b * h * (knda.valid_pairs(keys, fmap, kernel, dilation, mode, q_lo, t) + t)
     mixes = b * t * (kn + 1) * 2 * h * h  # one (h x h) head mix of every slot
     # scores, dA and dq, the bos sums, the mixes of dP and P and the dth sum
     ops_q = pairs * 6 * d + b * t * h * 4 * d + 3 * mixes
     ops_kv = (pairs - b * h * t) * 4 * d  # dK and dV over the neighbour slots
     return {
         # q, k, v, bos in; out, lse out: scores and PV, the mix
-        "fwd": bound_ms(4 * row + 2 * bos + params + lse, pairs * 4 * d + mixes, dtype),
+        "fwd": bound_ms(2 * row + 2 * key_row + 2 * bos + params + lse, pairs * 4 * d + mixes,
+                        dtype),
         # q, k, v, g, bos, lse in; dq, dS, mix, the sums out
-        "bwd_q": bound_ms(5 * row + 2 * bos + 2 * params + lse + slots + 2 * b * h * d * 4,
-                          ops_q, dtype),
+        "bwd_q": bound_ms(3 * row + 2 * key_row + 2 * bos + 2 * params + lse + slots
+                          + 2 * b * h * d * 4, ops_q, dtype),
         # q, g, dS, mix in; dk, dv out
-        "bwd_kv": bound_ms(4 * row + slots, ops_kv, dtype),
-        "bwd": bound_ms(7 * row + 4 * bos + 2 * params + lse, ops_q + ops_kv, dtype),
+        "bwd_kv": bound_ms(2 * row + 2 * key_row + slots, ops_kv, dtype),
+        "bwd": bound_ms(3 * row + 4 * key_row + 4 * bos + 2 * params + lse, ops_q + ops_kv,
+                        dtype),
     }
 
 
@@ -3708,6 +3726,252 @@ def mesh_phase(NUWA, VQGanVAE, NUWATrainer, VQGanVAETrainer, tokenizer, knda, ta
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# 19. context parallelism: the kernels' query window and the CP trainer
+# ---------------------------------------------------------------------------
+
+# the 128-px and fmap-16 training shapes (b = 2, kernel (5, 3, 3), bias);
+# at context 4, dilation 2 looks 8 frames back, past 3 ranks' 3 frames
+CP_SHAPES = {"fmap 32": ((FMAP128, FMAP128), T128), "fmap 16": (TRAIN_FMAP, TRAIN_T)}
+CP_CONTEXTS, CP_DILATIONS, CP_STEPS = (2, 4), (1, 2), 2
+CP_RUNS = ((torch.float32, 0.0), (torch.bfloat16, 0.0), (torch.float32, DROP_RATE),
+           (torch.bfloat16, DROP_RATE))
+# the outputs of the three kernels in order: the forward's, B2's, B3's
+CP_NAMES = ("out", "lse", *BWD_NAMES)
+CP_KERNEL_OF = {"out": "fwd", "lse": "fwd", "dk": "bwd_kv", "dv": "bwd_kv"}
+
+
+def cp_layout(t, fmap, size, dil):
+    """Each virtual rank's ((lo, hi), (k_lo, k_hi)) of a causal layer with
+    the training kernel at ``dil``: its queries and its key buffer."""
+    from nuwa_tpu_torch.parallel.context_parallel import shard_layout
+
+    return shard_layout(t, fmap[0] * fmap[1], size, (TRAIN_KERNEL[0] - 1) * dil, 0)[1]
+
+
+def shard_args(args, g, kw, lo, hi, k_lo, k_hi):
+    """One shard's kernel arguments: its queries over its key buffer, its
+    cotangent rows, the forward's and query side's keywords (the window and
+    tok0) and the key side's (the window and the keys)."""
+    q, k, v, *rest = args
+    a = (q[:, :, lo:hi], k[:, :, k_lo:k_hi], v[:, :, k_lo:k_hi], *rest)
+    return (a, g[:, :, lo:hi], dict(kw, q_lo=lo - k_lo, tok0=k_lo),
+            dict(kw, q_lo=lo - k_lo, t=k_hi - k_lo))
+
+
+def kernel_chain(knda, a, g, win, kv_win):
+    """The forward, query-side and key-side kernels in a row: CP_NAMES."""
+    out, lse = knda.sparse_3dna_fwd(*a, **win)
+    bq = knda.sparse_3dna_bwd_q(*a, g, lse, **win)
+    return (out, lse, *bq, *knda.sparse_3dna_bwd_kv(a[0], g, *bq[1:3], **kv_win))
+
+
+def reassembled(parts, b, t):
+    """The shards' outputs (CP_NAMES each) as the whole sequence's: the
+    per-query ones concatenated, the sums over queries summed, each key's
+    dk and dv summed over the buffers that hold it (its owner's and the
+    halos')."""
+    whole = {}
+    for i, name in enumerate(CP_NAMES):
+        xs = [p[i] for _, p in parts]
+        if name in ("dk", "dv"):
+            acc = xs[0].new_zeros(b, HEADS, t, DIM_HEAD)
+            for ((_, _, k_lo, k_hi), _), x in zip(parts, xs):
+                acc[:, :, k_lo:k_hi] += x
+            whole[name] = acc
+        elif name in ("dk_bos", "dv_bos", "dth", "dbias"):
+            whole[name] = torch.stack(xs).sum(0)
+        else:
+            whole[name] = torch.cat(xs, dim=2)
+    return whole
+
+
+def cp_kernels(knda):
+    """(a) B1-B3 over each virtual shard's query window (its own tokens
+    over a key buffer that adds its lookback halo, ``q_lo`` and ``tok0``)
+    against their windowed plain versions, at context 2 and 4 (the last
+    shard ragged; at context 4 and dilation 2 the halo spans 3 ranks), the
+    fmap-32 and fmap-16 training shapes, dilations 1 and 2, fp32 and bf16,
+    with and without dropout 0.1: errors over each reference's max abs as
+    check_nda_cases holds them. (b) In fp32 the shards' kernel outputs
+    reassembled (reassembled) against one unsharded launch of each kernel:
+    every output within fp32's tolerance of its max abs, and with dropout
+    the dropped pairs (mix == 0) equal. Returns the largest absolute error
+    of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 95)
+    worst_abs = dict.fromkeys(("fwd", "bwd_q", "bwd_kv"), 0.0)
+    worst_rel, worst_whole, shards, masks = {}, 0.0, 0, 0
+    for (shape, (fmap, t)), dil, (dtype, rate) in itertools.product(
+            CP_SHAPES.items(), CP_DILATIONS, CP_RUNS):
+        args, g = nda_inputs(TRAIN_BATCH, t, dtype, True, gen, TRAIN_KERNEL)
+        kw = dict(fmap=fmap, kernel=TRAIN_KERNEL, dilation=(dil,) * 3,
+                  dropout=(rate, SEED + 96) if rate else None)
+        whole = (dict(zip(CP_NAMES, kernel_chain(knda, args, g, kw, kw)))
+                 if dtype == torch.float32 else None)
+        for size in CP_CONTEXTS:
+            parts = []
+            for (lo, hi), (k_lo, k_hi) in cp_layout(t, fmap, size, dil):
+                a, gs, win, kv_win = shard_args(args, g, kw, lo, hi, k_lo, k_hi)
+                out, lse = knda.sparse_3dna_fwd(*a, **win)
+                ref, ref_lse = knda.sparse_3dna_fwd_plain(*a, **win)
+                got = knda.sparse_3dna_bwd_q(*a, gs, ref_lse, **win)
+                want = knda.sparse_3dna_bwd_q_plain(*a, gs, ref_lse, **win)
+                got += knda.sparse_3dna_bwd_kv(a[0], gs, *want[1:3], **kv_win)
+                want += knda.sparse_3dna_bwd_kv_plain(a[0], gs, *want[1:3], **kv_win)
+                for name, x, w in zip(CP_NAMES, (out, lse, *got), (ref, ref_lse, *want)):
+                    err = (x.float() - w.float()).abs().max().item()
+                    rel = err / max(1.0, w.float().abs().max().item())
+                    tol = TOL[dtype if name in ROUNDED else torch.float32]
+                    if x.shape != w.shape or not rel <= tol:
+                        fail(f"windowed {name} {shape} dilation {dil} {dtype} rate {rate} "
+                             f"context {size} shard [{lo}, {hi}) keys [{k_lo}, {k_hi}): "
+                             f"{tuple(x.shape)} against {tuple(w.shape)}, error {rel} of the "
+                             f"max abs > {tol}")
+                    kname = CP_KERNEL_OF.get(name, "bwd_q")
+                    worst_abs[kname] = max(worst_abs[kname], err)
+                    key = (kname, dtype, name in ROUNDED)
+                    worst_rel[key] = max(worst_rel.get(key, 0.0), rel)
+                shards += 1
+                if whole is not None:
+                    parts.append(((lo, hi, k_lo, k_hi), kernel_chain(knda, a, gs, win, kv_win)))
+            if whole is None:
+                continue
+            got = reassembled(parts, TRAIN_BATCH, t)
+            for name in CP_NAMES:
+                w = whole[name]
+                rel = ((got[name] - w).abs().max() / w.abs().max().clamp(min=1.0)).item()
+                if not rel <= TOL[torch.float32]:
+                    fail(f"reassembled {name} {shape} dilation {dil} rate {rate} context "
+                         f"{size}: error {rel} of the max abs against the unsharded launch")
+                worst_whole = max(worst_whole, rel)
+            if rate:
+                if not torch.equal(got["mix"] == 0, whole["mix"] == 0):
+                    fail(f"{shape} dilation {dil} context {size}: the shards' dropout masks "
+                         "are not the unsharded launch's")
+                masks += 1
+        del args, g, whole
+    torch.cuda.synchronize()
+    for (kname, dtype, rounded), rel in sorted(worst_rel.items(), key=str):
+        which = f"outputs in {dtype}" if rounded else "fp32 outputs"
+        print(f"windowed sparse_3dna_{kname} vs its windowed plain version, {dtype} inputs, "
+              f"{which}: max error {rel:.3e} of the reference's max abs (tolerance "
+              f"{TOL[dtype if rounded else torch.float32]:.0e})", flush=True)
+    print(f"query windows: {shards} shards (contexts {CP_CONTEXTS}, {list(CP_SHAPES)}, "
+          f"dilations {CP_DILATIONS}, fp32 and bf16, dropout 0 and {DROP_RATE}); fp32 "
+          f"shards reassembled against one unsharded launch of each kernel: max error "
+          f"{worst_whole:.3e} of the max abs (tolerance {TOL[torch.float32]:.0e}), the "
+          f"dropout masks equal in {masks} of {masks} runs", flush=True)
+    return worst_abs
+
+
+def time_cp_kernels(knda, rb_rows):
+    """B1-B3 of each shard at context 2 and 4 at the fmap-32 training
+    shape, dilation 2, bf16 (CUDA-graph replay, device_ms), each beside the
+    unsharded kernel's time (``rb_rows``) and its own bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 97)
+    fmap, t = CP_SHAPES["fmap 32"]
+    dil, dtype = 2, torch.bfloat16
+    args, g = nda_inputs(TRAIN_BATCH, t, dtype, True, gen, TRAIN_KERNEL)
+    kw = dict(fmap=fmap, kernel=TRAIN_KERNEL, dilation=(dil,) * 3)
+    whole = {r["name"]: r["ms"] for r in rb_rows if r["dilation"] == dil}
+    rows = []
+    for size in CP_CONTEXTS:
+        for rank, ((lo, hi), (k_lo, k_hi)) in enumerate(cp_layout(t, fmap, size, dil)):
+            a, gs, win, kv_win = shard_args(args, g, kw, lo, hi, k_lo, k_hi)
+            _, lse = knda.sparse_3dna_fwd(*a, **win)
+            _, ds, mix, *_ = knda.sparse_3dna_bwd_q(*a, gs, lse, **win)
+            bounds = nda_bounds(knda, TRAIN_BATCH, hi - lo, dil, dtype, True, fmap, TRAIN_KERNEL,
+                                keys=k_hi - k_lo, q_lo=lo - k_lo)
+            for name, call in (
+                ("fwd", lambda: knda.sparse_3dna_fwd(*a, **win)),
+                ("bwd_q", lambda: knda.sparse_3dna_bwd_q(*a, gs, lse, **win)),
+                ("bwd_kv", lambda: knda.sparse_3dna_bwd_kv(a[0], gs, ds, mix, **kv_win)),
+            ):
+                ms = device_ms(call)
+                bound, by = bounds[name]
+                rows.append(dict(name=name, context=size, rank=rank, queries=hi - lo,
+                                 keys=k_hi - k_lo, ms=ms, bound_ms=bound, bound_by=by,
+                                 of_unsharded=ms / whole[name]))
+                print(f"sparse_3dna_{name} bf16 context {size} rank {rank}: {hi - lo} queries "
+                      f"over {k_hi - k_lo} keys, {ms:.4f} ms (device) against the unsharded "
+                      f"{whole[name]:.4f} ms ({ms / whole[name]:.3f} of it), bound "
+                      f"{bound:.5f} ms ({by})", flush=True)
+    return rows
+
+
+def cp_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
+    """NUWATrainer(context_parallel=True) at 128 px (train_128's model and
+    batch, bf16) on a one-rank NCCL group's make_mesh(data=1, model=1), the
+    frames over 'data', against the unmeshed trainer on a copy of one seeded
+    model, CP_STEPS steps each in turns (the step-0 sample left out), each
+    step's launches checked: the losses and the parameters bit-equal.
+    Returns the meshed steps' launches."""
+    import copy
+
+    import torch.distributed as dist
+
+    from nuwa_tpu_torch.parallel import make_mesh
+
+    depth = NUWA128["dec_depth"]
+    per_step = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth}
+    text = nuwa128_text(tokenizer, NUWA128_BATCH).numpy()
+    video = moving_squares(NUWA128_BATCH, NUWA128["max_video_frames"], SIZE128,
+                           np.random.default_rng(SEED + 98))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(data=1, model=1, device="cuda")
+        model = nuwa128_model(NUWA, VQGanVAE)
+        runs, launches = {}, collections.Counter()
+        for label, m in (("unmeshed", None), ("context parallel", mesh)):
+            t = NUWATrainer(nuwa=copy.deepcopy(model), dataset=list(zip(text, video)),
+                            num_train_steps=10**9, lr=3e-4, wd=0.01, batch_size=NUWA128_BATCH,
+                            grad_accum_every=1, max_grad_norm=0.5, cond_dropout_prob=0.2,
+                            seed=SEED, mesh=m, context_parallel=m is not None)
+            t._sample = lambda *a: None
+            runs[label] = (t, [], [])
+        del model
+        for i in range(CP_STEPS):
+            for label in ("unmeshed", "context parallel")[::1 if i % 2 == 0 else -1]:
+                t, losses, ms = runs[label]
+                logs, step_ms, got = counted(f"128 px {label} train step {i}", knda, tally,
+                                             t.train_step, per_step)
+                losses.append(logs["loss"])
+                ms.append(step_ms)
+                if t.mesh is not None:
+                    launches.update(got)
+        (plain, want, plain_ms), (cp, losses, ms) = runs["unmeshed"], runs["context parallel"]
+        equal = losses == want and all(torch.equal(a, b) for a, b in zip(
+            cp.nuwa.parameters(), plain.nuwa.parameters(), strict=True))
+        print(f"128 px NUWATrainer(context_parallel=True), mesh (data 1, model 1) over NCCL, "
+              f"{CP_STEPS} steps in turns: losses {', '.join(f'{x:.6f}' for x in losses)} "
+              f"against {', '.join(f'{x:.6f}' for x in want)} unmeshed, parameters "
+              f"{'bit-equal' if equal else 'NOT bit-equal'}; step ms "
+              f"{', '.join(f'{x:.1f}' for x in ms)} against "
+              f"{', '.join(f'{x:.1f}' for x in plain_ms)}", flush=True)
+        if not equal:
+            fail("the context-parallel trainer at one rank is not the unmeshed one bit for bit")
+        del runs, plain, cp
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def cp_phase(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, rb_rows):
+    """Phase 19: the query window of B1-B3 (cp_kernels, time_cp_kernels) and
+    the context-parallel trainer at one rank (cp_train_128). Returns (each
+    kernel's largest error, the timed shards, the trainer's launches)."""
+    start = time.perf_counter()
+    errs = cp_kernels(knda)
+    rows = time_cp_kernels(knda, rb_rows)
+    print(f"  (the windows: {time.perf_counter() - start:.1f} s into the phase)", flush=True)
+    launches = cp_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally)
+    print(f"  (the trainers: {time.perf_counter() - start:.1f} s into the phase)", flush=True)
+    return errs, rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -3830,6 +4094,9 @@ def main():
     mesh_phase(NUWA, VQGanVAE, NUWATrainer, VQGanVAETrainer, tokenizer, knda, surface, model,
                texts)
     phase("mesh (NCCL, world size 1), tooling and the token shift along time")
+    cp_errs, cp_rows, cp_launches = cp_phase(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda,
+                                             surface, rb_rows)
+    phase("context parallelism: the query window and the CP trainer")
     del model, sketch, short
     torch.cuda.empty_cache()
     train_codec(VQGanVAE, VQGanVAETrainer, knda)
@@ -3897,6 +4164,16 @@ def main():
             entries[-1]["backward_bound_ms"] = row["backward_bound_ms"]
             entries[-1]["fmap_32"]["backward_bound_ms"] = rb_row["backward_bound_ms"]
             entries[-1]["centered"]["backward_bound_ms"] = c_row["backward_bound_ms"]
+        # phase 19: the CP trainer's launches (counted in "launches" too), the
+        # windowed kernel against its windowed plain version, each shard's
+        # time at the fmap-32 shape, dilation 2, beside the unsharded one
+        entries[-1]["context_parallel"] = {
+            "launches": cp_launches[name], "max_abs_err": cp_errs[name],
+            "unsharded_ms": rb_row["ms"],
+            "shards": [{k: r[k] for k in ("context", "rank", "queries", "keys", "ms", "bound_ms",
+                                          "bound_by", "of_unsharded")}
+                       for r in cp_rows if r["name"] == name],
+        }
     # the audio geometry of SparseCausal2DNA (TPU kernels 1-3 through
     # _audio_core_op, 4-6 through _audio_rb_core_op): the forward at the
     # depth-64 forward's shape (H = 4) and, under "at_h1", the generate_long

@@ -177,9 +177,12 @@ class Dense(nn.Module):
             self.w_scale = scale
         return self
 
-    def forward(self, x):
+    def forward(self, x, w=None):
+        """``w``: a tensor to read in place of the weight, split as it is
+        (context parallelism passes one whose gradient is summed over the
+        frame axis)."""
         dtype = self.dtype or x.dtype
-        w = self.w.to(dtype)
+        w = (self.w if w is None else w).to(dtype)
         if self.quantized:
             w = w * self.w_scale.to(dtype)
         shard = shard_of(self.w)

@@ -148,3 +148,9 @@ def gathered_features(x, shard):
     """Every rank's features of ``x`` (this rank's along its last axis)."""
     return _Gather.apply(x, _along(shard, -1))
 
+
+
+def gathered_parts(x, shard):
+    """Every rank's part ``x`` along ``shard.dim``, whole (a rank's gradient
+    is its part of the whole one's)."""
+    return _Gather.apply(x, shard)

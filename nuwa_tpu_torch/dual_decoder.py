@@ -18,8 +18,11 @@ activations; ``ReversibleDualModalityDecoder`` runs it through
 rebuilds every activation by inversion (it ignores ``remat``). Both keep
 the JAX package's layer menu: per depth [self + ff] then [cross + ff], so
 the plain decoder carries one more FF per stream and depth than the
-reference's non-reversible layout. The context-parallel binding (``BindCP``)
-is not ported.
+reference's non-reversible layout. ``cp_mesh`` splits the video
+self-attention's frames over a mesh axis (context parallelism,
+``parallel.context_parallel``); the audio stream and the cross blocks run
+whole, as in the JAX package. The reversible decoder binds the mesh into
+that attention (``transformer.BindCP``).
 
 ``attn_dropout`` reaches every attention of the schedule and ``ff_dropout``
 and ``ff_chunk_size`` every feed-forward. ``forward(..., seed=...)`` gives each block four seeds,
@@ -38,7 +41,7 @@ from .ops.attention import Attention
 from .ops.crossmodality import CrossModalityCrossAttention
 from .ops.feedforward import FeedForward
 from .reversible_dual import dual_reversible_sequence
-from .transformer import Sandwich, ShiftAudio, ShiftVideo
+from .transformer import BindCP, Sandwich, ShiftAudio, ShiftVideo
 
 
 class SandwichX(Sandwich):
@@ -61,14 +64,14 @@ class Quad(nn.Module):
 
 
 def apply_dual_block(btype, mods, video, audio, *, context=None, context_mask=None,
-                     video_mask=None, audio_mask=None, seeds=(None,) * 4):
+                     video_mask=None, audio_mask=None, seeds=(None,) * 4, cp_mesh=None):
     """One schedule entry of the plain dual decoder: the (video, audio) pair
     through the block's four sandwiched modules, each with its dropout seed
-    (``seeds``: f, g, j, k)."""
+    (``seeds``: f, g, j, k); ``cp_mesh`` reaches the video self-attention."""
     f, g, j, k = mods
     sf, sg, sj, sk = seeds
     if btype == "self":
-        video = f(video, mask=video_mask, seed=sf) + video
+        video = f(video, mask=video_mask, seed=sf, cp_mesh=cp_mesh) + video
         video = g(video, seed=sg) + video
         audio = j(audio, mask=audio_mask, seed=sj) + audio
         audio = k(audio, seed=sk) + audio
@@ -107,12 +110,17 @@ def block_seeds(seed, n):
     return [tuple(seeds[4 * i:4 * i + 4]) for i in range(n)]
 
 
-def reversible_dual_blocks(blocks, seed=None):
+def reversible_dual_blocks(blocks, seed=None, cp_mesh=None):
     """A ``DualModalityDecoder.blocks()`` schedule in ``reversible_dual``'s
     form: each (type, quad) with the routes its four modules read and their
-    four dropout seeds."""
-    return [(btype, mods, _ROUTES[btype], seeds)
-            for (btype, mods), seeds in zip(blocks, block_seeds(seed, len(blocks)))]
+    four dropout seeds; ``cp_mesh`` is bound into each video
+    self-attention."""
+    out = []
+    for (btype, mods), seeds in zip(blocks, block_seeds(seed, len(blocks))):
+        if cp_mesh is not None and btype == "self":
+            mods = (BindCP(mods[0], cp_mesh), *mods[1:])
+        out.append((btype, mods, _ROUTES[btype], seeds))
+    return out
 
 
 class DualModalityDecoder(nn.Module):
@@ -190,9 +198,9 @@ class DualModalityDecoder(nn.Module):
         return [(kind, quad.mods()) for kind, quad in zip(self.kinds, self.layers)]
 
     def forward(self, video, audio, *, context, audio_mask=None, video_mask=None,
-                context_mask=None, seed=None):
+                context_mask=None, seed=None, cp_mesh=None):
         kw = dict(context=context, context_mask=context_mask, video_mask=video_mask,
-                  audio_mask=audio_mask)
+                  audio_mask=audio_mask, cp_mesh=cp_mesh)
         blocks = self.blocks()
         for (btype, mods), seeds in zip(blocks, block_seeds(seed, len(blocks))):
             kw["seeds"] = seeds
@@ -208,8 +216,8 @@ class ReversibleDualModalityDecoder(DualModalityDecoder):
     """The same schedule as quad-stream reversible blocks."""
 
     def forward(self, video, audio, *, context, audio_mask=None, video_mask=None,
-                context_mask=None, reverse=True, seed=None):
-        blocks = reversible_dual_blocks(self.blocks(), seed)
+                context_mask=None, reverse=True, seed=None, cp_mesh=None):
+        blocks = reversible_dual_blocks(self.blocks(), seed, cp_mesh)
         kwargs = dict(context=context, context_mask=context_mask, video_mask=video_mask,
                       audio_mask=audio_mask)
         video, audio = dual_reversible_sequence(blocks, video, audio, kwargs, reverse=reverse)

@@ -98,7 +98,7 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(256, 5) sparse3dna_bwd_kv_kernel(
     const T* __restrict__ q, const T* __restrict__ gout, const float* __restrict__ ds,
     const float* __restrict__ mix, T* __restrict__ dk, T* __restrict__ dv, int heads, int d,
-    Geometry g, Plan p) {
+    Geometry g, Window win, Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (dynamic_smem_bytes() < static_cast<unsigned>(p.smem)) __trap();
   const int kn = g.kf * g.kh * g.kw, slots = kn + 1;  // slot 0 is bos, read by no key
@@ -114,7 +114,9 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_bwd_kv_kernel(
   for (int x = tid; x < tq; x += nt) s_ktok[x] = tile_query(g, p, tv, x);
   for (int x = tid; x < tq * kn; x += nt) {
     const int ki = x / kn, pr = x % kn, kx = tv.x0 + ki % p.tx;
-    s_pq[x] = tile_query(g, p, tv, ki) < 0 ? -1 : reader(g, tv.f, tv.y0 + ki / p.tx, kx, pr);
+    const int rq = tile_query(g, p, tv, ki) < 0 ? -1 : reader(g, tv.f, tv.y0 + ki / p.tx, kx, pr);
+    // only the window's queries' pairs count; their rows are the window's
+    s_pq[x] = rq >= win.q_lo && rq < win.q_hi ? rq - win.q_lo : -1;
     s_ps[x] = reader_slot(g, kx, pr - pr % g.kw, pr % g.kw);
   }
   __syncthreads();
@@ -124,11 +126,11 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_bwd_kv_kernel(
   for (int un = w.first; un < units; un += w.ustep) {
     const int a = un / tq, ki = un % tq, key = s_ktok[ki];
     if (key < 0) continue;  // uniform across the group
-    const size_t plane = bplane + a;
-    const T* qp = q + plane * g.t * d;
-    const T* gp = gout + plane * g.t * d;
-    const float* dsp = ds + plane * g.t * slots + 1;  // past bos
-    const float* mxp = mix + plane * g.t * slots + 1;
+    const size_t plane = bplane + a, nq = win.q_hi - win.q_lo;
+    const T* qp = q + plane * nq * d;
+    const T* gp = gout + plane * nq * d;
+    const float* dsp = ds + plane * nq * slots + 1;  // past bos
+    const float* mxp = mix + plane * nq * slots + 1;
     const int *pq = s_pq + ki * kn, *ps = s_ps + ki * kn;
     float ok[8], ov[8];
 #pragma unroll
@@ -179,7 +181,8 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_bwd_kv_kernel(
 
 template <typename T, bool kVec>
 int launch(const void* q, const void* gout, const float* ds, const float* mix, void* dk,
-           void* dv, int b, int heads, int d, Geometry g, const Plan& p, cudaStream_t stream) {
+           void* dv, int b, int heads, int d, Geometry g, Window win, const Plan& p,
+           cudaStream_t stream) {
   const auto kernel = sparse3dna_bwd_kv_kernel<T, kVec>;
   if (p.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -189,7 +192,7 @@ int launch(const void* q, const void* gout, const float* ds, const float* mix, v
   const dim3 grid(p.blocks, b);
   kernel<<<grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(gout), ds, mix, static_cast<T*>(dk),
-      static_cast<T*>(dv), heads, d, g, p);
+      static_cast<T*>(dv), heads, d, g, win, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -197,8 +200,11 @@ int launch(const void* q, const void* gout, const float* ds, const float* mix, v
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, gout, dk, dv
-// (b, heads, t, d); ds, mix (b, heads, t, kn + 1) fp32, slot 0 being bos;
+// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: dk, dv
+// (b, heads, t, d), the t keys; q, gout (b, heads, nq, d) and ds, mix
+// (b, heads, nq, kn + 1) fp32, slot 0 being bos, the queries of the window
+// [q_lo, q_hi) with nq = q_hi - q_lo (sparse3dna_geometry.cuh: `Window`;
+// only their pairs are summed; the whole sequence is 0, t);
 // mode 1 for causal windows, 0 for centered, 2 for the audio geometry
 // (fh = kh = 1, kw = fw = H); plan: kPlanInts ints, the wrapper's key tile
 // and shared-memory layout (sparse3dna_tile.cuh, kernels.nda `tile_plan`
@@ -207,17 +213,18 @@ extern "C" {
 int nuwa_sparse3dna_bwd_kv(int dtype, const void* q, const void* gout, const float* ds,
                            const float* mix, void* dk, void* dv, int b, int heads, int t, int d,
                            int fh, int fw, int kf, int kh, int kw, int df, int dh, int dw,
-                           int mode, const int* plan, void* stream) {
+                           int mode, int q_lo, int q_hi, const int* plan, void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
+  const Window win{q_lo, q_hi, 0};
   const Plan p = read_plan(plan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && p.vec)
-    return launch<float, true>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
-  if (dtype == 0) return launch<float, false>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
+    return launch<float, true>(q, gout, ds, mix, dk, dv, b, heads, d, g, win, p, s);
+  if (dtype == 0) return launch<float, false>(q, gout, ds, mix, dk, dv, b, heads, d, g, win, p, s);
   if (dtype == 1 && p.vec)
-    return launch<__nv_bfloat16, true>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
+    return launch<__nv_bfloat16, true>(q, gout, ds, mix, dk, dv, b, heads, d, g, win, p, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, false>(q, gout, ds, mix, dk, dv, b, heads, d, g, p, s);
+    return launch<__nv_bfloat16, false>(q, gout, ds, mix, dk, dv, b, heads, d, g, win, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -94,11 +94,12 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
     const float* __restrict__ th, const float* __restrict__ bias,
     const T* __restrict__ gout, const float* __restrict__ lse,
     T* __restrict__ dq, float* __restrict__ ds_out, float* __restrict__ mix_out,
-    float* __restrict__ partial, int heads, int d, Geometry g, Plan p, Dropout drop) {
+    float* __restrict__ partial, int heads, int d, Geometry g, Window win, Plan p,
+    Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (dynamic_smem_bytes() < static_cast<unsigned>(p.smem)) __trap();
   const int kn = g.kf * g.kh * g.kw, slots = kn + 1;  // slot 0 is bos
-  const TileView tv = tile_view(p);
+  const TileView tv = window_view(p, g, win);
   const int tq = tv.tq;
   float* s_p = reinterpret_cast<float*>(smem + p.off_s);        // (heads, tq, slots) P
   float* s_a = reinterpret_cast<float*>(smem + p.off_s2);       // (heads, tq, slots) dA, dP, dS
@@ -117,11 +118,11 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
   if (bias != nullptr) {
     for (int x = tid; x < heads * kn; x += nt) s_bias[x] = bias[x];
   }
-  for (int x = tid; x < tq; x += nt) s_qtok[x] = tile_query(g, p, tv, x);
+  for (int x = tid; x < tq; x += nt) s_qtok[x] = window_query(g, p, tv, win, x);
   for (int x = tid; x < tq * kn; x += nt) s_nb[x] = tile_neighbour(g, p, tv, x / kn, x % kn);
   for (int x = tid; x < heads * tq; x += nt) {
-    const int tok = tile_query(g, p, tv, x % tq);
-    s_lse[x] = tok >= 0 ? lse[(bplane + x / tq) * g.t + tok] : 0.f;
+    const int tok = window_query(g, p, tv, win, x % tq);
+    s_lse[x] = tok >= 0 ? lse[window_row(win, bplane + x / tq, tok)] : 0.f;
   }
   __syncthreads();
 
@@ -141,8 +142,8 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
     if (tok < 0) continue;  // uniform across the group
     const size_t plane = bplane + a;
     float qr[8], gr[8];
-    load_row<T, kVec>(qr, q + (plane * g.t + tok) * d, gl, G, d);
-    load_row<T, kVec>(gr, gout + (plane * g.t + tok) * d, gl, G, d);
+    load_row<T, kVec>(qr, q + window_row(win, plane, tok) * d, gl, G, d);
+    load_row<T, kVec>(gr, gout + window_row(win, plane, tok) * d, gl, G, d);
     const float m = s_lse[un];
     for (int j0 = sub; j0 < slots; j0 += kBatch * gpu) {
       float sc[kBatch], da[kBatch];  // scores and dA
@@ -167,9 +168,11 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
         float pj = 0.f, aj = 0.f;
         if (nb >= 0) {
           pj = expf((j > 0 && bias != nullptr ? sc[i] + s_bias[a * kn + j - 1] : sc[i]) - m);
-          // the cotangent of the dropped mix: dA times the keep factor
-          aj = kDrop ? da[i] * keep_factor(drop, row_stream, a, tok,
-                                           j == 0 ? kBosKey : static_cast<uint32_t>(nb))
+          // the cotangent of the dropped mix: dA times the keep factor (the
+          // hash keys the tokens' ids in the whole sequence)
+          aj = kDrop ? da[i] * keep_factor(drop, row_stream, a, tok + win.tok0,
+                                           j == 0 ? kBosKey
+                                                  : static_cast<uint32_t>(nb + win.tok0))
                      : da[i];
         }
         s_p[un * slots + j] = pj;
@@ -211,7 +214,8 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
       ar[b2] = b2 < heads ? s_a[(b2 * tq + qq) * slots + j] : 0.f;
     }
     // a slot outside the grid has P and dA 0 in every head: its key is moot
-    const uint32_t key = j == 0 ? kBosKey : static_cast<uint32_t>(s_nb[qq * kn + j - 1]);
+    const uint32_t key =
+        j == 0 ? kBosKey : static_cast<uint32_t>(s_nb[qq * kn + j - 1] + win.tok0);
     for (int h2 = 0; h2 < heads; ++h2) {
       float dp = 0.f, mx = 0.f;
 #pragma unroll
@@ -221,9 +225,9 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
           mx += s_th[h2 * heads + b2] * pr[b2];
         }
       }
-      if (kDrop) mx *= keep_factor(drop, row_stream, h2, tok, key);
+      if (kDrop) mx *= keep_factor(drop, row_stream, h2, tok + win.tok0, key);
       s_a[(h2 * tq + qq) * slots + j] = dp;
-      mix_out[((bplane + h2) * g.t + tok) * slots + j] = mx;
+      mix_out[window_row(win, bplane + h2, tok) * slots + j] = mx;
       if (j == 0) s_mix0[h2 * tq + qq] = mx;
     }
   }
@@ -240,7 +244,7 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
     float rho = 0.f;
     for (int j = rl; j < slots; j += kRowLanes) rho += pr[j] * dr[j];
     rho = row_sum(rho, rmask);
-    float* dso = ds_out + ((bplane + r / tq) * g.t + tok) * slots;
+    float* dso = ds_out + window_row(win, bplane + r / tq, tok) * slots;
     for (int j = rl; j < slots; j += kRowLanes) {
       const float ds = pr[j] * (dr[j] - rho);
       dr[j] = ds;
@@ -252,14 +256,14 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
   // [dth (heads, heads) | dk_bos (heads, d) | dv_bos (heads, d) | dbias (heads, kn)]
   for (int x = tid; x < hd; x += nt) {
     const int h2 = x / d, e = x % d;
-    const size_t base = (bplane + h2) * g.t;
     float dk = 0.f, dv = 0.f;
 #pragma unroll 4
     for (int qq = 0; qq < tq; ++qq) {
       const int tok = s_qtok[qq];
       if (tok < 0) continue;
-      dk += s_a[(h2 * tq + qq) * slots] * to_f(q[(base + tok) * d + e]);
-      dv += s_mix0[h2 * tq + qq] * to_f(gout[(base + tok) * d + e]);
+      const size_t row = window_row(win, bplane + h2, tok);
+      dk += s_a[(h2 * tq + qq) * slots] * to_f(q[row * d + e]);
+      dv += s_mix0[h2 * tq + qq] * to_f(gout[row * d + e]);
     }
     part[hh + x] = dk;
     part[hh + hd + x] = dv;
@@ -302,7 +306,7 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
       }
     }
     if (gpu == 1) {
-      store_row<T, kVec>(dq + (plane * g.t + tok) * d, o, gl, G, d);
+      store_row<T, kVec>(dq + window_row(win, plane, tok) * d, o, gl, G, d);
     } else {
       share_row<T, kVec>(s_red, un * gpu + sub, o, gl, G, d);
     }
@@ -315,7 +319,7 @@ __global__ void __launch_bounds__(512, 2) sparse3dna_bwd_q_kernel(
       if (tok < 0) continue;
       float sum = 0.f;
       for (int sb = 0; sb < gpu; ++sb) sum += s_red[(un * gpu + sb) * d + e];
-      dq[((bplane + un / tq) * g.t + tok) * d + e] = from_f<T>(sum);
+      dq[window_row(win, bplane + un / tq, tok) * d + e] = from_f<T>(sum);
     }
   }
 }
@@ -324,7 +328,7 @@ template <typename T, bool kVec>
 int launch(const void* q, const void* k, const void* v, const void* kbos, const void* vbos,
            const float* th, const float* bias, const void* gout, const float* lse, void* dq,
            float* ds, float* mix, float* partial, int b, int heads, int d, Geometry g,
-           const Plan& p, Dropout drop, cudaStream_t stream) {
+           Window win, const Plan& p, Dropout drop, cudaStream_t stream) {
   const auto kernel = heads <= 8 ? (drop.on ? sparse3dna_bwd_q_kernel<T, kVec, true, 8>
                                              : sparse3dna_bwd_q_kernel<T, kVec, false, 8>)
                                  : (drop.on ? sparse3dna_bwd_q_kernel<T, kVec, true, 32>
@@ -338,8 +342,8 @@ int launch(const void* q, const void* k, const void* v, const void* kbos, const 
   kernel<<<grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
-      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g, p,
-      drop);
+      static_cast<const T*>(gout), lse, static_cast<T*>(dq), ds, mix, partial, heads, d, g, win,
+      p, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -347,10 +351,13 @@ int launch(const void* q, const void* k, const void* v, const void* kbos, const 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, k, v, gout,
-// dq (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
-// bias (heads, kn) fp32 or null; lse (b, heads, t) fp32; ds, mix
-// (b, heads, t, kn + 1) fp32; partial (b, plan blocks, nsum) fp32 with
+// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: k, v
+// (b, heads, t, d); q, gout, dq (b, heads, nq, d), the queries of the window
+// [q_lo, q_hi) with nq = q_hi - q_lo (sparse3dna_geometry.cuh: `Window`, tok0
+// the id of key token 0 in the whole sequence; the whole sequence is 0, t,
+// 0); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32; bias (heads, kn)
+// fp32 or null; lse (b, heads, nq) fp32; ds, mix (b, heads, nq, kn + 1) fp32;
+// partial (b, plan blocks, nsum) fp32 with
 // nsum = heads*heads + 2*heads*d (+ heads*kn with a bias), every slot
 // written: per tile [dth | dk_bos | dv_bos | dbias] over its queries, for
 // the caller to sum over the tile axis; mode 1 for causal windows, 0 for
@@ -364,24 +371,26 @@ int nuwa_sparse3dna_bwd_q(int dtype, const void* q, const void* k, const void* v
                           const float* bias, const void* gout, const float* lse, void* dq,
                           float* ds, float* mix, float* partial, int b, int heads, int t,
                           int d, int fh, int fw, int kf, int kh, int kw, int df, int dh,
-                          int dw, int mode, int drop, unsigned int seed, unsigned int thresh,
-                          float scale, const int* plan, void* stream) {
+                          int dw, int mode, int q_lo, int q_hi, int tok0, int drop,
+                          unsigned int seed, unsigned int thresh, float scale, const int* plan,
+                          void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
+  const Window win{q_lo, q_hi, tok0};
   const Dropout dp{drop, seed, thresh, scale};
   const Plan p = read_plan(plan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && p.vec)
     return launch<float, true>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, partial,
-                               b, heads, d, g, p, dp, s);
+                               b, heads, d, g, win, p, dp, s);
   if (dtype == 0)
     return launch<float, false>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix, partial,
-                                b, heads, d, g, p, dp, s);
+                                b, heads, d, g, win, p, dp, s);
   if (dtype == 1 && p.vec)
     return launch<__nv_bfloat16, true>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix,
-                                       partial, b, heads, d, g, p, dp, s);
+                                       partial, b, heads, d, g, win, p, dp, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, false>(q, k, v, kbos, vbos, th, bias, gout, lse, dq, ds, mix,
-                                        partial, b, heads, d, g, p, dp, s);
+                                        partial, b, heads, d, g, win, p, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -83,12 +83,12 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ kbos, const T* __restrict__ vbos,
     const float* __restrict__ th, const float* __restrict__ bias,
-    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g, Plan p,
-    Dropout drop) {
+    T* __restrict__ out, float* __restrict__ lse, int heads, int d, Geometry g, Window win,
+    Plan p, Dropout drop) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (dynamic_smem_bytes() < static_cast<unsigned>(p.smem)) __trap();
   const int kn = g.kf * g.kh * g.kw, slots = kn + 1;  // slot 0 is bos
-  const TileView tv = tile_view(p);
+  const TileView tv = window_view(p, g, win);
   const int tq = tv.tq;
   float* s_s = reinterpret_cast<float*>(smem + p.off_s);        // (heads, tq, slots) scores, P, mix
   int* s_nb = reinterpret_cast<int*>(smem + p.off_nb);          // (tq, kn) neighbour token or -1
@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
   if (bias != nullptr) {
     for (int x = tid; x < heads * kn; x += nt) s_bias[x] = bias[x];
   }
-  for (int x = tid; x < tq; x += nt) s_qtok[x] = tile_query(g, p, tv, x);
+  for (int x = tid; x < tq; x += nt) s_qtok[x] = window_query(g, p, tv, win, x);
   for (int x = tid; x < tq * kn; x += nt) s_nb[x] = tile_neighbour(g, p, tv, x / kn, x % kn);
   __syncthreads();
 
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
     const int a = un / tq, qi = un % tq, tok = s_qtok[qi];
     if (tok < 0) continue;  // uniform across the group
     float xr[8];
-    load_row<T, kVec>(xr, q + ((bplane + a) * g.t + tok) * d, gl, G, d);
+    load_row<T, kVec>(xr, q + window_row(win, bplane + a, tok) * d, gl, G, d);
     const T* kplane = k + (bplane + a) * g.t * d;
     float* srow = s_s + un * slots;
     for (int j0 = sub; j0 < slots; j0 += kBatch * gpu) {
@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
     den = row_sum(den, rmask);
     const float inv = 1.f / den;
     for (int j = rl; j < slots; j += kRowLanes) row[j] *= inv;
-    if (rl == 0) lse[(bplane + r / tq) * g.t + tok] = m + logf(den);
+    if (rl == 0) lse[window_row(win, bplane + r / tq, tok)] = m + logf(den);
   }
   __syncthreads();
 
@@ -181,14 +181,16 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
     float pr[kMaxH];
 #pragma unroll
     for (int b2 = 0; b2 < kMaxH; ++b2) pr[b2] = b2 < heads ? s_s[(b2 * tq + qq) * slots + j] : 0.f;
-    // a slot outside the grid has probability 0 in every head: its key is moot
-    const uint32_t key = j == 0 ? kBosKey : static_cast<uint32_t>(s_nb[qq * kn + j - 1]);
+    // a slot outside the grid has probability 0 in every head: its key is moot;
+    // the hash keys the tokens' ids in the whole sequence
+    const uint32_t key =
+        j == 0 ? kBosKey : static_cast<uint32_t>(s_nb[qq * kn + j - 1] + win.tok0);
     for (int a2 = 0; a2 < heads; ++a2) {
       float acc = 0.f;
 #pragma unroll
       for (int b2 = 0; b2 < kMaxH; ++b2)
         if (b2 < heads) acc += s_th[a2 * heads + b2] * pr[b2];
-      if (kDrop) acc *= keep_factor(drop, row_stream, a2, tok, key);
+      if (kDrop) acc *= keep_factor(drop, row_stream, a2, tok + win.tok0, key);
       s_s[(a2 * tq + qq) * slots + j] = acc;
     }
   }
@@ -221,7 +223,7 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
       }
     }
     if (gpu == 1) {
-      store_row<T, kVec>(out + ((bplane + a) * g.t + tok) * d, o, gl, G, d);
+      store_row<T, kVec>(out + window_row(win, bplane + a, tok) * d, o, gl, G, d);
     } else {
       share_row<T, kVec>(s_red, un * gpu + sub, o, gl, G, d);
     }
@@ -234,7 +236,7 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
       if (tok < 0) continue;
       float sum = 0.f;
       for (int sb = 0; sb < gpu; ++sb) sum += s_red[(un * gpu + sb) * d + e];
-      out[((bplane + un / tq) * g.t + tok) * d + e] = from_f<T>(sum);
+      out[window_row(win, bplane + un / tq, tok) * d + e] = from_f<T>(sum);
     }
   }
 }
@@ -242,7 +244,7 @@ __global__ void __launch_bounds__(256, 5) sparse3dna_fwd_kernel(
 template <typename T, bool kVec>
 int launch(const void* q, const void* k, const void* v, const void* kbos, const void* vbos,
            const float* th, const float* bias, void* out, float* lse, int b, int heads, int d,
-           Geometry g, const Plan& p, Dropout drop, cudaStream_t stream) {
+           Geometry g, Window win, const Plan& p, Dropout drop, cudaStream_t stream) {
   const auto kernel = heads <= 8 ? (drop.on ? sparse3dna_fwd_kernel<T, kVec, true, 8>
                                              : sparse3dna_fwd_kernel<T, kVec, false, 8>)
                                  : (drop.on ? sparse3dna_fwd_kernel<T, kVec, true, 32>
@@ -259,7 +261,7 @@ int launch(const void* q, const void* k, const void* v, const void* kbos, const 
   kernel<<<grid, p.threads, p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(kbos), static_cast<const T*>(vbos), th, bias,
-      static_cast<T*>(out), lse, heads, d, g, p, drop);
+      static_cast<T*>(out), lse, heads, d, g, win, p, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,9 +269,12 @@ int launch(const void* q, const void* k, const void* v, const void* kbos, const 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: q, k, v, out
-// (b, heads, t, d); kbos, vbos (b, heads, 1, d); th (heads, heads) fp32;
-// bias (heads, kf*kh*kw) fp32 or null; lse (b, heads, t) fp32; mode 1 for
+// dtype: 0 = float32, 1 = bfloat16. Tensors are contiguous: k, v
+// (b, heads, t, d); q, out (b, heads, q_hi - q_lo, d), the queries of the
+// window [q_lo, q_hi) (sparse3dna_geometry.cuh: `Window`, with tok0 the id
+// of key token 0 in the whole sequence; the whole sequence is 0, t, 0); kbos,
+// vbos (b, heads, 1, d); th (heads, heads) fp32; bias (heads, kf*kh*kw) fp32
+// or null; lse (b, heads, q_hi - q_lo) fp32; mode 1 for
 // causal windows, 0 for centered, 2 for the audio geometry (fh = kh = 1,
 // kw = fw = H); drop 1 for attention dropout with the hash's seed, its
 // threshold and the fp32 scale 1 / keep (sparse3dna_dropout.cuh), 0 for none;
@@ -279,23 +284,26 @@ int nuwa_sparse3dna_fwd(int dtype, const void* q, const void* k, const void* v,
                         const void* kbos, const void* vbos, const float* th,
                         const float* bias, void* out, float* lse, int b,
                         int heads, int t, int d, int fh, int fw, int kf, int kh,
-                        int kw, int df, int dh, int dw, int mode, int drop,
-                        unsigned int seed, unsigned int thresh, float scale, const int* plan,
-                        void* stream) {
+                        int kw, int df, int dh, int dw, int mode, int q_lo, int q_hi,
+                        int tok0, int drop, unsigned int seed, unsigned int thresh, float scale,
+                        const int* plan, void* stream) {
   const Geometry g{t, fh, fw, kf, kh, kw, df, dh, dw, mode};
+  const Window win{q_lo, q_hi, tok0};
   const Dropout dp{drop, seed, thresh, scale};
   const Plan p = read_plan(plan);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && p.vec)
-    return launch<float, true>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, p, dp, s);
+    return launch<float, true>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, win, p,
+                               dp, s);
   if (dtype == 0)
-    return launch<float, false>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, p, dp, s);
+    return launch<float, false>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g, win, p,
+                                dp, s);
   if (dtype == 1 && p.vec)
     return launch<__nv_bfloat16, true>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g,
-                                       p, dp, s);
+                                       win, p, dp, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, false>(q, k, v, kbos, vbos, th, bias, out, lse, b, heads, d, g,
-                                        p, dp, s);
+                                        win, p, dp, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,6 +23,25 @@ struct Geometry {
 
 constexpr int kCentered = 0, kCausal = 1, kAudio = 2;
 
+// The query window of a launch of the three kernels (not of the staged
+// variants): the queries are the tokens [q_lo, q_hi) of the t keys, q_lo the
+// first token of a frame, and q, the output, lse, dS and mix hold their rows
+// in that order, q_hi - q_lo of them a (batch row, head) plane; tok0 is the
+// id of key token 0 in the whole sequence, which the dropout hash keys. A
+// shard of a context-parallel run (nuwa_tpu_torch/parallel/context_parallel.py)
+// passes its own frames as the window of a key buffer that adds its halo
+// frames, and the buffer's first token as tok0; the whole sequence is
+// {0, t, 0}.
+struct Window {
+  int q_lo, q_hi, tok0;
+};
+
+// Row of query token `tok` (q_lo <= tok < q_hi) in plane `plane` of a
+// windowed tensor.
+__device__ __forceinline__ size_t window_row(const Window& w, size_t plane, int tok) {
+  return plane * static_cast<size_t>(w.q_hi - w.q_lo) + static_cast<size_t>(tok - w.q_lo);
+}
+
 // The window's centre on an axis of kernel k.
 __device__ __forceinline__ int centre(const Geometry& g, int k) {
   return g.mode != kCentered ? k - 1 : (k - 1) / 2;

@@ -84,6 +84,23 @@ __device__ __forceinline__ int tile_query(const Geometry& g, const Plan& p, cons
   return tok < g.t ? tok : -1;
 }
 
+// The tile of a windowed launch (the forward and the query side): the grid
+// covers the window's frames only.
+__device__ __forceinline__ TileView window_view(const Plan& p, const Geometry& g,
+                                                const Window& w) {
+  TileView v = tile_view(p);
+  v.f += w.q_lo / (g.fh * g.fw);
+  return v;
+}
+
+// Token of query qi of a windowed tile, or -1 outside the frame or at or
+// past the window's end.
+__device__ __forceinline__ int window_query(const Geometry& g, const Plan& p, const TileView& v,
+                                            const Window& w, int qi) {
+  const int tok = tile_query(g, p, v, qi);
+  return tok < w.q_hi ? tok : -1;
+}
+
 // Neighbour token of query qi's window slot j (0..kn-1), or -1.
 __device__ __forceinline__ int tile_neighbour(const Geometry& g, const Plan& p,
                                               const TileView& v, int qi, int j) {

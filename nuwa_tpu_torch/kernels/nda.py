@@ -48,6 +48,22 @@ The rel-pos bias is the same
 (h, Kn) table in both families (``_rb_bias_tensors`` builds it from the same axial tables
 as ``_axial_tables``), so ``Sparse3DNA.rel_bias`` serves every frame size.
 
+A query window: the forward and both backward functions take ``q_lo`` and
+the forward and query side ``tok0``. Their queries are then the tokens
+[q_lo, q_lo + nq) of the t keys (q's nq rows; ``q_lo`` the first token of a
+frame), every per-query tensor (the output, lse, dS, mix, dq and the
+cotangent) holds the window's rows only, and the key side sums only the
+window's pairs into every key's dk and dv (``t=`` the keys there). ``tok0``
+is the id of key token 0 in the whole sequence, which the dropout hash
+keys (the bos key keeps ``BOS_KEY``). A shard of a context-parallel run
+(``parallel.context_parallel``) attends its own frames (the window) over a
+key buffer that adds the halo frames it received, a contiguous slice of
+the sequence starting at ``tok0``, so the kernels' frame masks are the
+whole sequence's and the shard draws the whole sequence's dropout bits.
+The defaults (``q_lo = 0``, q as long as k, ``tok0 = 0``) are the whole
+sequence, launched as before. The staged variants and the audio geometry
+take no window: a window there raises.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its ``*_plain`` version, the same function written with gathers and
 ``index_add_`` (the ``_nda_attend`` math of ``nuwa_tpu/nda.py``). The plain
@@ -168,16 +184,19 @@ def _drop_args(dropout):
     return [1, seed & _U32, *keep_params(rate)]
 
 
-def _dropped(x, dropout, idx):
-    """The mixed probabilities (or their cotangent) ``x`` (b, h, t, Kn + 1),
-    slot 0 bos, with the dropout mask of the pairs that ``idx`` (t, Kn)
-    gives applied and the kept ones scaled: ``x`` itself without dropout."""
+def _dropped(x, dropout, idx, q_lo=0, tok0=0):
+    """The mixed probabilities (or their cotangent) ``x`` (b, h, n, Kn + 1),
+    slot 0 bos, of the queries [q_lo, q_lo + n) whose neighbours ``idx``
+    (n, Kn) gives, with the dropout mask of those pairs applied (the ids
+    offset by ``tok0``, the bos key's not) and the kept ones scaled: ``x``
+    itself without dropout."""
     if dropout is None:
         return x
     rate, seed = dropout
-    b, h, t = x.shape[:3]
-    k_ids = torch.cat([idx.new_full((t, 1), BOS_KEY), idx], dim=1)
-    keep = keep_mask(seed, rate, b, h, torch.arange(t, device=idx.device), k_ids)
+    b, h, n = x.shape[:3]
+    k_ids = torch.cat([idx.new_full((n, 1), BOS_KEY), idx + tok0], dim=1)
+    q_ids = torch.arange(q_lo + tok0, q_lo + tok0 + n, device=idx.device)
+    keep = keep_mask(seed, rate, b, h, q_ids, k_ids)
     return torch.where(keep, x * keep_params(rate)[1], 0.0)
 
 
@@ -201,11 +220,32 @@ def _neighbour_table(t, fmap, kernel, dilation, mode, device):
     )
 
 
-def valid_pairs(t, fmap, kernel, dilation, mode="causal") -> int:
+def _check_window(name, n, t, fmap, mode, q_lo, tok0):
+    """The query window [q_lo, q_lo + n) of t keys starts a frame and lies in
+    the keys; the audio geometry takes none."""
+    if q_lo < 0 or tok0 < 0 or q_lo + n > t or q_lo % (fmap[0] * fmap[1]):
+        raise ValueError(f"{name}: the query window [{q_lo}, {q_lo + n}) must start a frame of "
+                         f"{fmap[0]} x {fmap[1]} and lie in the {t} keys, tok0 = {tok0} >= 0")
+    if mode == "audio" and (q_lo or n != t or tok0):
+        raise ValueError(f"{name}: the audio geometry takes no query window")
+
+
+def _window_table(t, q_lo, n, fmap, kernel, dilation, mode, device):
+    """The neighbour table's rows (and validity) of the queries [q_lo, q_lo + n)
+    of a t-token sequence."""
+    idx, valid = _neighbour_table(
+        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(device)
+    )
+    return idx[q_lo:q_lo + n], valid[q_lo:q_lo + n]
+
+
+def valid_pairs(t, fmap, kernel, dilation, mode="causal", q_lo=0, n=None) -> int:
     """How many (query, neighbour) pairs of a t-token sequence are valid in
-    the given geometry (causal, centered or audio), bos not counted."""
+    the given geometry (causal, centered or audio), bos not counted; of the
+    queries [q_lo, q_lo + n) only, where ``n`` is given."""
     _check_geometry(fmap, kernel, dilation, mode)
-    _, valid = _neighbour_table(t, tuple(fmap), tuple(kernel), tuple(dilation), mode, "cpu")
+    n = t - q_lo if n is None else n
+    _, valid = _window_table(t, q_lo, n, fmap, kernel, dilation, mode, "cpu")
     return int(valid.sum())
 
 
@@ -397,14 +437,14 @@ def launch_plan(which, q, *, fmap, kernel, dilation, mode="causal", tiles=None):
 
 
 def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                          *, fmap, kernel, dilation, mode="causal", dropout=None):
+                          *, fmap, kernel, dilation, mode="causal", dropout=None, q_lo=0,
+                          tok0=0):
     """Plain PyTorch version of the kernel (fp32 math); same arguments and
     results as ``sparse_3dna_fwd``."""
     dropout = _dropout(dropout)
-    b, h, t, d = q.shape
-    idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
-    )
+    n, t = q.shape[2], k.shape[2]
+    _check_window("sparse_3dna_fwd", n, t, fmap, mode, q_lo, tok0)
+    idx, valid = _window_table(t, q_lo, n, fmap, kernel, dilation, mode, q.device)
     qf = q.float()
     sim = torch.einsum("bhid,bhijd->bhij", qf, k.float()[:, :, idx])
     if rel_bias is not None:
@@ -414,7 +454,8 @@ def sparse_3dna_fwd_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     sim = torch.cat([sim_bos[..., None], sim], dim=-1)
     lse = torch.logsumexp(sim, dim=-1)
     attn = torch.softmax(sim, dim=-1)
-    attn = _dropped(torch.einsum("bhij,gh->bgij", attn, talking_heads.float()), dropout, idx)
+    attn = _dropped(torch.einsum("bhij,gh->bgij", attn, talking_heads.float()), dropout, idx,
+                    q_lo, tok0)
     out = attn[..., :1] * v_bos.float()
     out = out + torch.einsum("bhij,bhijd->bhid", attn[..., 1:], v.float()[:, :, idx])
     return out.to(q.dtype), lse
@@ -429,26 +470,26 @@ def _gathered(x, idx, bos):
 
 
 def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                            *, fmap, kernel, dilation, mode="causal", dropout=None):
+                            *, fmap, kernel, dilation, mode="causal", dropout=None, q_lo=0,
+                            tok0=0):
     """Plain PyTorch version of the query-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_q``."""
     dropout = _dropout(dropout)
-    b, h, t, d = q.shape
-    idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
-    )
+    n, t = q.shape[2], k.shape[2]
+    _check_window("sparse_3dna_bwd_q", n, t, fmap, mode, q_lo, tok0)
+    idx, valid = _window_table(t, q_lo, n, fmap, kernel, dilation, mode, q.device)
     qf, gf, th = q.float(), grad.float(), talking_heads.float()
     keys, vals = _gathered(k, idx, k_bos), _gathered(v, idx, v_bos)
     sim = torch.einsum("bhid,bhijd->bhij", qf, keys)
     if rel_bias is not None:
         sim[..., 1:] += rel_bias.float()[None, :, None, :]
-    slot_valid = torch.cat([valid.new_ones(t, 1), valid], dim=1)
+    slot_valid = torch.cat([valid.new_ones(n, 1), valid], dim=1)
     sim = sim.masked_fill(~slot_valid, float("-inf"))
     p = torch.exp(sim - lse[..., None])
     # the cotangent of the (undropped) mix, and the mix that weighted the values
-    da = _dropped(torch.einsum("bhid,bhijd->bhij", gf, vals), dropout, idx)
+    da = _dropped(torch.einsum("bhid,bhijd->bhij", gf, vals), dropout, idx, q_lo, tok0)
     dp = torch.einsum("bgij,gh->bhij", da, th)  # through the talking-heads mix
-    mix = _dropped(torch.einsum("bhij,gh->bgij", p, th), dropout, idx)
+    mix = _dropped(torch.einsum("bhij,gh->bgij", p, th), dropout, idx, q_lo, tok0)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))  # through the softmax
     dq = torch.einsum("bhij,bhijd->bhid", ds, keys)
     dth = torch.einsum("bgij,bhij->gh", da, p)
@@ -460,20 +501,20 @@ def sparse_3dna_bwd_q_plain(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad
 
 
 def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal",
-                             dropout=None):
+                             dropout=None, q_lo=0, t=None):
     """Plain PyTorch version of the key-side backward kernel (fp32 math);
     same arguments and results as ``sparse_3dna_bwd_kv`` (the ``mix`` it
     is given is the dropped one, so ``dropout`` changes nothing)."""
-    b, h, t, d = q.shape
-    idx, valid = _neighbour_table(
-        t, tuple(fmap), tuple(kernel), tuple(dilation), mode, str(q.device)
-    )
+    b, h, n, d = q.shape
+    t = q_lo + n if t is None else t
+    _check_window("sparse_3dna_bwd_kv", n, t, fmap, mode, q_lo, 0)
+    idx, valid = _window_table(t, q_lo, n, fmap, kernel, dilation, mode, q.device)
     kn = idx.shape[1]
     flat = idx.reshape(-1)
     out = []
     for w, x in ((ds, q), (mix, grad)):
         w = w[..., 1:].masked_fill(~valid, 0.0)
-        terms = (w[..., None] * x.float()[:, :, :, None, :]).reshape(b, h, t * kn, d)
+        terms = (w[..., None] * x.float()[:, :, :, None, :]).reshape(b, h, n * kn, d)
         out.append(terms.new_zeros(b, h, t, d).index_add_(2, flat, terms))
     return out[0].to(q.dtype), out[1].to(q.dtype)
 
@@ -481,15 +522,16 @@ def sparse_3dna_bwd_kv_plain(q, grad, ds, mix, *, fmap, kernel, dilation, mode="
 @functools.lru_cache(maxsize=None)
 def _library(name):
     """The ctypes library of ``csrc/<name>.cu`` with its entry point typed:
-    an int dtype, pointers, then ints (b, heads, t, d and the geometry), the
+    an int dtype, pointers, then ints (b, heads, t, d, the geometry and, but
+    for the staged variants and the cross kernels, the query window), the
     forward's and the query side's dropout (on, seed, threshold, scale) and
     the launch plan (``tile_plan``), then the stream."""
-    pointers, ints = {
-        "sparse3dna_fwd": (9, 13),
+    pointers, ints = {  # the three kernels' ints end with the query window
+        "sparse3dna_fwd": (9, 16),
         "sparse3dna_fwd_staged": (9, 13),
-        "sparse3dna_bwd_q": (13, 13),
+        "sparse3dna_bwd_q": (13, 16),
         "sparse3dna_bwd_q_staged": (13, 13),
-        "sparse3dna_bwd_kv": (6, 13),
+        "sparse3dna_bwd_kv": (6, 15),
         "sparse_cross2dna_fwd": (9, 8),
         "sparse_cross2dna_bwd_q": (13, 8),
         "sparse_cross2dna_bwd_kv": (6, 8),
@@ -531,24 +573,26 @@ def _check_geometry(fmap, kernel, dilation, mode):
                          f"dilation (d, 1, 1), got {fmap}, {kernel}, {dilation}")
 
 
-def _check_cuda(name, q, fmap, kernel, dilation, tensors):
+def _check_cuda(name, q, fmap, kernel, dilation, tensors, t=None, tok0=0):
     """Raise on anything the kernels do not take. ``tensors``: (name, tensor,
-    shape, dtype) to check beside q (b, h, t, d). A frame of any size is
+    shape, dtype) to check beside q (b, h, n, d); ``t``: the keys (n by
+    default), ``tok0`` the id of key 0. A frame of any size is
     taken: the kernels bound only the heads (32), the head dim (8 elements
     a lane) and what their 32-bit ints index, t and the token ids of the
-    windows, which reach at most one window's frames past t. The shared
+    windows, which reach at most one window's frames past tok0 + t. The shared
     memory of the forward and query-side kernels grows with h·Kn (K·H in
     the audio geometry): past the card's opt-in maximum the launch fails,
     and ``_launch`` raises."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
-    b, h, t, d = q.shape
+    b, h, n, d = q.shape
+    t = n if t is None else t
     fh, fw = fmap
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, not {q.dtype}")
     if not (1 <= h <= 32 and 1 <= d <= 256):
         raise ValueError(f"need 1 <= heads <= 32 and 1 <= dim_head <= 256, got {h}, {d}")
-    if b > _MAX_GRID_Y or t + kernel[0] * dilation[0] * fh * fw > _INT_MAX:
+    if b > _MAX_GRID_Y or tok0 + t + kernel[0] * dilation[0] * fh * fw > _INT_MAX:
         raise ValueError(f"{name}: b = {b} or t = {t} with frames of {fh} x {fw} is past "
                          "what the kernels index")
     for arg, x, shape, dtype in tensors:
@@ -585,7 +629,8 @@ def _count(fn, mode, dropout):
 
 
 def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                    *, fmap, kernel, dilation, mode="causal", dropout=None, tiles=None):
+                    *, fmap, kernel, dilation, mode="causal", dropout=None, tiles=None, q_lo=0,
+                    tok0=0):
     """Sparse3DNA attention of t queries over their dilated neighbourhoods
     (causal windows, centered ones with ``mode="centered"``, or with
     ``mode="audio"`` the whole-timestep windows of SparseCausal2DNA) plus bos.
@@ -597,8 +642,10 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
     geometry; dropout: (rate, seed) or None; tiles: (rows, columns, staged)
     tile candidates taken in place of ``TILES``, the first that fits the
     frame and the shared memory, else the last (``tile_plan`` with its fill
-    rule off), or None. Returns out (b, h, t, d) in q's dtype and lse (b,
-    h, t) in fp32, the undropped softmax's.
+    rule off), or None; q_lo, tok0: the query window (the module's
+    docstring): q (b, h, n, d) holds the queries [q_lo, q_lo + n) of the t
+    keys, and tok0 is key 0's id in the whole sequence. Returns out (b, h,
+    n, d) in q's dtype and lse (b, h, n) in fp32, the undropped softmax's.
     """
     _check_geometry(fmap, kernel, dilation, mode)
     dropout = _dropout(dropout)
@@ -606,41 +653,57 @@ def sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
         return sparse_3dna_fwd_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias,
             fmap=fmap, kernel=kernel, dilation=dilation, mode=mode, dropout=dropout,
+            q_lo=q_lo, tok0=tok0,
         )
-    b, h, t, d = q.shape
+    b, h, n, d = q.shape
+    t = k.shape[2]
+    _check_window("sparse_3dna_fwd", n, t, fmap, mode, q_lo, tok0)
     kn = kernel[0] * kernel[1] * kernel[2]
     full, bos = (b, h, t, d), (b, h, 1, d)
     _check_cuda("sparse_3dna_fwd", q, fmap, kernel, dilation, [
         ("k", k, full, q.dtype), ("v", v, full, q.dtype),
         ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
-    ])
+    ], t, tok0)
     th, bias = _params(q, talking_heads, rel_bias, kn)
     ins = [x.contiguous() for x in (q, k, v, k_bos, v_bos)]
     out = torch.empty_like(ins[0])
-    lse = torch.empty(b, h, t, device=q.device, dtype=torch.float32)
-    if t == 0:
+    lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32)
+    if n == 0:
         return out, lse
     geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
     plan, plan_arg = _plan_args("fwd", q, geometry, [*ins, out], tiles)
-    _launch("sparse3dna_fwd_staged" if plan["stage"] else "sparse3dna_fwd", q.dtype,
+    _launch(_variant("sparse3dna_fwd", plan, n, t, q_lo, tok0), q.dtype,
             [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), out.data_ptr(),
              lse.data_ptr()],
-            [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], *_drop_args(dropout)],
+            [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode],
+             *([] if plan["stage"] else [q_lo, q_lo + n, tok0]), *_drop_args(dropout)],
             q.device, [plan_arg])
     _count(sparse_3dna_fwd, mode, dropout)
     return out, lse
 
 
+def _variant(name, plan, n, t, q_lo, tok0):
+    """The kernel a plan launches: ``name``, or its staged variant, which
+    takes the whole sequence only."""
+    if not plan["stage"]:
+        return name
+    if q_lo or n != t or tok0:
+        raise ValueError(f"{name}: the staged kernels take no query window")
+    return name + "_staged"
+
+
 def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
-                      *, fmap, kernel, dilation, mode="causal", dropout=None, tiles=None):
+                      *, fmap, kernel, dilation, mode="causal", dropout=None, tiles=None,
+                      q_lo=0, tok0=0):
     """Query side of the Sparse3DNA backward.
 
-    Takes the forward's arguments (its dropout too), its output cotangent
-    ``grad`` (b, h, t, d, q's dtype) and its ``lse``. Returns dq (q's
-    dtype), dS and the mixed probabilities mix, dropped with dropout (both
-    (b, h, t, Kn + 1) fp32, slot 0 being bos), dk_bos and dv_bos ((b, h, 1,
-    d), k_bos's dtype), dth (h, h) fp32 and the rel-pos bias cotangent (h,
-    Kn) fp32, or None without a bias. ``tiles``: as ``sparse_3dna_fwd``'s.
+    Takes the forward's arguments (its dropout and query window too), its
+    output cotangent ``grad`` (b, h, n, d, q's dtype) and its ``lse``.
+    Returns dq (q's dtype), dS and the mixed probabilities mix, dropped with
+    dropout (both (b, h, n, Kn + 1) fp32, slot 0 being bos), dk_bos and
+    dv_bos ((b, h, 1, d), k_bos's dtype), dth (h, h) fp32 and the rel-pos
+    bias cotangent (h, Kn) fp32, or None without a bias. ``tiles``: as
+    ``sparse_3dna_fwd``'s.
     """
     _check_geometry(fmap, kernel, dilation, mode)
     dropout = _dropout(dropout)
@@ -648,35 +711,39 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
         return sparse_3dna_bwd_q_plain(
             q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
             fmap=fmap, kernel=kernel, dilation=dilation, mode=mode, dropout=dropout,
+            q_lo=q_lo, tok0=tok0,
         )
-    b, h, t, d = q.shape
+    b, h, n, d = q.shape
+    t = k.shape[2]
+    _check_window("sparse_3dna_bwd_q", n, t, fmap, mode, q_lo, tok0)
     full, bos = (b, h, t, d), (b, h, 1, d)
     kn = kernel[0] * kernel[1] * kernel[2]
     _check_cuda("sparse_3dna_bwd_q", q, fmap, kernel, dilation, [
         ("k", k, full, q.dtype), ("v", v, full, q.dtype),
         ("k_bos", k_bos, bos, q.dtype), ("v_bos", v_bos, bos, q.dtype),
-        ("grad", grad, full, q.dtype), ("lse", lse, (b, h, t), torch.float32),
-    ])
+        ("grad", grad, (b, h, n, d), q.dtype), ("lse", lse, (b, h, n), torch.float32),
+    ], t, tok0)
     th, bias = _params(q, talking_heads, rel_bias, kn)
     ins = [x.contiguous() for x in (q, k, v, k_bos, v_bos)]
     grad, lse = grad.contiguous(), lse.contiguous()
     dq = torch.empty_like(ins[0])
-    ds = torch.empty(b, h, t, kn + 1, device=q.device, dtype=torch.float32)
+    ds = torch.empty(b, h, n, kn + 1, device=q.device, dtype=torch.float32)
     mix = torch.empty_like(ds)
     # each tile's sums over its queries: [dth | dk_bos | dv_bos | dbias], one
     # slot a block of the plan's grid
     hh, hd = h * h, h * d
     geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
     plan, plan_arg = _plan_args("bwd_q", q, geometry, [*ins, grad, dq], tiles)
-    partial = torch.empty(b, plan["blocks"] if t > 0 else 0,
+    partial = torch.empty(b, plan["blocks"] if n > 0 else 0,
                           hh + 2 * hd + (h * kn if bias is not None else 0),
                           device=q.device, dtype=torch.float32)
-    if t > 0:
-        _launch("sparse3dna_bwd_q_staged" if plan["stage"] else "sparse3dna_bwd_q", q.dtype,
+    if n > 0:
+        _launch(_variant("sparse3dna_bwd_q", plan, n, t, q_lo, tok0), q.dtype,
                 [*(x.data_ptr() for x in ins), th.data_ptr(), _ptr(bias), grad.data_ptr(),
                  lse.data_ptr(), dq.data_ptr(), ds.data_ptr(), mix.data_ptr(),
                  partial.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], *_drop_args(dropout)],
+                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode],
+                 *([] if plan["stage"] else [q_lo, q_lo + n, tok0]), *_drop_args(dropout)],
                 q.device, [plan_arg])
         _count(sparse_3dna_bwd_q, mode, dropout)
     sums = partial.sum(dim=1)  # one fixed-order reduction over the blocks: (b, nsum)
@@ -688,10 +755,12 @@ def sparse_3dna_bwd_q(q, k, v, k_bos, v_bos, talking_heads, rel_bias, grad, lse,
 
 
 def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal",
-                       dropout=None, tiles=None):
+                       dropout=None, tiles=None, q_lo=0, t=None):
     """Key side of the Sparse3DNA backward: dk and dv (b, h, t, d, q's dtype)
-    from q, the output cotangent ``grad`` and the ``ds`` and ``mix`` that
-    ``sparse_3dna_bwd_q`` returned. Those carry the forward's dropout, so
+    of the t keys (q_lo + n by default) from q (b, h, n, d), the output
+    cotangent ``grad`` and the ``ds`` and ``mix`` that ``sparse_3dna_bwd_q``
+    returned, the queries [q_lo, q_lo + n) of the window, whose pairs alone
+    are summed. Those carry the forward's dropout, so
     the function is the same with or without it; ``dropout`` only counts
     the launch as a dropout launch. ``tiles``: key tiles (rows, columns, 0)
     taken in place of the rule's, as ``sparse_3dna_fwd``'s."""
@@ -700,23 +769,29 @@ def sparse_3dna_bwd_kv(q, grad, ds, mix, *, fmap, kernel, dilation, mode="causal
     if q.device.type == "cpu":
         return sparse_3dna_bwd_kv_plain(
             q, grad, ds, mix, fmap=fmap, kernel=kernel, dilation=dilation, mode=mode,
+            q_lo=q_lo, t=t,
         )
-    b, h, t, d = q.shape
-    slots = (b, h, t, kernel[0] * kernel[1] * kernel[2] + 1)
+    b, h, n, d = q.shape
+    t = q_lo + n if t is None else t
+    _check_window("sparse_3dna_bwd_kv", n, t, fmap, mode, q_lo, 0)
+    slots = (b, h, n, kernel[0] * kernel[1] * kernel[2] + 1)
     _check_cuda("sparse_3dna_bwd_kv", q, fmap, kernel, dilation, [
-        ("grad", grad, (b, h, t, d), q.dtype),
+        ("grad", grad, (b, h, n, d), q.dtype),
         ("ds", ds, slots, torch.float32), ("mix", mix, slots, torch.float32),
-    ])
+    ], t)
     ins = [x.contiguous() for x in (q, grad, ds, mix)]
-    dk = torch.empty_like(ins[0])
-    dv = torch.empty_like(ins[0])
-    if t > 0:
-        geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
-        _, plan_arg = _plan_args("bwd_kv", q, geometry, [*ins[:2], dk, dv], tiles)
-        _launch("sparse3dna_bwd_kv", q.dtype,
-                [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
-                [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode]], q.device, [plan_arg])
-        _count(sparse_3dna_bwd_kv, mode, dropout)
+    if n == 0:  # no pair: every key's sums are 0
+        return q.new_zeros(b, h, t, d), q.new_zeros(b, h, t, d)
+    dk = q.new_empty(b, h, t, d)
+    dv = q.new_empty(b, h, t, d)
+    # the plan's key tiles cover the t keys
+    geometry = dict(fmap=fmap, kernel=kernel, dilation=dilation, mode=mode)
+    _, plan_arg = _plan_args("bwd_kv", dk, geometry, [*ins[:2], dk, dv], tiles)
+    _launch("sparse3dna_bwd_kv", q.dtype,
+            [*(x.data_ptr() for x in ins), dk.data_ptr(), dv.data_ptr()],
+            [b, h, t, d, *fmap, *kernel, *dilation, MODES[mode], q_lo, q_lo + n], q.device,
+            [plan_arg])
+    _count(sparse_3dna_bwd_kv, mode, dropout)
     return dk, dv
 
 
@@ -740,34 +815,37 @@ class Sparse3DNAFunction(torch.autograd.Function):
     (``sparse_3dna_bwd_kv``), as the JAX package's ``_core_op`` does with its
     two Pallas kernels. The rel-pos bias gradient comes back as (h, Kn), and
     autograd chains it to the axial tables that built the bias. The dropout
-    (rate, seed) is kept beside the geometry: the backward draws the
-    forward's mask again from it."""
+    (rate, seed) and the query window (q_lo, tok0) are kept beside the
+    geometry: the backward draws the forward's mask again from them."""
 
     @staticmethod
-    def forward(ctx, q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry, dropout):
+    def forward(ctx, q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry, dropout, window):
+        q_lo, tok0 = window
         out, lse = sparse_3dna_fwd(q, k, v, k_bos, v_bos, talking_heads, rel_bias,
-                                   dropout=dropout, **geometry)
+                                   dropout=dropout, q_lo=q_lo, tok0=tok0, **geometry)
         ctx.save_for_backward(q, k, v, k_bos, v_bos, talking_heads, rel_bias, lse)
-        ctx.geometry, ctx.dropout = geometry, dropout
+        ctx.geometry, ctx.dropout, ctx.window = geometry, dropout, window
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, k_bos, v_bos, th, rel_bias, lse = ctx.saved_tensors
         geo, grad = dict(ctx.geometry, dropout=ctx.dropout), grad.to(q.dtype)
+        q_lo, tok0 = ctx.window
         dq, ds, mix, dk_bos, dv_bos, dth, dbias = sparse_3dna_bwd_q(
-            q, k, v, k_bos, v_bos, th, rel_bias, grad, lse, **geo
+            q, k, v, k_bos, v_bos, th, rel_bias, grad, lse, q_lo=q_lo, tok0=tok0, **geo
         )
-        dk, dv = sparse_3dna_bwd_kv(q, grad, ds, mix, **geo)
+        dk, dv = sparse_3dna_bwd_kv(q, grad, ds, mix, q_lo=q_lo, t=k.shape[2], **geo)
         dbias = dbias.to(rel_bias.dtype) if rel_bias is not None else None
-        return dq, dk, dv, dk_bos, dv_bos, dth.to(th.dtype), dbias, None, None
+        return dq, dk, dv, dk_bos, dv_bos, dth.to(th.dtype), dbias, None, None, None
 
 
 def sparse_3dna(q, k, v, k_bos, v_bos, talking_heads, rel_bias=None,
-                *, fmap, kernel, dilation, mode="causal", dropout=None):
+                *, fmap, kernel, dilation, mode="causal", dropout=None, q_lo=0, tok0=0):
     """``sparse_3dna_fwd``'s output, differentiable in every tensor argument,
-    in every geometry, with or without dropout ((rate, seed) or None)."""
+    in every geometry, with or without dropout ((rate, seed) or None), over
+    the query window (``q_lo``, ``tok0``) or the whole sequence."""
     geometry = dict(fmap=tuple(fmap), kernel=tuple(kernel), dilation=tuple(dilation),
                     mode=mode)
     return Sparse3DNAFunction.apply(q, k, v, k_bos, v_bos, talking_heads, rel_bias, geometry,
-                                    _dropout(dropout))
+                                    _dropout(dropout), (int(q_lo), int(tok0)))

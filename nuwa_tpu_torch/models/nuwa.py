@@ -173,7 +173,7 @@ class NUWA(nn.Module):
     # ---- decoder core -----------------------------------------------------
 
     def _decode_logits(self, frame_indices_input, text_embeds, text_mask, *, train=False,
-                       seed=None):
+                       seed=None, cp_mesh=None):
         """frame_indices_input: (b, n) tokens, already shifted for teacher
         forcing; returns (b, n + 1, vocab) logits."""
         b, n = frame_indices_input.shape
@@ -184,11 +184,11 @@ class NUWA(nn.Module):
         if self.dtype is not None:
             emb = emb.to(self.dtype)
         out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask,
-                                     seed=seed)
+                                     seed=seed, cp_mesh=cp_mesh)
         return head_logits(out, self.to_logits)
 
     def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
-                train=False, generator=None, uncond=None, row0=0):
+                train=False, generator=None, uncond=None, row0=0, cp_mesh=None):
         """Teacher-forced logits of a video given text ids, or with
         ``return_loss`` the mean cross-entropy of predicting each token from
         the ones before it (the input is shifted by one, so the decoder sees
@@ -203,7 +203,9 @@ class NUWA(nn.Module):
         ``generator`` too, and the text encoder's and the decoder's layers
         take seeds derived from it. ``row0``: the batch is rows [row0, row0 +
         b) of a global batch (a rank's share under data parallelism), and
-        the dropout masks key its rows as those global rows.
+        the dropout masks key its rows as those global rows. ``cp_mesh``:
+        the decoder's Sparse3DNA layers split their frames over a mesh axis
+        (context parallelism: ``nda.Sparse3DNA.forward``).
         """
         text = self._ids(text)
         b = text.shape[0]
@@ -217,7 +219,8 @@ class NUWA(nn.Module):
                                     device=self.device)
         if train and uncond is not None:
             text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
-        logits = self._decode_logits(inp, text_embeds, text_mask, train=train, seed=dec_seed)
+        logits = self._decode_logits(inp, text_embeds, text_mask, train=train, seed=dec_seed,
+                                     cp_mesh=cp_mesh)
         if not return_loss:
             return logits
         return cross_entropy(logits, frame_indices)

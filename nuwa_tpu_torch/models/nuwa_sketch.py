@@ -124,11 +124,13 @@ class NUWASketch(nn.Module):
 
     # ---- sketch encoder ---------------------------------------------------
 
-    def embed_sketch(self, sketch, mask=None, *, train=False, seed=None):
+    def embed_sketch(self, sketch, mask=None, *, train=False, seed=None, cp_mesh=None):
         """sketch (b, f, c, h, w) pixels, or (b, c, h, w) for one frame;
         mask (b, f) bool, False for a padded sketch frame; seed: the sketch
-        encoder's dropout seed, or None. Returns the encoded sketch tokens
-        (b, f * HW, dim) and their mask (b, f * HW)."""
+        encoder's dropout seed, or None; cp_mesh: a centered Sparse3DNA
+        encoder splits its frames over a mesh axis (context parallelism).
+        Returns the encoded sketch tokens (b, f * HW, dim) and their mask
+        (b, f * HW)."""
         sketch = self._pixels(sketch)
         if sketch.ndim == 4:
             sketch = sketch[:, None]
@@ -149,7 +151,8 @@ class NUWASketch(nn.Module):
             token_mask = mask.repeat_interleave(n // frames, dim=1)
         else:
             token_mask = torch.ones(b, n, dtype=torch.bool, device=self.device)
-        return self.sketch_transformer(tokens, mask=token_mask, seed=seed), token_mask
+        embeds = self.sketch_transformer(tokens, mask=token_mask, seed=seed, cp_mesh=cp_mesh)
+        return embeds, token_mask
 
     def _sketch_context(self, sketch, sketch_mask, use_cfg):
         """The decoder's context and its mask; under classifier-free guidance
@@ -162,7 +165,7 @@ class NUWASketch(nn.Module):
     # ---- decoder core -----------------------------------------------------
 
     def _decode_logits(self, frame_indices_input, sketch_embeds, context_mask, *, train=False,
-                       seed=None):
+                       seed=None, cp_mesh=None):
         """frame_indices_input: (b, n) video tokens, already shifted for
         teacher forcing; seed: the decoder's dropout seed, or None. Returns
         (b, n + 1, vocab) logits."""
@@ -173,11 +176,11 @@ class NUWASketch(nn.Module):
         if self.dtype is not None:
             emb = emb.to(self.dtype)
         out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask,
-                                     seed=seed)
+                                     seed=seed, cp_mesh=cp_mesh)
         return head_logits(out, self.to_logits)
 
     def forward(self, sketch, video, *, sketch_mask=None, return_loss=False,
-                cond_dropout_prob=0.2, train=False, generator=None, uncond=None):
+                cond_dropout_prob=0.2, train=False, generator=None, uncond=None, cp_mesh=None):
         """Teacher-forced logits (b, F * HW + 1, vocab) of the tokens of
         ``video`` (b, F, c, h, w) pixels, F = max_video_frames, given the
         sketch; or with ``return_loss`` the mean cross-entropy of predicting
@@ -187,13 +190,15 @@ class NUWASketch(nn.Module):
         from ``generator``, or where ``uncond`` (b,) bool says so. With an
         ``attn_dropout`` or ``ff_dropout`` it draws one dropout seed from
         ``generator`` first, and the sketch encoder and the decoder take
-        seeds derived from it."""
+        seeds derived from it. ``cp_mesh``: the Sparse3DNA layers of the
+        decoder and of a centered encoder split their frames over a mesh
+        axis (context parallelism)."""
         video = self._pixels(video)
         if video.shape[1] != self.max_video_frames:
             raise ValueError(f"video needs all {self.max_video_frames} frames")
         sketch_seed, dec_seed = dropout_seeds(self, train, generator, 2)
         sketch_embeds, context_mask = self.embed_sketch(sketch, sketch_mask, train=train,
-                                                        seed=sketch_seed)
+                                                        seed=sketch_seed, cp_mesh=cp_mesh)
         b = video.shape[0]
         with torch.no_grad():
             frame_indices = self.vae.get_video_indices(video).reshape(b, -1)
@@ -205,7 +210,7 @@ class NUWASketch(nn.Module):
             uncond = torch.as_tensor(uncond, device=self.device)
             context_mask = context_mask & ~uncond[:, None]
         logits = self._decode_logits(inp, sketch_embeds, context_mask, train=train,
-                                     seed=dec_seed)
+                                     seed=dec_seed, cp_mesh=cp_mesh)
         if not return_loss:
             return logits
         return cross_entropy(logits, frame_indices)

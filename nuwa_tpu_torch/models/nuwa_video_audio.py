@@ -184,15 +184,16 @@ class NUWAVideoAudio(nn.Module):
         emb = self.audio_embedding(indices, train=train) + self.audio_pos_emb()[:n][None]
         return self._cast(torch.cat([self.audio_bos.expand(b, 1, self.dim), emb], dim=1))
 
-    def _decode(self, video_inp, audio_inp, text_embeds, text_mask, *, train=False, seed=None):
+    def _decode(self, video_inp, audio_inp, text_embeds, text_mask, *, train=False, seed=None,
+                cp_mesh=None):
         v = self._embed_video_tokens(video_inp, train)
         a = self._embed_audio_tokens(audio_inp, train)
         v, a = self.video_audio_transformer(v, a, context=text_embeds, context_mask=text_mask,
-                                            seed=seed)
+                                            seed=seed, cp_mesh=cp_mesh)
         return head_logits(v, self.to_video_logits), head_logits(a, self.to_audio_logits)
 
     def forward(self, text, video, audio, *, return_loss=False, cond_dropout_prob=0.2,
-                train=False, generator=None, uncond=None):
+                train=False, generator=None, uncond=None, cp_mesh=None):
         """Teacher-forced (video logits, audio logits) given text ids, or
         with ``return_loss`` the video loss plus ``audio_loss_weight`` times
         the audio loss, each the mean cross-entropy of predicting every
@@ -203,7 +204,9 @@ class NUWAVideoAudio(nn.Module):
         ``generator`` or where ``uncond`` (b,) bool says so, and with
         ``attn_dropout`` or ``ff_dropout`` draws one dropout seed from
         ``generator``, from which the encoder's and the decoder's layers
-        take theirs."""
+        take theirs. ``cp_mesh``: the video stream's Sparse3DNA layers split
+        their frames over a mesh axis (context parallelism); the audio
+        stream runs whole."""
         text = self._ids(text)
         b = text.shape[0]
         text_mask = text != 0
@@ -219,7 +222,8 @@ class NUWAVideoAudio(nn.Module):
         if train and uncond is not None:
             text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
         video_logits, audio_logits = self._decode(video_inp, audio_inp, text_embeds,
-                                                  text_mask, train=train, seed=dec_seed)
+                                                  text_mask, train=train, seed=dec_seed,
+                                                  cp_mesh=cp_mesh)
         if not return_loss:
             return video_logits, audio_logits
         return (cross_entropy(video_logits, frame_indices)

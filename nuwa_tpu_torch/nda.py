@@ -109,7 +109,8 @@ class Sparse3DNA(nn.Module):
     Keys at or past the sequence end, which centered windows reach in a
     ragged last frame, are masked. A token mask is not taken: every token is
     attended, as in the JAX module. ``dropout`` is the attention dropout
-    rate, applied with a seed."""
+    rate, applied with a seed. With ``cp_mesh`` its frames are split over a
+    mesh axis (context parallelism)."""
 
     def __init__(self, dim, video_shape, kernel_size=3, dilation=1, heads=8,
                  dim_head=64, causal=False, rel_pos_bias=False, dropout=0.0):
@@ -139,27 +140,25 @@ class Sparse3DNA(nn.Module):
         """(heads, Kn) bias over window positions, or None."""
         return None if self.rel_pos_bias is None else self.rel_pos_bias().T
 
-    def forward(self, x, *, seed=None, **_):
-        b, n, _ = x.shape
-        h = self.heads
-        t = n - 1  # video tokens after bos
-        k, v = self.to_kv(x).chunk(2, dim=-1)
-        if t == 0:  # bos only: it adopts its own value
-            return self.to_out(v)
-
-        q = split_heads(self.to_q(x), h) * self.dim_head**-0.5
-        k, v = split_heads(k, h), split_heads(v, h)
-        q, bos_v_out = q[:, :, 1:], v[:, :, :1]
-        k_bos, k = k[:, :, :1], k[:, :, 1:]
-        v_bos, v = v[:, :, :1], v[:, :, 1:]
-
-        out = sparse_3dna(
-            q, k, v, k_bos, v_bos, self.talking_heads, self.rel_bias(),
-            fmap=self.video_shape[1:], kernel=self.kernel, dilation=self.dilations,
-            mode="causal" if self.causal else "centered", dropout=(self.dropout, kernel_seed(seed)),
+    def forward(self, x, *, seed=None, cp_mesh=None, cp_axis="data", **_):
+        """``cp_mesh``: context parallelism, the frames over a mesh axis
+        (``parallel.context_parallel``): over 'context' on a mesh whose
+        'context' axis is above 1 (the batch then over 'data'), else over
+        ``cp_axis``, or (frame axis, batch axis) where ``cp_axis`` is a
+        tuple, as the JAX module routes them. Without a mesh the layer runs
+        the same step over an axis of one rank."""
+        from .parallel.context_parallel import (
+            axis_comm,
+            context_parallel_sparse_3dna,
+            cp_axes,
+            cp_step,
         )
-        out = torch.cat([bos_v_out, out], dim=2)
-        return self.to_out(merge_heads(out))
+
+        if cp_mesh is None:
+            return cp_step(self, x, axis_comm(self, x.shape[1] - 1), seed=seed)
+        frame_axis, data_axis = cp_axes(cp_mesh, cp_axis)
+        return context_parallel_sparse_3dna(self, x, cp_mesh, frame_axis, seed=seed,
+                                            data_axis=data_axis)
 
 
 class SparseCausal2DNA(nn.Module):

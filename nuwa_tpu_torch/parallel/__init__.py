@@ -1,7 +1,9 @@
-"""Data and tensor parallelism and ZeRO-1 on ``torch.distributed``.
+"""Data, tensor and context parallelism and ZeRO-1 on ``torch.distributed``.
 
-Counterpart of ``nuwa_tpu/parallel`` without its context and pipeline
-parallelism (``context_parallel.py``, ``pipeline.py``: ROADMAP A8b).
+Counterpart of ``nuwa_tpu/parallel`` without its pipeline (``pipeline.py``:
+ROADMAP A8b-PP). As in the JAX package, the context-parallel function is
+not exported here: it lives at
+``nuwa_tpu_torch.parallel.context_parallel.context_parallel_sparse_3dna``.
 """
 from .mesh import Sharding, data_sharding, make_mesh, replicated
 from .sharding import (

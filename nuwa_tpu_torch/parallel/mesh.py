@@ -5,7 +5,10 @@ program over a ``jax.sharding.Mesh`` and XLA inserts the collectives; the
 port runs one process a rank, every rank the same code, over a
 ``torch.distributed`` device mesh with the axes ``("data", "model")``: the
 batch over ``data``, the TP rules' parameter splits over ``model``
-(``parallel.sharding``). The ranks talk over NCCL on the card and over gloo
+(``parallel.sharding``), or ``("data", "model", "context")`` with the
+frames of the Sparse3DNA attention over ``context``
+(``parallel.context_parallel``). The pipeline's ``pipe`` axis is not in the
+port yet (ROADMAP A8b-PP). The ranks talk over NCCL on the card and over gloo
 on the CPU (the tests); a mesh on ``cuda`` needs NCCL and never falls back.
 
 ``Sharding(mesh, spec)`` takes the place of ``NamedSharding``: ``spec`` a
@@ -19,18 +22,22 @@ import torch.distributed as dist
 from ..core.tp import Shard
 
 AXES = ("data", "model")
+CP_AXES = ("data", "model", "context")
 
 
 def make_mesh(data: int = -1, model: int = 1, context: int = 1, pipe: int = 1,
               device: str = "cuda"):
     """A ("data", "model") device mesh over the initialised process group's
-    ranks (rank = data index * model + model index); ``data=-1`` takes the
-    rest of the world. ``device="cpu"`` builds it on the CPU over gloo (the
-    tests); on ``cuda`` the group's backend must be NCCL."""
-    if context > 1 or pipe > 1:
+    ranks (rank = data index * model + model index), or with ``context > 1``
+    a ("data", "model", "context") one (DPxCP: the batch over 'data', the
+    frames over 'context'; rank = (data index * model + model index) *
+    context + context index, JAX's ``reshape(data, model, context)``);
+    ``data=-1`` takes the rest of the world. ``device="cpu"`` builds it on
+    the CPU over gloo (the tests); on ``cuda`` the group's backend must be
+    NCCL. ``pipe > 1`` raises: the pipeline is not in the port yet."""
+    if pipe > 1:
         raise NotImplementedError(
-            "context and pipeline parallelism (the 'context' and 'pipe' axes) are "
-            "not in the port yet (ROADMAP A8b)")
+            "pipeline parallelism (the 'pipe' axis) is not in the port yet (ROADMAP A8b-PP)")
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     backend = dist.get_backend()
@@ -40,11 +47,14 @@ def make_mesh(data: int = -1, model: int = 1, context: int = 1, pipe: int = 1,
                            f"group has {backend}")
     n = dist.get_world_size()
     if data == -1:
-        assert n % model == 0, f"{n} devices not divisible by model={model}"
-        data = n // model
-    assert data * model == n, f"mesh {data}x{model} != {n} devices"
+        assert n % (model * context) == 0, (
+            f"{n} devices not divisible by model*context={model * context}")
+        data = n // (model * context)
+    assert data * model * context == n, f"mesh {data}x{model}x{context} != {n} devices"
     from torch.distributed.device_mesh import init_device_mesh
 
+    if context > 1:
+        return init_device_mesh(device, (data, model, context), mesh_dim_names=CP_AXES)
     return init_device_mesh(device, (data, model), mesh_dim_names=AXES)
 
 

@@ -43,8 +43,15 @@ moments over 'data' (``parallel.Zero1AdamW``; it needs a 'data' axis above
 files. A checkpoint gathers every split tensor, rank 0 writes the file the
 unmeshed trainer writes, and a resume loads it and splits it again, so a
 meshed and an unmeshed trainer resume each other's files.
-``context_parallel``, ``pipeline_parallel`` and ``pipeline_microbatches``
-(context and pipeline parallelism, ROADMAP A8b) raise.
+
+``context_parallel=True`` (it needs a mesh) splits the frames of the
+decoder's Sparse3DNA layers over the mesh (``NUWA.forward(cp_mesh=)``), as
+the JAX trainer does: on a ("data", "model") mesh the frames ride 'data'
+and every rank takes the whole batch (its gradients are then the whole
+batch's on every rank, and no average over 'data' follows); on a mesh with
+a 'context' axis (``make_mesh(context=)``) the frames ride 'context' and the
+batch is split over 'data' as above (DPxCP). ``pipeline_parallel`` and
+``pipeline_microbatches`` (the pipeline, ROADMAP A8b-PP) raise.
 """
 from __future__ import annotations
 
@@ -89,16 +96,24 @@ class NUWATrainer:
                  pipeline_parallel=False, pipeline_microbatches=1, zero1=False):
         if (save_model_every is not None or resume) and results_folder is None:
             raise ValueError("save_model_every and resume need a results_folder")
-        if context_parallel or pipeline_parallel or pipeline_microbatches != 1:
-            raise NotImplementedError("context and pipeline parallelism are not in the port "
-                                      "yet (ROADMAP A8b)")
+        if pipeline_parallel or pipeline_microbatches != 1:
+            raise NotImplementedError("pipeline parallelism is not in the port yet "
+                                      "(ROADMAP A8b-PP)")
+        if context_parallel and mesh is None:
+            raise ValueError("context_parallel requires a mesh")
         if zero1 and (mesh is None or axis_size(mesh, "data") <= 1):
             raise ValueError("zero1 requires a mesh with a 'data' axis > 1")
-        if mesh is not None:
+        # the batch over 'data', but for CP on a mesh without 'context', whose
+        # 'data' axis carries the frames
+        self.data_parallel = mesh is not None and (
+            not context_parallel or axis_size(mesh, "context") > 1)
+        if self.data_parallel:
             dp = axis_size(mesh, "data")
             assert batch_size % dp == 0, f"batch_size {batch_size} not divisible by data axis {dp}"
+        if mesh is not None:
             shard_params(nuwa, mesh)
         self.mesh = mesh
+        self.cp_mesh = mesh if context_parallel else None
         self.main = mesh is None or dist.get_rank() == 0  # prints and writes the files
         self.nuwa = nuwa
         self.save_model_every = save_model_every
@@ -256,7 +271,7 @@ class NUWATrainer:
         texts, videos = (torch.as_tensor(x, device=self.nuwa.device) for x in next(self.dl))
         batch = texts.shape[1]
         # this rank's rows of the global batch
-        rows = slice(None) if self.mesh is None else data_rows(self.mesh, batch)
+        rows = data_rows(self.mesh, batch) if self.data_parallel else slice(None)
         loss_sum = 0.0
         for text, video in zip(texts, videos):
             uncond = None  # the condition dropout, drawn for the global batch
@@ -265,10 +280,10 @@ class NUWATrainer:
                                         generator=self.generator, device=self.nuwa.device)[rows]
             loss = self.nuwa(text[rows], video[rows], return_loss=True, train=True,
                              cond_dropout_prob=self.cond_dropout_prob, generator=self.generator,
-                             uncond=uncond, row0=rows.start or 0)
+                             uncond=uncond, row0=rows.start or 0, cp_mesh=self.cp_mesh)
             (loss / self.grad_accum_every).backward()
             loss_sum = loss_sum + loss.detach()
-        if self.mesh is not None:
+        if self.data_parallel:
             all_reduce_grads_(self.params, self.mesh)
             loss_sum = all_reduce_mean(loss_sum, self.mesh)
         if self.max_grad_norm is not None:

@@ -3,7 +3,10 @@ feed-forward], each block in a sandwich norm, and a final StableLayerNorm.
 
 Counterpart of ``Transformer`` (a residual around every block) and
 ``ReversibleTransformer`` (the blocks run as reversible couples) of
-``nuwa_tpu/transformer.py``, with their ``attn_dropout`` and ``ff_dropout``.
+``nuwa_tpu/transformer.py``, with their ``attn_dropout`` and ``ff_dropout``
+and ``BindCP``. A Sparse3DNA stack's ``forward(..., cp_mesh=...)`` splits
+each self-attention's frames over a mesh axis (context parallelism,
+``parallel.context_parallel``); the other blocks run whole.
 A stack's ``forward(..., seed=...)`` gives each layer a dropout seed of its
 own, as the JAX stacks split one key a layer: one a menu entry in
 ``Transformer``, one for f and one for g of each couple in
@@ -34,6 +37,22 @@ class Sandwich(nn.Module):
 
     def forward(self, x, **kw):
         return self.post(self.inner(self.pre(x), **kw))
+
+
+class BindCP(nn.Module):
+    """A block with a context-parallel mesh bound in: every call passes
+    ``cp_mesh`` on to it. The reversible stacks route only tensors through
+    their couples, so they bind the mesh into the self-attention instead, a
+    new binding each call; the recompute in the backward calls it again, and
+    its halo exchange with it."""
+
+    def __init__(self, inner, cp_mesh):
+        super().__init__()
+        self.inner = inner
+        self.cp_mesh = cp_mesh
+
+    def forward(self, x, **kw):
+        return self.inner(x, cp_mesh=self.cp_mesh, **kw)
 
 
 class ShiftVideo(nn.Module):
@@ -143,6 +162,7 @@ class Transformer(nn.Module):
                  attn_dropout=0.0, ff_dropout=0.0, ff_chunk_size=None):
         super().__init__()
         self.dim = dim
+        self.sparse_3dna_attn = sparse_3dna_attn
         self._assemble(_build_layer_menu(
             dim, depth, heads=heads, dim_head=dim_head, causal=causal,
             cross_attend=cross_attend,
@@ -165,11 +185,13 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList([m for _, m in menu])
 
     def forward(self, x, *, mask=None, context=None, context_mask=None,
-                rotary_pos_emb=None, seed=None):
+                rotary_pos_emb=None, seed=None, cp_mesh=None):
         seeds = split_seed(seed, len(self.layers))
         for kind, layer, s in zip(self.kinds, self.layers, seeds):
             if kind == "self":
                 kw = dict(mask=mask, rotary_pos_emb=rotary_pos_emb)
+                if cp_mesh is not None and self.sparse_3dna_attn:
+                    kw["cp_mesh"] = cp_mesh
             elif kind == "cross":
                 kw = dict(context=context, context_mask=context_mask)
             else:
@@ -214,9 +236,11 @@ class ReversibleTransformer(Transformer):
         self.layers = nn.ModuleList(couples)
 
     def forward(self, x, *, mask=None, context=None, context_mask=None,
-                rotary_pos_emb=None, reverse=True, seed=None):
+                rotary_pos_emb=None, reverse=True, seed=None, cp_mesh=None):
         seeds = split_seed(seed, 2 * len(self.layers))  # f0, g0, f1, g1, ...
-        couples = [(c.f, _ROUTES[kind], c.g, (), (seeds[2 * i], seeds[2 * i + 1]))
+        bind = cp_mesh is not None and self.sparse_3dna_attn
+        couples = [(BindCP(c.f, cp_mesh) if bind and kind == "self" else c.f,
+                    _ROUTES[kind], c.g, (), (seeds[2 * i], seeds[2 * i + 1]))
                    for i, (kind, c) in enumerate(zip(self.kinds, self.layers))]
         kwargs = dict(mask=mask, context=context, context_mask=context_mask,
                       rotary_pos_emb=rotary_pos_emb)

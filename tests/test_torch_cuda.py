@@ -997,3 +997,64 @@ def test_codec_training_on_the_card_matches_the_cpu():
     for name, value in states["cpu"].items():
         assert (states["cuda"][name] - value).abs().max().item() <= 1e-4, name
     assert states["cuda"]["initted"].item() == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mode", ["causal", "centered"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_sparse3dna_windowed_kernels_match_plain(dtype, tol, mode, rate):
+    """B1-B3 over the query windows of the 3 shards of a context-parallel
+    layout (``parallel.context_parallel.shard_layout``: 7 frames of 4 x 4
+    less one token, dilation (2, 1, 1), a halo of 2 frames back and, centered,
+    ahead), ``q_lo`` and ``tok0``, against their windowed plain versions on
+    the same inputs: errors relative to each reference's max abs, as
+    test_sparse3dna_backward_kernels_match_plain holds them."""
+    from nuwa_tpu_torch.parallel.context_parallel import shard_layout
+
+    _needs_cuda()
+    t, kernel, dilation = 7 * 16 - 1, (3, 3, 3), (2, 1, 1)
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(dtype, t, kn=27, seed=3)
+    geo = dict(fmap=(4, 4), kernel=kernel, dilation=dilation, mode=mode,
+               dropout=(rate, 77) if rate else None)
+    reach = (4, 0) if mode == "causal" else (2, 2)
+    names = ("out", "lse", "dq", "ds", "mix", "dk_bos", "dv_bos", "dth", "dbias", "dk", "dv")
+    for (lo, hi), (k_lo, k_hi) in shard_layout(t, 16, 3, *reach)[1]:
+        a = (q[:, :, lo:hi], k[:, :, k_lo:k_hi], v[:, :, k_lo:k_hi], kb, vb, th, rel)
+        gs = g[:, :, lo:hi]
+        win = dict(geo, q_lo=lo - k_lo, tok0=k_lo)
+        kv_win = dict(geo, q_lo=lo - k_lo, t=k_hi - k_lo)
+        got = knda.sparse_3dna_fwd(*a, **win)
+        want = knda.sparse_3dna_fwd_plain(*a, **win)
+        got += knda.sparse_3dna_bwd_q(*a, gs, want[1], **win)
+        want += knda.sparse_3dna_bwd_q_plain(*a, gs, want[1], **win)
+        got += knda.sparse_3dna_bwd_kv(a[0], gs, want[3], want[4], **kv_win)
+        want += knda.sparse_3dna_bwd_kv_plain(a[0], gs, want[3], want[4], **kv_win)
+        torch.cuda.synchronize()
+        for name, x, w in zip(names, got, want):
+            assert x.dtype == w.dtype and x.shape == w.shape, name
+            err = (x.float() - w.float()).abs().max().item()
+            bound = (tol if w.dtype == dtype else 1e-5) * max(1.0, w.float().abs().max().item())
+            assert err <= bound, f"{name} [{lo}, {hi}): max abs err {err} > {bound}"
+
+
+@pytest.mark.cuda
+def test_windows_the_kernels_do_not_take_raise():
+    """A staged tile (its kernels take the whole sequence only) and the
+    audio geometry raise on a query window; nothing falls back to a plain
+    version."""
+    _needs_cuda()
+    q, k, v, kb, vb, th, rel, g = _bwd_inputs(torch.bfloat16, 64, kn=27)
+    geo = dict(fmap=(4, 4), kernel=(3, 3, 3), dilation=(1, 1, 1))
+    before = knda.sparse_3dna_fwd.launches
+    with pytest.raises(ValueError, match="staged"):
+        knda.sparse_3dna_fwd(q[:, :, 16:], k, v, kb, vb, th, rel, q_lo=16, tiles=[(2, 2, 2)],
+                             **geo)
+    with pytest.raises(ValueError, match="staged"):
+        knda.sparse_3dna_bwd_q(q[:, :, 16:], k, v, kb, vb, th, rel, g[:, :, 16:],
+                               torch.zeros(2, 4, 48, device="cuda"), q_lo=16,
+                               tiles=[(2, 2, 2)], **geo)
+    audio = dict(fmap=(1, 4), kernel=(3, 1, 4), dilation=(1, 1, 1), mode="audio")
+    with pytest.raises(ValueError, match="audio"):
+        knda.sparse_3dna_fwd(q, k, v, kb, vb, th, None, tok0=16, **audio)
+    assert knda.sparse_3dna_fwd.launches == before

@@ -9,21 +9,22 @@ unmeshed checkpoint resumed under ``zero1``; cached
 serving its half, fp32, bf16 and int8.
 
 One group of four processes runs every case once for the file (the
-``runs`` fixture, each rank running this file as a script over a
-``FileStore`` under the test's tmp dir) while this process computes the
-unmeshed references; each test asserts one case. Tolerances are those of
+``runs`` fixture, each rank running this file as a script through
+tests/test_torch_gloo.py's ``spawn_group``, which fails the group at once
+when a rank fails and within 300 s in all) while this process computes the
+unmeshed references; each test asserts one case. The ranks also build a
+("data", "model", "context") mesh. Tolerances are those of
 the JAX package's tests/test_parallel.py: losses rtol 2e-4, parameters
 atol 3e-5 / rtol 3e-4; sampled ids equal.
 """
-import os
 import shutil
-import subprocess
 import sys
 from contextlib import nullcontext
 
 import numpy as np
 import pytest
 import torch
+from test_torch_gloo import init_rank, run_rank, spawn_group
 
 WORLD = 4
 CFG = dict(dim=16, image_size=2, num_image_tokens=16, max_video_frames=2, text_num_tokens=32,
@@ -210,17 +211,19 @@ def _serve_unmeshed(which, dtype):
     return [torch.cat(parts) for parts in zip(*halves)]
 
 
-def _worker(rank, tmp):
+def _worker(rank, world, tmp):
     """One rank: every case on the (data 2, model 2) mesh; rank 0 saves."""
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
-                            world_size=WORLD)
+    init_rank(rank, world, tmp)
     from nuwa_tpu_torch.parallel import make_mesh
 
+    cp_mesh = make_mesh(data=1, model=2, context=2, device="cpu")
     mesh = make_mesh(data=2, model=2, device="cpu")
-    out = {name: _train(mesh, name) for name in TRAINERS}
+    out = {"cp_mesh": (cp_mesh.mesh_dim_names, tuple(cp_mesh.shape),
+                       cp_mesh.get_local_rank("context"))}
+    out.update({name: _train(mesh, name) for name in TRAINERS})
     out["sgd"] = _sgd_step(mesh)
     out["meshed_saves"] = _two_steps_saved(mesh, f"{tmp}/meshed")
     out["meshed_resumes"] = _resumed_step(mesh, f"{tmp}/unmeshed_copy")
@@ -238,19 +241,14 @@ def runs(tmp_path_factory):
     # an unmeshed checkpoint for the meshed trainers to resume
     unmeshed = {"saves": _two_steps_saved(None, tmp / "unmeshed")}
     shutil.copytree(tmp / "unmeshed", tmp / "unmeshed_copy")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
-    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(tmp)], env=env)
-             for rank in range(WORLD)]
-    try:
+
+    def references():
         unmeshed.update({name: _train(None, name) for name in TRAINERS if name != "zero1"})
         unmeshed["zero1"] = unmeshed["plain"]  # ZeRO-1 does not change the math
         unmeshed["sgd"] = _sgd_step(None)
         unmeshed["serving"] = {case: _serve_unmeshed(*case) for case in SERVING}
-        codes = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert codes == [0] * WORLD, codes
+
+    spawn_group(__file__, WORLD, tmp, work=references)
     meshed = torch.load(tmp / "meshed.pt")
     # the unmeshed trainer resumes the meshed trainers' checkpoint
     unmeshed["resumes"] = _resumed_step(None, tmp / "meshed")
@@ -318,16 +316,25 @@ def test_tp_serving_generate_ids_equal_unmeshed(runs, case):
         np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-def test_mesh_options_that_belong_to_a8b_raise():
+def test_mesh_options_that_belong_to_a8b_raise(runs):
+    """The pipeline (A8b-PP) raises; ``context=`` builds a ("data",
+    "model", "context") mesh in JAX's rank order (rank = (data * model +
+    model index) * context + context index), as the ranks found."""
     from nuwa_tpu_torch.parallel import make_mesh
 
     with pytest.raises(NotImplementedError):
-        make_mesh(data=1, context=2, device="cpu")
+        make_mesh(data=1, pipe=2, device="cpu")
     with pytest.raises(NotImplementedError):
+        _trainer(None, pipeline_parallel=True)
+    with pytest.raises(NotImplementedError):
+        _trainer(None, pipeline_microbatches=2)
+    with pytest.raises(ValueError, match="context_parallel"):
         _trainer(None, context_parallel=True)
     with pytest.raises(ValueError, match="zero1"):
         _trainer(None, zero1=True)
+    names, shape, context_rank = runs[0]["cp_mesh"]  # rank 0's
+    assert (names, shape, context_rank) == (("data", "model", "context"), (1, 2, 2), 0)
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), sys.argv[2])
+    run_rank(_worker, sys.argv[1:])

@@ -16,16 +16,16 @@ within rtol 5e-4 / atol 1e-5, the tolerances of the JAX package's
 tests/test_parallel.py.
 
 Each group runs every case once (a module fixture, each rank running this
-file as a script over a ``FileStore`` under the test's tmp dir); each test
-asserts one case.
+file as a script through tests/test_torch_gloo.py's ``spawn_group``, which
+fails the group at once when a rank fails and within 300 s in all); each
+test asserts one case.
 """
-import os
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
+from test_torch_gloo import init_rank, run_rank, spawn_group
 
 VQ_CASES = {
     "ema": dict(kmeans_init=False),
@@ -130,8 +130,7 @@ def _worker(rank, world, tmp):
     import torch.distributed as dist
 
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
-                            world_size=world)
+    init_rank(rank, world, tmp)
     rows = _batch().chunk(world)[rank]
     group = dist.group.WORLD
     out = {case: _update(case, rows, batch_group=group) for case in VQ_CASES}
@@ -148,16 +147,7 @@ def _worker(rank, world, tmp):
 def _spawn(tmp, world, work):
     """Run the group of ``world`` ranks while ``work()`` runs here; returns
     (every rank's results, work's)."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
-    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(world), str(tmp)],
-                              env=env) for rank in range(world)]
-    try:
-        mine = work()
-        codes = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    assert codes == [0] * world, codes
+    mine = spawn_group(__file__, world, tmp, work=work)
     return [torch.load(f"{tmp}/rank{rank}.pt") for rank in range(world)], mine
 
 
@@ -224,4 +214,4 @@ def test_codec_trainer_on_a_mesh_matches_unmeshed(group4):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    run_rank(_worker, sys.argv[1:])
