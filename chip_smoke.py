@@ -150,8 +150,9 @@ Phases, each of which exits non-zero on failure:
    both take step 3: the same loss and parameters; the file's size and the
    save and load times;
 16. throughput: tokens/s of each serving request, NUWA's and NUWASketch's
-   (CUDA events, one more run after the serving phase's warm one), and the
-   device's busy share of a generate of each model;
+   (CUDA events around the serving phases' runs of the generates, the
+   sketch forward run once more), and the device's busy share of a
+   generate of each model;
 17. codec training (VQGanVAETrainer): (a) the README's codec and trainer
    at full width (VQGanVAE(dim=256, image_size=256, num_layers=4,
    vq_codebook_size=8192): GAN, random-weight VGG16 perceptual loss, k-means
@@ -195,6 +196,30 @@ Phases, each of which exits non-zero on failure:
    unsharded time; (c) NUWATrainer(context_parallel=True) at 128 px on a
    one-rank NCCL mesh, 2 steps against 2 unmeshed in turns: losses and
    parameters bit-equal, each step's launches checked.
+20. pipeline parallelism, after phase 19: (a) the stage body at full width,
+   the stages that each rank of 'pipe' runs chained in this process
+   (``parallel.pipeline.chained_transformer`` / ``chained_dual_decoder``:
+   stage 0's microbatch outputs stage 1's inputs, the backward in the
+   schedule's reverse order), 2 stages of 2 microbatches of b = 2, against
+   the unpipelined decoder: phase 8's 128-px reversible decoder in fp32
+   without and with dropout 0.1 (the same masks: each microbatch keyed by
+   its global rows and each slot by its layer) and in bf16, its plain
+   (``dec_reversible=False``) stack in fp32, and config 5's reversible
+   dual decoder (the quad carry, the audio geometry) at depth 12, the least
+   that splits into 2 identical stages; the outputs and every gradient,
+   and the launches of B1-B3 (the chained ones twice the unpipelined
+   ones); each stage's parameter and AdamW moment bytes against the whole
+   stack's; the bf16 chained step's CUDA-event ms beside the unpipelined
+   one's; (b) NUWATrainer(pipeline_parallel=True, pipeline_microbatches=2)
+   at 128 px on a one-rank NCCL ('data', 'pipe') mesh, 2 steps against 2
+   unmeshed in turns: losses and parameters bit-equal, each step's
+   launches checked. NCCL cannot put two ranks on one card: the
+   multi-rank arithmetic is held by the CPU tests
+   (tests/test_torch_parallel_pp.py).
+
+The CPU plain-path sides of the fp32 GPU-vs-CPU checks (phases 4-15) run
+in one spawned process (``CpuRefs``), all submitted at the start, while the
+card runs the phases; each check reads its side where it compares.
 
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -204,6 +229,7 @@ import contextlib
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import statistics
 import struct
@@ -262,6 +288,38 @@ CHECK_DEPTH = 3
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+REF_TIMEOUT = 900  # seconds a check waits for its CPU side
+
+
+class CpuRefs:
+    """The CPU plain-path sides of the GPU-vs-CPU checks, run in one spawned
+    process while the card runs the phases: each is submitted at the start
+    of main (its inputs made from seeds, as on the card) and read by its
+    check. The process takes all but ``spare`` of the host's cores, which
+    the host-bound phases on the card keep. It stops with main (``close``)
+    or, after a failure, with the interpreter (multiprocessing terminates a
+    pool at exit)."""
+
+    def __init__(self, spare=3):
+        threads = max(1, len(os.sched_getaffinity(0)) - spare)
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            1, initializer=torch.set_num_threads, initargs=(threads,))
+        self.jobs = {}
+
+    def submit(self, key, fn, *args):
+        self.jobs[key] = self.pool.apply_async(fn, args)
+
+    def result(self, key):
+        try:  # a worker that died would leave its job unanswered
+            return self.jobs.pop(key).get(timeout=REF_TIMEOUT)
+        except multiprocessing.TimeoutError:
+            fail(f"the CPU reference {key!r} gave no result in {REF_TIMEOUT} s")
+
+    def close(self):
+        self.pool.close()
+        self.pool.join()
 
 
 def cuda_ms(fn, iters=20, reps=5, warmup=3):
@@ -620,7 +678,9 @@ def check_ids(name, ids, shape):
 
 
 def serve(NUWA, knda):
-    """The main path at full width, bf16, with the kernel's launch count."""
+    """The main path at full width, bf16, with the kernel's launch count;
+    each request timed with CUDA events (the throughput phase reports
+    them)."""
     model = NUWA(**FULL, compute_dtype="bfloat16", seed=SEED)
     gen_cpu = torch.Generator().manual_seed(SEED)
     texts = {1: request_text(1, gen_cpu), 8: request_text(8, gen_cpu)}
@@ -629,7 +689,7 @@ def serve(NUWA, knda):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     depth, vocab = FULL["dec_depth"], FULL["num_image_tokens"]
     reset_launches(knda)
-    counts = {}
+    counts, ms = {}, {}
     for name, call, shape, expect in (
         ("generate b=1", lambda: model.generate(texts[1], generator=gen),
          (1, frames * tpf), 0),
@@ -643,8 +703,7 @@ def serve(NUWA, knda):
          (1, frames * tpf + 1, vocab), depth),
     ):
         before = knda.sparse_3dna_fwd.launches
-        out = call()
-        torch.cuda.synchronize()
+        out, ms[name] = timed(call)
         counts[name] = knda.sparse_3dna_fwd.launches - before
         if name.startswith("forward"):
             if tuple(out.shape) != shape or not torch.isfinite(out).all():
@@ -661,7 +720,7 @@ def serve(NUWA, knda):
         fail("the serving path launched no sparse_3dna_fwd kernel")
     if got != expect_launches(fwd=launches):
         fail(f"the NUWA serving path launched another kernel: {got}")
-    return model, texts, launches
+    return model, texts, launches, ms
 
 
 KERNELS = ("fwd", "bwd_q", "bwd_kv", "cross", "cross_bwd_q", "cross_bwd_kv")
@@ -811,24 +870,28 @@ def train_device_share(trainer):
               f"{e.key[:90]}", flush=True)
 
 
-def train_against_cpu(NUWA):
-    """Same weights in fp32, one microbatch with the same condition-dropout
-    mask: the GPU path (kernels) against the CPU plain path, the loss and
-    every parameter's gradient."""
+def train_side(device):
+    """train_against_cpu's run on ``device``: the fp32 loss and every
+    parameter's gradient at CHECK_DEPTH."""
+    from nuwa_tpu_torch import NUWA
+
     gen = torch.Generator().manual_seed(SEED + 10)
     (t0, v0), (t1, v1) = train_batch(gen)
     text, video = torch.from_numpy(np.stack([t0, t1])), torch.from_numpy(np.stack([v0, v1]))
-    uncond = torch.tensor([False, True])
-    grads = []
-    for device in ("cuda", "cpu"):
-        model = NUWA(**dict(TRAIN, dec_depth=CHECK_DEPTH), device=device, seed=SEED + 11)
-        start = time.perf_counter()
-        loss = model(text, video, return_loss=True, train=True, uncond=uncond)
-        loss.backward()
-        grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
-        print(f"fp32 train forward and backward on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
+    model = NUWA(**dict(TRAIN, dec_depth=CHECK_DEPTH), device=device, seed=SEED + 11)
+    start = time.perf_counter()
+    loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False, True]))
+    loss.backward()
+    print(f"fp32 train forward and backward on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def train_against_cpu(refs):
+    """Same weights in fp32, one microbatch with the same condition-dropout
+    mask: the GPU path (kernels) against the CPU plain path (``refs``), the
+    loss and every parameter's gradient."""
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = train_side("cuda"), refs.result("train")
     worst, where = 0.0, None
     for name, ref in g_cpu.items():
         rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
@@ -841,6 +904,7 @@ def train_against_cpu(NUWA):
         fail("the training loss differs between GPU and CPU")
     if not worst <= GRAD_REL:
         fail("training gradients differ between GPU and CPU")
+
 
 
 def cpu_top2_gap(model, text, ids, p, cond_scale):
@@ -859,31 +923,49 @@ def cpu_top2_gap(model, text, ids, p, cond_scale):
     return (top[0] - top[1]).item()
 
 
-def check_against_cpu(NUWA):
-    """Same weights in fp32: GPU (kernel) vs CPU (plain path)."""
-    gpu = NUWA(**dict(FULL, dec_depth=CHECK_DEPTH), seed=SEED + 7)
-    cpu = NUWA(**dict(FULL, dec_depth=CHECK_DEPTH), device="cpu", seed=SEED + 7)
+def serving_model(device):
+    """check_against_cpu's model on ``device`` (fp32, CHECK_DEPTH), its
+    request and its video."""
+    from nuwa_tpu_torch import NUWA
+
+    model = NUWA(**dict(FULL, dec_depth=CHECK_DEPTH), device=device, seed=SEED + 7)
     gen = torch.Generator().manual_seed(SEED + 7)
     text = request_text(1, gen)
-    video = torch.randint(0, FULL["num_image_tokens"], (1, cpu.max_video_tokens),
+    video = torch.randint(0, FULL["num_image_tokens"], (1, model.max_video_tokens),
                           generator=gen)
+    return model, text, video
+
+
+def serving_side(device):
+    """check_against_cpu's run on ``device``: the forward logits and the
+    greedy generate_long ids one frame past the window."""
+    model, text, video = serving_model(device)
+    start = time.perf_counter()
     with torch.no_grad():
-        a, b = gpu(text, video).cpu(), cpu(text, video)
+        logits = model(text, video).cpu()
+    thres = 1 - 0.5 / FULL["num_image_tokens"]  # top-k keeps k = 1: greedy
+    ids = model.generate_long(text, num_frames=model.max_video_frames + 1,
+                              filter_thres=thres).cpu()
+    print(f"fp32 forward and greedy generate_long on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return logits, ids
+
+
+def check_against_cpu(refs):
+    """Same weights in fp32: GPU (kernel) vs CPU (plain path, ``refs``)."""
+    (a, ids_gpu), (b, ids_cpu) = serving_side("cuda"), refs.result("serving")
     err = (a - b).abs().max().item()
     print(f"forward fp32 logits GPU vs CPU: max abs err {err:.3e} "
           f"(tolerance {LOGITS_ATOL:.0e})", flush=True)
     if not err <= LOGITS_ATOL:
         fail("forward logits differ between GPU and CPU")
-    thres = 1 - 0.5 / FULL["num_image_tokens"]  # top-k keeps k = 1: greedy
-    nf = cpu.max_video_frames + 1  # one frame through the sliding window
-    ids_gpu = gpu.generate_long(text, num_frames=nf, filter_thres=thres).cpu()
-    ids_cpu = cpu.generate_long(text, num_frames=nf, filter_thres=thres)
     diff = (ids_gpu != ids_cpu).nonzero()
     if len(diff) == 0:
         print(f"greedy generate_long fp32 ids GPU vs CPU: all {ids_cpu.numel()} equal",
               flush=True)
         return
     p = diff[0, 1].item()
+    cpu, text, _ = serving_model("cpu")
     gap = cpu_top2_gap(cpu, text, ids_cpu, p, 2.0)
     print(f"greedy generate_long ids differ first at position {p}; CPU top-2 "
           f"logit gap there {gap:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
@@ -891,21 +973,20 @@ def check_against_cpu(NUWA):
         fail("greedy generate_long ids differ between GPU and CPU")
 
 
-def throughput(model, texts):
-    """tokens/s of each NUWA request, timed once more (serve() ran each once
-    already, warm)."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+def throughput(model, ms):
+    """tokens/s of each NUWA request, from serve()'s CUDA-event ms (each
+    request's only run: repeating the host-bound token loops to time them
+    again cost the script about a minute)."""
     n, nf = model.max_video_tokens, 2 * model.max_video_frames
     rates = {}
-    for name, b, tokens, call in (
-        ("generate b=1", 1, n, lambda: model.generate(texts[1], generator=gen)),
-        ("generate b=8", 8, 8 * n, lambda: model.generate(texts[8], generator=gen)),
-        (f"generate_long b=1 ({nf} frames)", 1, 2 * n,
-         lambda: model.generate_long(texts[1], num_frames=nf, generator=gen)),
-    ):
-        ms = cuda_ms(call, iters=1, reps=1, warmup=0)
-        rates[name] = tokens / (ms / 1e3)
-        print(f"{name}: {ms:.1f} ms per request, {rates[name]:.1f} tokens/s", flush=True)
+    for name, tokens, served in (("generate b=1", n, "generate b=1"),
+                                 ("generate b=8", 8 * n, "generate b=8"),
+                                 (f"generate_long b=1 ({nf} frames)", 2 * n,
+                                  "generate_long b=1")):
+        rates[name] = tokens / (ms[served] / 1e3)
+        print(f"{name}: {ms[served]:.1f} ms per request, {rates[name]:.1f} tokens/s",
+              flush=True)
     return rates
 
 
@@ -919,7 +1000,8 @@ def device_share(model, texts):
 def share(call, name, wall=None):
     """Device busy share of one request: kernel time from torch.profiler
     (device activity only) over the wall time of the same request
-    unprofiled (``wall``, measured here unless given)."""
+    unprofiled (``wall``, measured here unless given). Returns the kernel
+    ms (None when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     if wall is None:
@@ -938,6 +1020,7 @@ def share(call, name, wall=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}", flush=True)
+    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -1075,7 +1158,8 @@ def sketch_request(b, frames, gen):
 
 def serve_sketch(NUWASketch, VQGanVAE, knda):
     """NUWASketch serving at full width, bf16: each request with the counts
-    set to 0 just before it and read just after. Per decoder layer, a forward
+    set to 0 just before it and read just after, and timed with CUDA events
+    (the throughput phase reports the generates'). Per decoder layer, a forward
     and every generate_long prefill launch the cross kernel once and the
     Sparse3DNA forward once; cached steps gather in plain PyTorch."""
     model = sketch_models(NUWASketch, VQGanVAE)
@@ -1107,11 +1191,10 @@ def serve_sketch(NUWASketch, VQGanVAE, knda):
             (1, 3, 3, size, size), {"fwd": depth, "cross": depth}, 2),
     }
     cross = {1: 0, 2: 0}  # cross kernel launches by context frames
-    fwd = 0
+    fwd, ms = 0, {}
     for name, (call, shape, expect, frames) in requests.items():
         reset_launches(knda)
-        out = call()
-        torch.cuda.synchronize()
+        out, ms[name] = timed(call)
         got = launch_counts(knda)
         if tuple(out.shape) != shape or not torch.isfinite(out).all():
             fail(f"{name}: {tuple(out.shape)} not finite or not {shape}")
@@ -1122,7 +1205,7 @@ def serve_sketch(NUWASketch, VQGanVAE, knda):
         fwd += got["fwd"]
         print(f"{name}: {tuple(out.shape)} finite, launches sparse_cross_2dna_fwd "
               f"{got['cross']}, sparse_3dna_fwd {got['fwd']} (as expected)", flush=True)
-    return model, short, (sketch1, sketch2, mask2, req4, mask4), cross, fwd
+    return model, (sketch1, sketch2, mask2, req4, mask4), cross, fwd, ms
 
 
 def sketch_top2_gap(model, sketch, ids, p, cond_scale):
@@ -1138,26 +1221,45 @@ def sketch_top2_gap(model, sketch, ids, p, cond_scale):
     return (top[0] - top[1]).item()
 
 
-def sketch_against_cpu(NUWASketch, VQGanVAE):
-    """Same weights in fp32: GPU (kernels) vs CPU (plain path): sketch and
-    video token ids of the VAE encode, forward logits, greedy generate_long
-    ids."""
-    gen = torch.Generator().manual_seed(SEED + 16)
-    sketch, video = sketch_request(1, 2, gen)
-    mask = torch.tensor([[True, False]])
-    out = {}
-    for device in ("cuda", "cpu"):
-        model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None, seed=SEED + 17,
-                              dec_depth=CHECK_DEPTH)
-        start = time.perf_counter()
-        with torch.no_grad():
-            ids = (model.sketch_vae.get_video_indices(sketch).cpu(),
-                   model.vae.get_video_indices(video).cpu())
-            logits = model(sketch, video, sketch_mask=mask).cpu()
-        out[device] = (ids, logits)
-        print(f"fp32 sketch encode and forward on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    (ids_gpu, lg_gpu), (ids_cpu, lg_cpu) = out["cuda"], out["cpu"]
+def sketch_side(device):
+    """sketch_against_cpu's run on ``device``: the codec's sketch and video
+    ids and the forward logits of the fp32 sketch model at CHECK_DEPTH, then
+    the greedy generate_long ids of its 2-frame-window copy."""
+    from nuwa_tpu_torch import NUWASketch, VQGanVAE
+
+    sketch, video = sketch_request(1, 2, torch.Generator().manual_seed(SEED + 16))
+    model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None, seed=SEED + 17,
+                          dec_depth=CHECK_DEPTH)
+    start = time.perf_counter()
+    with torch.no_grad():
+        ids = (model.sketch_vae.get_video_indices(sketch).cpu(),
+               model.vae.get_video_indices(video).cpu())
+        logits = model(sketch, video, sketch_mask=torch.tensor([[True, False]])).cpu()
+    print(f"fp32 sketch encode and forward on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    model = sketch_window_model(device)
+    start = time.perf_counter()
+    thres = 1 - 0.5 / SKETCH_VAE["vq_codebook_size"]  # top-k keeps k = 1: greedy
+    greedy = model.generate_long(sketch, num_frames=3, filter_thres=thres,
+                                 decode_video=False).cpu()
+    print(f"fp32 greedy sketch generate_long on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return ids, logits, greedy
+
+
+def sketch_window_model(device):
+    from nuwa_tpu_torch import NUWASketch, VQGanVAE
+
+    return sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None, seed=SEED + 17,
+                         max_video_frames=2, dec_depth=CHECK_DEPTH)
+
+
+def sketch_against_cpu(refs):
+    """Same weights in fp32: GPU (kernels) vs CPU (plain path, ``refs``):
+    sketch and video token ids of the VAE encode, forward logits, greedy
+    generate_long ids."""
+    (ids_gpu, lg_gpu, gr_gpu), (ids_cpu, lg_cpu, gr_cpu) = (sketch_side("cuda"),
+                                                            refs.result("sketch"))
     for name, a, b in zip(("sketch", "video"), ids_gpu, ids_cpu):
         same = int((a == b).sum())
         print(f"fp32 {name} token ids (VAE encode) GPU vs CPU: {same} of {b.numel()} equal",
@@ -1169,51 +1271,45 @@ def sketch_against_cpu(NUWASketch, VQGanVAE):
           f"(tolerance {LOGITS_ATOL:.0e})", flush=True)
     if not err <= LOGITS_ATOL:
         fail("sketch forward logits differ between GPU and CPU")
-    thres = 1 - 0.5 / SKETCH_VAE["vq_codebook_size"]  # top-k keeps k = 1: greedy
-    ids = {}
-    for device in ("cuda", "cpu"):
-        model = sketch_models(NUWASketch, VQGanVAE, device=device, dtype=None,
-                              seed=SEED + 17, max_video_frames=2, dec_depth=CHECK_DEPTH)
-        start = time.perf_counter()
-        ids[device] = model.generate_long(sketch, num_frames=3, filter_thres=thres,
-                                          decode_video=False).cpu()
-        print(f"fp32 greedy sketch generate_long on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    diff = (ids["cuda"] != ids["cpu"]).nonzero()
+    diff = (gr_gpu != gr_cpu).nonzero()
     if len(diff) == 0:
-        print(f"greedy sketch generate_long fp32 ids GPU vs CPU: all {ids['cpu'].numel()} "
+        print(f"greedy sketch generate_long fp32 ids GPU vs CPU: all {gr_cpu.numel()} "
               f"equal", flush=True)
         return
     p = diff[0, 1].item()
-    gap = sketch_top2_gap(model, sketch, ids["cpu"], p, 2.0)
+    sketch, _ = sketch_request(1, 2, torch.Generator().manual_seed(SEED + 16))
+    gap = sketch_top2_gap(sketch_window_model("cpu"), sketch, gr_cpu, p, 2.0)
     print(f"greedy sketch generate_long ids differ first at position {p}; CPU top-2 "
           f"logit gap there {gap:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
     if not gap < TIE_GAP:
         fail("greedy sketch generate_long ids differ between GPU and CPU")
 
 
-def sketch_throughput(model, short, inputs):
-    """tokens/s of each sketch request, timed once more (the serving phase ran
-    each once at these shapes, so no further warm-up), and the device's busy
-    share of the b = 1 generate."""
+
+def sketch_throughput(model, inputs, ms):
+    """tokens/s of each sketch request: the forward timed once more (its
+    serving run was the model's first forward), the generates from
+    serve_sketch's CUDA-event ms (each one's only run: timing the host-bound
+    token loops again cost the script about half a minute); and the
+    device's busy share of the b = 1 generate."""
     sketch1, sketch2, mask2, req4, mask4 = inputs
     _, video = sketch_request(2, 2, torch.Generator().manual_seed(SEED + 18))
     g = torch.Generator(device="cuda").manual_seed(SEED + 19)
     tpf = SKETCH_FMAP**2
-    walls = {}
-    for name, tokens, call in (
-        ("sketch forward b=2 (scoring)", 2 * SKETCH_T,
-         torch.no_grad()(lambda: model(sketch2, video, sketch_mask=mask2))),
-        ("sketch generate b=1, 1 frame", tpf,
-         lambda: model.generate(sketch1[:1], generator=g, num_frames=1)),
-        ("sketch generate b=4, 1 frame", 4 * tpf,
-         lambda: model.generate(req4, sketch_mask=mask4, generator=g, num_frames=1)),
-        ("sketch generate_long b=1, 3 frames", 3 * tpf,
-         lambda: short.generate_long(sketch2[:1], generator=g, num_frames=3)),
-    ):
-        walls[name] = ms = cuda_ms(call, iters=1, reps=1, warmup=0)
-        print(f"{name}: {ms:.1f} ms per request, {tokens / (ms / 1e3):.1f} tokens/s",
-              flush=True)
+    walls = {"sketch forward b=2 (scoring)": cuda_ms(
+        torch.no_grad()(lambda: model(sketch2, video, sketch_mask=mask2)), iters=1, reps=1,
+        warmup=0)}
+    for name, served in (("sketch generate b=1, 1 frame", "generate b=1, 1 frame, pixels"),
+                         ("sketch generate b=4, 1 frame", "generate b=4, 1 frame, pixels"),
+                         ("sketch generate_long b=1, 3 frames",
+                          "generate_long b=1, 3 frames on a 2-frame window, pixels")):
+        walls[name] = ms[served]
+    for name, tokens in (("sketch forward b=2 (scoring)", 2 * SKETCH_T),
+                         ("sketch generate b=1, 1 frame", tpf),
+                         ("sketch generate b=4, 1 frame", 4 * tpf),
+                         ("sketch generate_long b=1, 3 frames", 3 * tpf)):
+        print(f"{name}: {walls[name]:.1f} ms per request, "
+              f"{tokens / (walls[name] / 1e3):.1f} tokens/s", flush=True)
     name = "sketch generate b=1, 1 frame"
     share(lambda: model.generate(sketch1[:1], generator=g, num_frames=1), name, walls[name])
 
@@ -1503,31 +1599,40 @@ def train_sketch(NUWASketch, VQGanVAE, knda, dropout=0.0):
     return total, step_ms
 
 
-def sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=0.0):
+def sketch_train_side(device, dropout):
+    """sketch_train_against_cpu's run on ``device``: model (b)'s fp32 loss
+    and every trained parameter's gradient at CHECK_DEPTH, and the names of
+    its SparseCross2DNA modules."""
+    from nuwa_tpu_torch import NUWASketch, VQGanVAE
+
+    sketch, video, mask = sketch_train_batch("b", torch.Generator().manual_seed(SEED + 27))
+    model = sketch_train_model(NUWASketch, VQGanVAE, "b", device=device, dtype=None,
+                               seed=SEED + 28, dropout=dropout, dec_depth=CHECK_DEPTH)
+    start = time.perf_counter()
+    loss = model(sketch, video, sketch_mask=mask, return_loss=True, train=True,
+                 uncond=torch.tensor([True, False]),
+                 generator=torch.Generator().manual_seed(SEED + 29))
+    loss.backward()
+    what = f"sketch train, dropout {dropout}," if dropout else "sketch train"
+    print(f"fp32 {what} forward and backward on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    cross = [n for n, m in model.named_modules() if type(m).__name__ == "SparseCross2DNA"]
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.requires_grad}, cross
+
+
+def sketch_train_against_cpu(refs, dropout=0.0):
     """Model (b)'s weights in fp32, one batch with a fixed condition-dropout
     mask (row 0 unconditional: its context all masked; row 1 with its
     second sketch frame padded): the GPU path (kernels) against the CPU
-    plain path, the loss and every parameter's gradient, reported by group
-    (the sketch encoder, the cross layers, their null key/value and the
-    talking-heads matrices). With ``dropout`` (the model's ``attn_dropout``
-    and ``ff_dropout``) both draw their one dropout seed from the same CPU
-    generator, so they drop the same pairs."""
-    sketch, video, mask = sketch_train_batch("b", torch.Generator().manual_seed(SEED + 27))
-    uncond = torch.tensor([True, False])
+    plain path (``refs``), the loss and every parameter's gradient, reported
+    by group (the sketch encoder, the cross layers, their null key/value and
+    the talking-heads matrices). With ``dropout`` (the model's
+    ``attn_dropout`` and ``ff_dropout``) both draw their one dropout seed
+    from the same CPU generator, so they drop the same pairs."""
     what = f"sketch train, dropout {dropout}," if dropout else "sketch train"
-    grads = []
-    for device in ("cuda", "cpu"):
-        model = sketch_train_model(NUWASketch, VQGanVAE, "b", device=device, dtype=None,
-                                   seed=SEED + 28, dropout=dropout, dec_depth=CHECK_DEPTH)
-        start = time.perf_counter()
-        loss = model(sketch, video, sketch_mask=mask, return_loss=True, train=True,
-                     uncond=uncond, generator=torch.Generator().manual_seed(SEED + 29))
-        loss.backward()
-        grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
-                                    if p.requires_grad}))
-        print(f"fp32 {what} forward and backward on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    cross = [n for n, m in model.named_modules() if type(m).__name__ == "SparseCross2DNA"]
+    (loss_gpu, g_gpu, cross), (loss_cpu, g_cpu, _) = (sketch_train_side("cuda", dropout),
+                                                      refs.result(("sketch train", dropout)))
     groups = {
         "sketch encoder": lambda n: n.startswith("sketch_transformer."),
         "cross layers": lambda n: any(n.startswith(c + ".") for c in cross),
@@ -1535,7 +1640,6 @@ def sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=0.0):
         "talking heads": lambda n: n.endswith(".talking_heads"),
         "all": lambda n: True,
     }
-    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
     worst = {}
     for name, ref in g_cpu.items():
         rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
@@ -1554,6 +1658,7 @@ def sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=0.0):
         fail(f"the {what} loss differs between GPU and CPU")
     if not worst["all"][0] <= GRAD_REL:
         fail(f"{what} gradients differ between GPU and CPU")
+
 
 
 # ---------------------------------------------------------------------------
@@ -1731,27 +1836,38 @@ def serve_128(NUWA, VQGanVAE, tokenizer, knda):
     return launches, rates
 
 
-def nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer):
-    """Same weights in fp32 at b = 1 and 2 frames: the GPU path (kernels)
-    against the CPU plain path: the codec's token ids equal, the forward
-    logits within LOGITS_ATOL, the greedy ids of a one-frame generate equal
-    (or first apart at a tie of the CPU's top-2 logits)."""
-    text = nuwa128_text(tokenizer, 1)
+def nuwa128_check_model(device):
+    from nuwa_tpu_torch import NUWA, VQGanVAE
+
+    return nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 44,
+                         max_video_frames=2, dec_depth=CHECK_DEPTH)
+
+
+def nuwa128_side(device, text):
+    """nuwa128_against_cpu's run on ``device``: the codec's ids, the forward
+    logits and the greedy ids of a one-frame generate, fp32, b = 1, 2
+    frames, CHECK_DEPTH."""
     video = torch.from_numpy(moving_squares(1, 2, SIZE128, np.random.default_rng(SEED + 43)))
+    model = nuwa128_check_model(device)
+    start = time.perf_counter()
+    with torch.no_grad():
+        ids = model.vae.get_video_indices(video).cpu()
+        logits = model(text, video).cpu()
     thres = 1 - 0.5 / VOCAB128  # top-k keeps k = 1: greedy
-    out = {}
-    for device in ("cuda", "cpu"):
-        model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 44,
-                              max_video_frames=2, dec_depth=CHECK_DEPTH)
-        start = time.perf_counter()
-        with torch.no_grad():
-            ids = model.vae.get_video_indices(video).cpu()
-            logits = model(text, video).cpu()
-        greedy = model.generate(text, num_frames=1, filter_thres=thres, decode_video=False)
-        out[device] = (ids, logits, greedy.cpu())
-        print(f"fp32 128 px encode, forward and greedy generate on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    (ids_gpu, lg_gpu, gr_gpu), (ids_cpu, lg_cpu, gr_cpu) = out["cuda"], out["cpu"]
+    greedy = model.generate(text, num_frames=1, filter_thres=thres, decode_video=False)
+    print(f"fp32 128 px encode, forward and greedy generate on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return ids, logits, greedy.cpu()
+
+
+def nuwa128_against_cpu(refs, tokenizer):
+    """Same weights in fp32 at b = 1 and 2 frames: the GPU path (kernels)
+    against the CPU plain path (``refs``): the codec's token ids equal, the
+    forward logits within LOGITS_ATOL, the greedy ids of a one-frame
+    generate equal (or first apart at a tie of the CPU's top-2 logits)."""
+    text = nuwa128_text(tokenizer, 1)
+    (ids_gpu, lg_gpu, gr_gpu), (ids_cpu, lg_cpu, gr_cpu) = (nuwa128_side("cuda", text),
+                                                            refs.result("128 px"))
     same = int((ids_gpu == ids_cpu).sum())
     print(f"fp32 128 px token ids (VAE encode) GPU vs CPU: {same} of {ids_cpu.numel()} equal",
           flush=True)
@@ -1768,11 +1884,12 @@ def nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer):
               flush=True)
         return
     p = diff[0, 1].item()
-    gap = cpu_top2_gap(model, text, gr_cpu, p, 2.0)
+    gap = cpu_top2_gap(nuwa128_check_model("cpu"), text, gr_cpu, p, 2.0)
     print(f"greedy 128 px generate ids differ first at position {p}; CPU top-2 logit gap "
           f"there {gap:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
     if not gap < TIE_GAP:
         fail("greedy 128 px generate ids differ between GPU and CPU")
+
 
 
 def read_png(path):
@@ -1880,31 +1997,41 @@ def train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, dropout=0.0):
     return total, ms
 
 
-def train_128_against_cpu(NUWA, VQGanVAE, tokenizer, dropout=0.0):
-    """The fp32 loss and every gradient at 2 frames and b = 1 (condition
-    dropout off), the GPU path (kernels) against the CPU plain path; the
-    codec's parameters have none. With ``dropout`` (the model's
-    ``attn_dropout`` and ``ff_dropout``) both draw their one dropout seed
-    from the same CPU generator, so they drop the same pairs."""
-    text = nuwa128_text(tokenizer, 1)
+def train_128_side(device, text, dropout):
+    """train_128_against_cpu's run on ``device``: the fp32 loss and every
+    trained parameter's gradient at 2 frames, b = 1, CHECK_DEPTH; whether
+    a codec parameter got a gradient."""
+    from nuwa_tpu_torch import NUWA, VQGanVAE
+
     video = torch.from_numpy(moving_squares(1, 2, SIZE128, np.random.default_rng(SEED + 46)))
-    grads = []
+    model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 47,
+                          max_video_frames=2, attn_dropout=dropout, ff_dropout=dropout,
+                          dec_depth=CHECK_DEPTH)
+    start = time.perf_counter()
+    loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False]),
+                 generator=torch.Generator().manual_seed(SEED + 48))
+    loss.backward()
     what = f"128 px train, dropout {dropout}," if dropout else "128 px train"
-    for device in ("cuda", "cpu"):
-        model = nuwa128_model(NUWA, VQGanVAE, device=device, dtype=None, seed=SEED + 47,
-                              max_video_frames=2, attn_dropout=dropout, ff_dropout=dropout,
-                              dec_depth=CHECK_DEPTH)
-        start = time.perf_counter()
-        loss = model(text, video, return_loss=True, train=True, uncond=torch.tensor([False]),
-                     generator=torch.Generator().manual_seed(SEED + 48))
-        loss.backward()
-        if any(p.grad is not None for p in model.vae.parameters()):
+    print(f"fp32 {what} forward and backward on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    codec = any(p.grad is not None for p in model.vae.parameters())
+    return loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.requires_grad}, codec
+
+
+def train_128_against_cpu(refs, tokenizer, dropout=0.0):
+    """The fp32 loss and every gradient at 2 frames and b = 1 (condition
+    dropout off), the GPU path (kernels) against the CPU plain path
+    (``refs``); the codec's parameters have none. With ``dropout`` (the
+    model's ``attn_dropout`` and ``ff_dropout``) both draw their one dropout
+    seed from the same CPU generator, so they drop the same pairs."""
+    what = f"128 px train, dropout {dropout}," if dropout else "128 px train"
+    runs = {"cuda": train_128_side("cuda", nuwa128_text(tokenizer, 1), dropout),
+            "cpu": refs.result(("128 px train", dropout))}
+    for device, (_, _, codec) in runs.items():
+        if codec:
             fail(f"a codec parameter has a gradient on {device}")
-        grads.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
-                                    if p.requires_grad}))
-        print(f"fp32 {what} forward and backward on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = grads
+    (loss_gpu, g_gpu, _), (loss_cpu, g_cpu, _) = runs["cuda"], runs["cpu"]
     worst, where = 0.0, None
     for name, ref in g_cpu.items():
         rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
@@ -1918,6 +2045,7 @@ def train_128_against_cpu(NUWA, VQGanVAE, tokenizer, dropout=0.0):
         fail(f"the {what} loss differs between GPU and CPU")
     if not worst <= GRAD_REL:
         fail(f"{what} gradients differ between GPU and CPU")
+
 
 
 
@@ -2155,15 +2283,12 @@ def serve_dual(NUWAVideoAudio, VQGanVAE, knda):
     return launches, rates
 
 
-def dual_against_cpu(NUWAVideoAudio, VQGanVAE):
-    """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
-    cross-modality attention every 2 depths (so the depth-2 stack holds one
-    xmod block), the same weights on the GPU (kernels) and the CPU (plain
-    path): codec ids equal, video and audio logits within LOGITS_ATOL of
-    their max abs, the loss within LOSS_ATOL, and the greedy ids of cached
-    generate (CFG 2.0) equal, video and audio (or first apart at a tie of the
-    CPU's top-2 logits, by sampling order)."""
+def dual_side(device):
+    """dual_against_cpu's run on ``device``: the codec's ids, both logits,
+    the loss and the greedy ids of a 2-frame cached generate (CFG 2.0), and
+    on the CPU the top-2 logit gap at every sample."""
     import nuwa_tpu_torch.models.nuwa_video_audio as va
+    from nuwa_tpu_torch import NUWAVideoAudio, VQGanVAE
 
     cfg = dict(DUAL, dec_depth=2, max_video_frames=2, cross_modality_attn_every=2)
     gen = torch.Generator().manual_seed(SEED + 64)
@@ -2172,7 +2297,7 @@ def dual_against_cpu(NUWAVideoAudio, VQGanVAE):
                                             np.random.default_rng(SEED + 65)))
     audio = torch.randint(0, DUAL["num_audio_tokens"], (1, 64), generator=gen)
     thres = 1 - 0.5 / 1024  # top-k keeps k = 1 of both vocabularies: greedy
-    runs, gaps = [], []
+    gaps = []
     filter_ = va.top_k_filter
 
     def recording(logits, thres):  # the CPU rollout's top-2 gap at every sample
@@ -2180,25 +2305,34 @@ def dual_against_cpu(NUWAVideoAudio, VQGanVAE):
         gaps.append((top[:, 0] - top[:, 1]).min().item())
         return filter_(logits, thres)
 
-    for device in ("cuda", "cpu"):
-        model = dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
-                           seed=SEED + 66)
-        start = time.perf_counter()
-        with torch.no_grad():
-            ids = model.vae.get_video_indices(video).cpu()
-            logits = [x.cpu() for x in model(text, video, audio)]
-            loss = model(text, video, audio, return_loss=True).item()
-        va.top_k_filter = recording if device == "cpu" else filter_
-        try:
-            sampled = [x.cpu() for x in model.generate(text, num_frames=2, filter_thres=thres,
-                                                       decode_video=False)]
-        finally:
-            va.top_k_filter = filter_
-        runs.append((ids, logits, loss, sampled))
-        print(f"dual fp32 forward, loss and 2-frame greedy generate on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-        del model
-    (ids_g, logits_g, loss_g, samp_g), (ids_c, logits_c, loss_c, samp_c) = runs
+    model = dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
+                       seed=SEED + 66)
+    start = time.perf_counter()
+    with torch.no_grad():
+        ids = model.vae.get_video_indices(video).cpu()
+        logits = [x.cpu() for x in model(text, video, audio)]
+        loss = model(text, video, audio, return_loss=True).item()
+    va.top_k_filter = recording if device == "cpu" else filter_
+    try:
+        sampled = [x.cpu() for x in model.generate(text, num_frames=2, filter_thres=thres,
+                                                   decode_video=False)]
+    finally:
+        va.top_k_filter = filter_
+    print(f"dual fp32 forward, loss and 2-frame greedy generate on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return ids, logits, loss, sampled, gaps
+
+
+def dual_against_cpu(refs):
+    """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
+    cross-modality attention every 2 depths (so the depth-2 stack holds one
+    xmod block), the same weights on the GPU (kernels) and the CPU (plain
+    path, ``refs``): codec ids equal, video and audio logits within
+    LOGITS_ATOL of their max abs, the loss within LOSS_ATOL, and the greedy
+    ids of cached generate (CFG 2.0) equal, video and audio (or first apart
+    at a tie of the CPU's top-2 logits, by sampling order)."""
+    (ids_g, logits_g, loss_g, samp_g, _), (ids_c, logits_c, loss_c, samp_c, gaps) = (
+        dual_side("cuda"), refs.result("dual"))
     if not torch.equal(ids_g, ids_c):
         fail(f"dual codec ids differ between GPU and CPU: {(ids_g != ids_c).sum().item()}")
     for what, a, b in zip(("video", "audio"), logits_g, logits_c):
@@ -2228,6 +2362,7 @@ def dual_against_cpu(NUWAVideoAudio, VQGanVAE):
           f"{gaps[first]:.3e} (a tie below {TIE_GAP:.0e})", flush=True)
     if not gaps[first] < TIE_GAP:
         fail("dual greedy generate ids differ between GPU and CPU")
+
 
 
 # ---------------------------------------------------------------------------
@@ -2458,40 +2593,67 @@ def train_dual(NUWAVideoAudio, VQGanVAE, knda, dropout=0.0):
     return total, dict(ms=ms, tokens_per_s=rate, peak_gib=peak)
 
 
-def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=0.0):
-    """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
-    cross-modality attention every 2 depths (one xmod block), b = 2 with a
-    fixed condition-dropout mask (row 1 unconditional), the same weights on
-    the GPU (kernels) and the CPU (plain path): the loss within LOSS_ATOL,
-    every parameter's gradient within GRAD_REL of its max abs; then one
-    clip-and-AdamW step (lr 3e-4, weight decay 0.01) on each, both fed the
-    CPU's gradients (Adam's first step is sign-like and would magnify the
-    gradients' rounding where they are near 0): every parameter within 1e-5
-    of its max abs. With ``dropout`` (the model's ``attn_dropout`` and
-    ``ff_dropout``) both draw their one dropout seed from the same CPU
-    generator, so they drop the same pairs, and the step is not repeated."""
-    from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
+def dual_train_model(device, dropout):
+    from nuwa_tpu_torch import NUWAVideoAudio, VQGanVAE
 
     cfg = dict(DUAL, dec_depth=2, max_video_frames=2, cross_modality_attn_every=2)
+    return dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
+                      seed=SEED + 77, attn_dropout=dropout, ff_dropout=dropout)
+
+
+def dual_train_side(device, dropout, reference=False):
+    """dual_train_against_cpu's run on ``device``: the fp32 loss and every
+    trained parameter's gradient. Returns (the model, its loss, its
+    gradients, None); the ``reference`` run (the CPU's) returns no model
+    and, without dropout, the parameters after one clip-and-AdamW step from
+    its gradients in place of None."""
+    from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
+
     gen = torch.Generator().manual_seed(SEED + 76)
     text = torch.cat([request_text(1, gen), request_text(1, gen)])
     nv = 2 * (DUAL["image_size"] // 2 ** DUAL_VAE["num_layers"]) ** 2
     video = torch.randint(0, DUAL_VAE["vq_codebook_size"], (2, nv), generator=gen)
     audio = torch.randint(0, DUAL["num_audio_tokens"], (2, 64), generator=gen)
-    uncond = torch.tensor([False, True])
-    runs = []
-    for device in ("cuda", "cpu"):
-        model = dual_model(NUWAVideoAudio, VQGanVAE, cfg, DUAL_VAE, device=device, dtype=None,
-                           seed=SEED + 77, attn_dropout=dropout, ff_dropout=dropout)
-        start = time.perf_counter()
-        loss = model(text, video, audio, return_loss=True, train=True, uncond=uncond,
-                     generator=torch.Generator().manual_seed(SEED + 78))
-        loss.backward()
-        grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad}
-        runs.append((model, loss.item(), grads))
-        print(f"dual fp32 train{f', dropout {dropout},' if dropout else ''} forward and "
-              f"backward on {device}: {time.perf_counter() - start:.1f} s", flush=True)
-    (gpu, loss_gpu, g_gpu), (cpu, loss_cpu, g_cpu) = runs
+    model = dual_train_model(device, dropout)
+    start = time.perf_counter()
+    loss = model(text, video, audio, return_loss=True, train=True,
+                 uncond=torch.tensor([False, True]),
+                 generator=torch.Generator().manual_seed(SEED + 78))
+    loss.backward()
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters() if p.requires_grad}
+    print(f"dual fp32 train{f', dropout {dropout},' if dropout else ''} forward and "
+          f"backward on {device}: {time.perf_counter() - start:.1f} s", flush=True)
+    if not reference:
+        return model, loss.item(), grads, None
+    after = None
+    if not dropout:  # the step from the reference's own gradients
+        params = [p for p in model.parameters() if p.requires_grad]
+        for name, p in model.named_parameters():
+            if p.requires_grad:  # a copy: the clip scales it in place
+                p.grad = grads[name].clone()
+        clip_by_global_norm_(params, 0.5)
+        get_optimizer(params, lr=3e-4, wd=0.01).step()
+        after = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    return None, loss.item(), grads, after
+
+
+def dual_train_against_cpu(refs, dropout=0.0):
+    """The flagship's widths and codec in fp32 at depth 2, 2 frames, H = 4,
+    cross-modality attention every 2 depths (one xmod block), b = 2 with a
+    fixed condition-dropout mask (row 1 unconditional), the same weights on
+    the GPU (kernels) and the CPU (plain path, ``refs``): the loss within
+    LOSS_ATOL, every parameter's gradient within GRAD_REL of its max abs;
+    then one clip-and-AdamW step (lr 3e-4, weight decay 0.01) on each, both
+    fed the CPU's gradients (Adam's first step is sign-like and would
+    magnify the gradients' rounding where they are near 0): every parameter
+    within 1e-5 of its max abs. With ``dropout`` (the model's
+    ``attn_dropout`` and ``ff_dropout``) both draw their one dropout seed
+    from the same CPU generator, so they drop the same pairs, and the step
+    is not repeated."""
+    from nuwa_tpu_torch.train import clip_by_global_norm_, get_optimizer
+
+    (gpu, loss_gpu, g_gpu, _), (_, loss_cpu, g_cpu, after) = (
+        dual_train_side("cuda", dropout), refs.result(("dual train", dropout)))
     worst, where = 0.0, None
     for name, ref in g_cpu.items():
         rel = (g_gpu[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
@@ -2507,13 +2669,11 @@ def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=0.0):
         fail("dual training gradients differ between GPU and CPU")
     if dropout:
         return
-    for model in (gpu, cpu):
-        params = [p for p in model.parameters() if p.requires_grad]
-        for (name, p) in ((n, p) for n, p in model.named_parameters() if p.requires_grad):
-            p.grad = g_cpu[name].to(p.device).clone()
-        clip_by_global_norm_(params, 0.5)
-        get_optimizer(params, lr=3e-4, wd=0.01).step()
-    after = {n: p.detach().cpu() for n, p in cpu.named_parameters() if p.requires_grad}
+    params = [p for p in gpu.parameters() if p.requires_grad]
+    for (name, p) in ((n, p) for n, p in gpu.named_parameters() if p.requires_grad):
+        p.grad = g_cpu[name].to(p.device).clone()
+    clip_by_global_norm_(params, 0.5)
+    get_optimizer(params, lr=3e-4, wd=0.01).step()
     worst, where = 0.0, None
     for name, p in gpu.named_parameters():
         if p.requires_grad:
@@ -2526,6 +2686,7 @@ def dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=0.0):
           f"error {worst:.3e} of its max abs at {where} (tolerance 1e-05)", flush=True)
     if not worst <= 1e-5:
         fail("the dual AdamW step differs between GPU and CPU")
+
 
 
 # ---------------------------------------------------------------------------
@@ -3034,25 +3195,27 @@ def dual_rows(model, text, vids, aids):
     return mix(vl)[0].float(), mix(al)[0].float()
 
 
-def check_dual_ids(name, a, b, model, text, tie):
+def check_dual_ids(name, a, b, model_fn, text, tie):
     """Video then audio ids of two rollouts of one frame, held by the
     near-tie rule at the first step where they part: the video's, or, where
-    the videos agree, the audio's."""
+    the videos agree, the audio's (the gap from ``model_fn()``'s logits,
+    built only there)."""
     (va, aa), (vb, ab) = a, b
     check_near_tie(f"{name} (video)", va, vb,
-                   lambda p: dual_gap(model, text, va, aa, p, True), tie)
+                   lambda p: dual_gap(model_fn(), text, va, aa, p, True), tie)
     if torch.equal(va.cpu(), vb.cpu()):  # else the audio saw other video tokens
         check_near_tie(f"{name} (audio)", aa, ab,
-                       lambda p: dual_gap(model, text, va, aa, p, False), tie)
+                       lambda p: dual_gap(model_fn(), text, va, aa, p, False), tie)
 
 
-def full_dual(NUWAVideoAudio, VQGanVAE, knda, tally):
+def full_dual(NUWAVideoAudio, VQGanVAE, knda, tally, refs):
     """method="full" on NUWAVideoAudio at width 512 (DUAL_FULL, CFG 2.0,
     greedy, one frame: 64 video and 32 audio steps, each a re-forward of both
     towers: 2 x depth launches of the forward kernel, depth of them audio):
     at H = 1, bf16, against method="cached" on the card (near-tie rule); at
-    H = 4, fp32, against the CPU's method="full" ids (the full forward sees
-    the later tokens of a query's own timestep there, as the JAX one does).
+    H = 4, fp32, against the CPU's method="full" ids (``refs``; the full
+    forward sees the later tokens of a query's own timestep there, as the
+    JAX one does).
     """
     depth, atpf = DUAL_FULL["dec_depth"], DUAL_FULL["num_audio_tokens_per_video_frame"]
     text = request_text(1, torch.Generator().manual_seed(SEED + 83))
@@ -3078,35 +3241,98 @@ def full_dual(NUWAVideoAudio, VQGanVAE, knda, tally):
     del model
     torch.cuda.empty_cache()
 
-    h4 = dict(DUAL_FULL, audio_tokens_per_timestep=4)
-    ids = []
-    for device in ("cuda", "cpu"):
-        model = dual_model(NUWAVideoAudio, VQGanVAE, h4, DUAL12_VAE, device=device,
-                           dtype=None, seed=SEED + 84)
-        start = time.perf_counter()
-        if device == "cuda":
-            out, _, _ = counted("dual generate full H=4 fp32", knda, tally,
-                                lambda: model.generate(text, method="full", **kw), want)
-        else:
-            out = model.generate(text, method="full", **kw)
-        ids.append(out)
-        print(f"NUWAVideoAudio H=4 method=full fp32 on {device}: "
-              f"{time.perf_counter() - start:.1f} s", flush=True)
-    check_dual_ids("NUWAVideoAudio H=4 full, GPU vs CPU fp32", ids[0], ids[1], model, text,
-                   TIE_GAP)
+    model = full_dual_h4_model("cuda")
+    start = time.perf_counter()
+    out, _, _ = counted("dual generate full H=4 fp32", knda, tally,
+                        lambda: model.generate(text, method="full", **kw), want)
+    print(f"NUWAVideoAudio H=4 method=full fp32 on cuda: {time.perf_counter() - start:.1f} s",
+          flush=True)
     del model
     torch.cuda.empty_cache()
+    check_dual_ids("NUWAVideoAudio H=4 full, GPU vs CPU fp32", out, refs.result("dual full"),
+                   lambda: full_dual_h4_model("cpu"), text, TIE_GAP)
     return rates
 
 
-def int8_serving(NUWA, NUWAVideoAudio, VQGanVAE, knda, bf16_model, texts, tally):
+def full_dual_h4_model(device):
+    from nuwa_tpu_torch import NUWAVideoAudio, VQGanVAE
+
+    return dual_model(NUWAVideoAudio, VQGanVAE, dict(DUAL_FULL, audio_tokens_per_timestep=4),
+                      DUAL12_VAE, device=device, dtype=None, seed=SEED + 84)
+
+
+def full_dual_side(device):
+    """full_dual's H = 4 run on ``device``: the greedy method="full" ids of
+    one frame (CFG 2.0), fp32."""
+    text = request_text(1, torch.Generator().manual_seed(SEED + 83))
+    vocab = max(DUAL_FULL["num_audio_tokens"], DUAL12_VAE["vq_codebook_size"])
+    model = full_dual_h4_model(device)
+    start = time.perf_counter()
+    out = model.generate(text, method="full", filter_thres=greedy_thres(vocab), cond_scale=2.0,
+                         num_frames=1, decode_video=False)
+    print(f"NUWAVideoAudio H=4 method=full fp32 on {device}: "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return out
+
+
+def int8_fp32_model(device):
+    from nuwa_tpu_torch import NUWA
+    from nuwa_tpu_torch.utils.quantize import quantize_int8_
+
+    return quantize_int8_(NUWA(**FULL, device=device, seed=SEED + 7))
+
+
+def int8_dual_inputs():
+    """(video ids, audio ids) of the int8 NUWAVideoAudio forward."""
+    frames = DUAL_FULL["max_video_frames"]
+    fmap = DUAL12_VAE["image_size"] // 2 ** DUAL12_VAE["num_layers"]
+    gen = torch.Generator().manual_seed(SEED + 87)
+    ids = torch.randint(0, DUAL12_VAE["vq_codebook_size"], (1, frames * fmap**2), generator=gen)
+    audio = torch.randint(0, DUAL_FULL["num_audio_tokens"],
+                          (1, frames * DUAL_FULL["num_audio_tokens_per_video_frame"]),
+                          generator=gen)
+    return ids, audio
+
+
+def int8_dual_model(device):
+    from nuwa_tpu_torch import NUWAVideoAudio, VQGanVAE
+    from nuwa_tpu_torch.utils.quantize import quantize_int8_
+
+    return quantize_int8_(dual_model(NUWAVideoAudio, VQGanVAE, DUAL_FULL, DUAL12_VAE,
+                                     device=device, dtype=None, seed=SEED + 89))
+
+
+def int8_side(text, video):
+    """int8_serving's fp32 runs on the CPU: the int8 serving model's forward
+    logits and greedy cached ids, and the int8 NUWAVideoAudio's forward
+    logits."""
+    start = time.perf_counter()
+    model = int8_fp32_model("cpu")
+    with torch.no_grad():
+        logits = model(text, video)
+    ids = model.generate(text, filter_thres=greedy_thres(FULL["num_image_tokens"]))
+    with torch.no_grad():
+        dual = list(int8_dual_model("cpu")(text, *int8_dual_inputs()))
+    print(f"int8 fp32 forwards and greedy generate on cpu: {time.perf_counter() - start:.1f} s",
+          flush=True)
+    return logits, ids, dual
+
+
+def int8_video():
+    """The int8 forward's video ids."""
+    return torch.randint(0, FULL["num_image_tokens"],
+                         (1, FULL["max_video_frames"] * FULL["image_size"] ** 2),
+                         generator=torch.Generator().manual_seed(SEED + 86))
+
+
+def int8_serving(NUWA, knda, bf16_model, texts, tally, refs):
     """int8 weight-only serving (utils.quantize.quantize_int8_): the serving
     model quantised (bf16 activations) against the bf16 one, cached generate
     b = 8: weights held, tokens/s and peak memory; its forward launches the
     forward kernel as the bf16 model does (6, and none in generate). Then
     the same weights in fp32, quantised on the GPU and on the CPU: forward
     logits and greedy cached ids (near-tie rule), and NUWAVideoAudio's
-    forward logits (DUAL_FULL, from token ids)."""
+    forward logits (DUAL_FULL, from token ids); the CPU's from ``refs``."""
     from nuwa_tpu_torch.utils.quantize import quantize_int8_
 
     depth = FULL["dec_depth"]
@@ -3118,8 +3344,7 @@ def int8_serving(NUWA, NUWAVideoAudio, VQGanVAE, knda, bf16_model, texts, tally)
     bf16_bytes = sum(t.numel() * t.element_size()
                      for t in itertools.chain(bf16_model.parameters(), bf16_model.buffers()))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 85)
-    video = torch.randint(0, FULL["num_image_tokens"], (1, q.max_video_tokens),
-                          generator=torch.Generator().manual_seed(SEED + 86))
+    video = int8_video()
     counted("int8 forward b=1", knda, tally, torch.no_grad()(lambda: q(texts[1], video)),
             {"fwd": depth})
     stats = {}
@@ -3145,43 +3370,30 @@ def int8_serving(NUWA, NUWAVideoAudio, VQGanVAE, knda, bf16_model, texts, tally)
     del q
     torch.cuda.empty_cache()
 
-    gpu = quantize_int8_(NUWA(**FULL, seed=SEED + 7))
-    cpu = quantize_int8_(NUWA(**FULL, device="cpu", seed=SEED + 7))
+    gpu = int8_fp32_model("cuda")
     text = texts[1]
     with torch.no_grad():
-        err = (gpu(text, video).cpu() - cpu(text, video)).abs().max().item()
-    thres = greedy_thres(FULL["num_image_tokens"])
-    ids_gpu = gpu.generate(text, filter_thres=thres).cpu()
-    ids_cpu = cpu.generate(text, filter_thres=thres)
+        logits = gpu(text, video).cpu()
+    ids_gpu = gpu.generate(text, filter_thres=greedy_thres(FULL["num_image_tokens"])).cpu()
+    del gpu
+    cpu_logits, ids_cpu, cpu_dual = refs.result("int8")
+    err = (logits - cpu_logits).abs().max().item()
     print(f"int8 fp32 forward logits GPU vs CPU: max abs err {err:.3e} (tolerance "
           f"{LOGITS_ATOL:.0e})", flush=True)
     if not err <= LOGITS_ATOL:
         fail("int8 logits differ between GPU and CPU")
     check_near_tie("int8 fp32 greedy generate GPU vs CPU", ids_gpu, ids_cpu,
-                   lambda p: cpu_top2_gap(cpu, text, ids_cpu, p, 2.0), TIE_GAP)
-    del gpu, cpu
+                   lambda p: cpu_top2_gap(int8_fp32_model("cpu"), text, ids_cpu, p, 2.0),
+                   TIE_GAP)
 
-    frames, fmap = DUAL_FULL["max_video_frames"], DUAL12_VAE["image_size"] // 2 ** DUAL12_VAE[
-        "num_layers"]
-    gen = torch.Generator().manual_seed(SEED + 87)
-    ids = torch.randint(0, DUAL12_VAE["vq_codebook_size"], (1, frames * fmap**2), generator=gen)
-    audio = torch.randint(0, DUAL_FULL["num_audio_tokens"],
-                          (1, frames * DUAL_FULL["num_audio_tokens_per_video_frame"]),
-                          generator=gen)
-    outs = []
-    for device in ("cuda", "cpu"):
-        model = quantize_int8_(dual_model(NUWAVideoAudio, VQGanVAE, DUAL_FULL, DUAL12_VAE,
-                                          device=device, dtype=None, seed=SEED + 89))
-        with torch.no_grad():
-            if device == "cuda":
-                out, _, _ = counted("int8 dual forward fp32", knda, tally,
-                                    lambda: model(text, ids, audio),
-                                    {"fwd": 2 * DUAL_FULL["dec_depth"],
-                                     "fwd_audio": DUAL_FULL["dec_depth"]})
-            else:
-                out = model(text, ids, audio)
-        outs.append([o.cpu() for o in out])
-    errs = [(a - b).abs().max().item() for a, b in zip(*outs)]
+    model = int8_dual_model("cuda")
+    with torch.no_grad():
+        out, _, _ = counted("int8 dual forward fp32", knda, tally,
+                            lambda: model(text, *int8_dual_inputs()),
+                            {"fwd": 2 * DUAL_FULL["dec_depth"],
+                             "fwd_audio": DUAL_FULL["dec_depth"]})
+    del model
+    errs = [(a.cpu() - b).abs().max().item() for a, b in zip(out, cpu_dual)]
     print(f"int8 NUWAVideoAudio fp32 forward GPU vs CPU: video logits {errs[0]:.3e}, audio "
           f"logits {errs[1]:.3e} (tolerance {LOGITS_ATOL:.0e})", flush=True)
     if not max(errs) <= LOGITS_ATOL:
@@ -3899,18 +4111,17 @@ def time_cp_kernels(knda, rb_rows):
     return rows
 
 
-def cp_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
-    """NUWATrainer(context_parallel=True) at 128 px (train_128's model and
-    batch, bf16) on a one-rank NCCL group's make_mesh(data=1, model=1), the
-    frames over 'data', against the unmeshed trainer on a copy of one seeded
-    model, CP_STEPS steps each in turns (the step-0 sample left out), each
-    step's launches checked: the losses and the parameters bit-equal.
-    Returns the meshed steps' launches."""
+def one_rank_trainer_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, label,
+                         make_mesh_fn, steps, **options):
+    """NUWATrainer(**options) at 128 px (train_128's model and batch, bf16)
+    on a one-rank NCCL group's mesh (``make_mesh_fn()``) against the
+    unmeshed trainer on a copy of one seeded model, ``steps`` steps each in
+    turns (the step-0 sample left out), each step's launches checked: the
+    losses and the parameters bit-equal. Returns the meshed steps'
+    launches."""
     import copy
 
     import torch.distributed as dist
-
-    from nuwa_tpu_torch.parallel import make_mesh
 
     depth = NUWA128["dec_depth"]
     per_step = {"fwd": 2 * depth, "bwd_q": depth, "bwd_kv": depth}
@@ -3921,42 +4132,55 @@ def cp_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
                             world_size=1)
     try:
-        mesh = make_mesh(data=1, model=1, device="cuda")
+        mesh = make_mesh_fn()
         model = nuwa128_model(NUWA, VQGanVAE)
         runs, launches = {}, collections.Counter()
-        for label, m in (("unmeshed", None), ("context parallel", mesh)):
+        for name, m in (("unmeshed", None), (label, mesh)):
             t = NUWATrainer(nuwa=copy.deepcopy(model), dataset=list(zip(text, video)),
                             num_train_steps=10**9, lr=3e-4, wd=0.01, batch_size=NUWA128_BATCH,
                             grad_accum_every=1, max_grad_norm=0.5, cond_dropout_prob=0.2,
-                            seed=SEED, mesh=m, context_parallel=m is not None)
+                            seed=SEED, mesh=m, **(options if m is not None else {}))
             t._sample = lambda *a: None
-            runs[label] = (t, [], [])
+            runs[name] = (t, [], [])
         del model
-        for i in range(CP_STEPS):
-            for label in ("unmeshed", "context parallel")[::1 if i % 2 == 0 else -1]:
-                t, losses, ms = runs[label]
-                logs, step_ms, got = counted(f"128 px {label} train step {i}", knda, tally,
+        for i in range(steps):
+            for name in ("unmeshed", label)[::1 if i % 2 == 0 else -1]:
+                t, losses, ms = runs[name]
+                logs, step_ms, got = counted(f"128 px {name} train step {i}", knda, tally,
                                              t.train_step, per_step)
                 losses.append(logs["loss"])
                 ms.append(step_ms)
                 if t.mesh is not None:
                     launches.update(got)
-        (plain, want, plain_ms), (cp, losses, ms) = runs["unmeshed"], runs["context parallel"]
+        (plain, want, plain_ms), (meshed, losses, ms) = runs["unmeshed"], runs[label]
         equal = losses == want and all(torch.equal(a, b) for a, b in zip(
-            cp.nuwa.parameters(), plain.nuwa.parameters(), strict=True))
-        print(f"128 px NUWATrainer(context_parallel=True), mesh (data 1, model 1) over NCCL, "
-              f"{CP_STEPS} steps in turns: losses {', '.join(f'{x:.6f}' for x in losses)} "
+            meshed.nuwa.parameters(), plain.nuwa.parameters(), strict=True))
+        sizes = ", ".join(f"{n} {k}" for n, k in zip(mesh.mesh_dim_names, mesh.shape))
+        shown = ", ".join(f"{k}={v}" for k, v in options.items())
+        print(f"128 px NUWATrainer({shown}), mesh ({sizes}) over NCCL, "
+              f"{steps} steps in turns: losses {', '.join(f'{x:.6f}' for x in losses)} "
               f"against {', '.join(f'{x:.6f}' for x in want)} unmeshed, parameters "
               f"{'bit-equal' if equal else 'NOT bit-equal'}; step ms "
               f"{', '.join(f'{x:.1f}' for x in ms)} against "
               f"{', '.join(f'{x:.1f}' for x in plain_ms)}", flush=True)
         if not equal:
-            fail("the context-parallel trainer at one rank is not the unmeshed one bit for bit")
-        del runs, plain, cp
+            fail(f"the {label} trainer at one rank is not the unmeshed one bit for bit")
+        del runs, plain, meshed
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return launches
+
+
+def cp_train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
+    """NUWATrainer(context_parallel=True) on make_mesh(data=1, model=1), the
+    frames over 'data', against the unmeshed trainer (one_rank_trainer_128)."""
+    from nuwa_tpu_torch.parallel import make_mesh
+
+    return one_rank_trainer_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally,
+                                "context parallel",
+                                lambda: make_mesh(data=1, model=1, device="cuda"), CP_STEPS,
+                                context_parallel=True)
 
 
 def cp_phase(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, rb_rows):
@@ -3971,6 +4195,220 @@ def cp_phase(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, rb_rows):
     print(f"  (the trainers: {time.perf_counter() - start:.1f} s into the phase)", flush=True)
     return errs, rows, launches
 
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism: the stage body on one card
+# ---------------------------------------------------------------------------
+
+PP_STAGES, PP_MICROBATCHES, PP_STEPS = 2, 2, 2
+# config 5's dual decoder at the least depth that splits into 2 statically
+# identical stages: 2 x lcm(xmod every 3, dilations (1, 2)) (CHECK_DEPTH does not)
+PP_DUAL_DEPTH = 12
+
+
+def pp_inputs(dim, shapes, dtype, seed):
+    """Seeded stream(s) and loss weights of ``shapes`` and a text context of
+    b = 2 (32 tokens, the second row's last 12 masked) on the card."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    streams = [rnd(NUWA128_BATCH, n, dim) for n in shapes]
+    weights = [rnd(NUWA128_BATCH, n, dim).float() for n in shapes]
+    cmask = torch.ones(NUWA128_BATCH, 32, dtype=torch.bool, device="cuda")
+    cmask[1, 20:] = False
+    return streams, weights, rnd(NUWA128_BATCH, 32, dim), cmask
+
+
+def pp_step(knda, stack, streams, weights, ctx, cmask, seed, chained):
+    """One forward and backward of ``stack`` (a NUWA decoder or a dual
+    decoder) on the streams, unpipelined or as PP_STAGES stages of
+    PP_MICROBATCHES microbatches chained in this process
+    (parallel.pipeline.chained_*, each rank's stage function and schedule):
+    the outputs, {name: gradient} of the parameters and the inputs, and the
+    launches, the counts set to 0 just before and read just after."""
+    from nuwa_tpu_torch.parallel import pipeline
+
+    streams = [x.detach().requires_grad_() for x in streams]
+    ctx = ctx.detach().requires_grad_()
+    kw = dict(context=ctx, context_mask=cmask, seed=seed)
+    reset_launches(knda)
+    dual = len(streams) == 2
+    if chained:
+        run = pipeline.chained_dual_decoder if dual else pipeline.chained_transformer
+        outs = run(stack, *streams, PP_STAGES, num_microbatches=PP_MICROBATCHES, **kw)
+    else:
+        outs = stack(*streams, **kw)
+    outs = outs if dual else (outs,)
+    sum((o.float() * w).sum() for o, w in zip(outs, weights)).backward()
+    torch.cuda.synchronize()
+    launches = launch_counts(knda)
+    grads = {n: p.grad.float() for n, p in stack.named_parameters()}
+    grads.update({f"input {i}": x.grad.float() for i, x in enumerate(streams)})
+    grads["context"] = ctx.grad.float()
+    stack.zero_grad(set_to_none=True)
+    return [o.detach().float() for o in outs], grads, launches
+
+
+def pp_compare(label, knda, stack, streams, weights, ctx, cmask, seed, tol, fp32=None):
+    """The chained stages against the unpipelined stack: the outputs within
+    ``tol`` (absolute, or of the reference's max abs in bf16), every
+    gradient within ``GRAD_REL`` of its max abs and the chained launches
+    PP_MICROBATCHES x the unpipelined ones. In bf16 the reversible
+    backward's rebuilt activations make each run's gradients differ from
+    the fp32 ones (``fp32``: the fp32 unpipelined gradients of the same
+    weights and inputs) by far more than ``tol``, and by different amounts
+    at another batch split; there each chained gradient must be no farther
+    from the fp32 one than twice the unpipelined bf16 gradient is, plus
+    ``tol``. Returns (both runs' launches, the unpipelined gradients)."""
+    runs = [pp_step(knda, stack, streams, weights, ctx, cmask, seed, chained)
+            for chained in (False, True)]
+    (want, g_want, l_want), (got, g_got, l_got) = runs
+    out_err = max((g - w).abs().max().item() / (w.abs().max().item() if fp32 else 1.0)
+                  for g, w in zip(got, want))
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    if fp32 is None:
+        worst, where = max((rel(g_got[n], ref), n) for n, ref in g_want.items())
+        grads = (f"{len(g_want)} gradients, largest error {worst:.3e} of the gradient's max "
+                 f"abs at {where} (tolerance {GRAD_REL:.0e})")
+        ok = worst <= GRAD_REL
+    else:
+        excess, where = max((rel(g_got[n], ref) - 2 * rel(g_want[n], ref), n)
+                            for n, ref in fp32.items())
+        chained = max(rel(g_got[n], ref) for n, ref in fp32.items())
+        plain = max(rel(g_want[n], ref) for n, ref in fp32.items())
+        grads = (f"{len(g_want)} gradients against the fp32 ones: largest error {chained:.3e} "
+                 f"of the max abs chained, {plain:.3e} unpipelined; chained less twice "
+                 f"unpipelined at most {excess:.3e} (at {where}; tolerance {tol:.0e})")
+        ok = excess <= tol
+    kernels = {k: v for k, v in l_want.items() if v}
+    print(f"{label}: {PP_STAGES} stages x {PP_MICROBATCHES} microbatches chained against the "
+          f"unpipelined stack: output error {out_err:.3e} (tolerance {tol:.0e}"
+          f"{' of its max abs' if fp32 else ''}); {grads}; launches "
+          f"{({k: l_got[k] for k in kernels})} against {kernels} unpipelined", flush=True)
+    if not (out_err <= tol and ok):
+        fail(f"{label}: the chained stages are not the unpipelined stack")
+    if not kernels or l_got != {k: PP_MICROBATCHES * v for k, v in l_want.items()}:
+        fail(f"{label}: chained launches {l_got}, expected {PP_MICROBATCHES} x {l_want}")
+    return (l_want, l_got), g_want
+
+
+def pp_stage_bytes(stack):
+    """Each stage's parameter and AdamW moment bytes beside the whole
+    stack's: an optimizer over each stage's parameters (and one over all)
+    takes a step on zero gradients, and its state is counted."""
+    from nuwa_tpu_torch.parallel.pipeline import stage_param_slots
+    from nuwa_tpu_torch.train.optimizer import get_optimizer
+
+    L = stage_param_slots(stack, PP_STAGES)
+    groups = [[p for layer in stack.layers[s * L:(s + 1) * L] for p in layer.parameters()]
+              for s in range(PP_STAGES)]
+    rows = []
+    for params in (*groups, [p for g in groups for p in g]):
+        opt = get_optimizer(params, lr=3e-4, wd=0.01)
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        opt.step()
+        moments = sum(v.numel() * v.element_size() for st in opt.state.values()
+                      for k, v in st.items() if k != "step")
+        rows.append((sum(p.numel() * p.element_size() for p in params), moments))
+        stack.zero_grad(set_to_none=True)
+        del opt
+    *stages, (whole_p, whole_m) = rows
+    for s, (p_bytes, m_bytes) in enumerate(stages):
+        print(f"pipeline stage {s} of {PP_STAGES}: {p_bytes / 2**20:.2f} MiB of parameters "
+              f"({p_bytes / whole_p:.4f} of the stack's {whole_p / 2**20:.2f} MiB), "
+              f"{m_bytes / 2**20:.2f} MiB of AdamW moments ({m_bytes / whole_m:.4f} of "
+              f"{whole_m / 2**20:.2f} MiB)", flush=True)
+        if p_bytes * PP_STAGES != whole_p or m_bytes * PP_STAGES != whole_m:
+            fail(f"pipeline stage {s} does not hold 1/{PP_STAGES} of the stack")
+    return {"stage_param_bytes": [p for p, _ in stages], "stage_moment_bytes":
+            [m for _, m in stages], "stack_param_bytes": whole_p, "stack_moment_bytes": whole_m}
+
+
+def pp_phase(NUWA, NUWAVideoAudio, VQGanVAE, NUWATrainer, tokenizer, knda, tally):
+    """Phase 20: (a) the stage body at full width, stages chained in one
+    process, against the unpipelined decoder: phase 8's 128-px reversible
+    decoder (fp32 without and with dropout DROP_RATE, bf16), its plain
+    (dec_reversible=False) stack (fp32), config 5's reversible dual decoder
+    (the quad carry, the audio geometry, fp32, PP_DUAL_DEPTH); each stage's
+    parameter and moment bytes; the chained step's CUDA-event ms beside the
+    unpipelined one's (bf16). (b) NUWATrainer(pipeline_parallel=True,
+    pipeline_microbatches=2) on a one-rank NCCL ('data', 'pipe') mesh
+    against the unmeshed trainer. Returns {"chained": {run: (unpipelined,
+    chained launches)}, "ms", "kernel_ms": {chained: ms}, "bytes", "trainer":
+    launches}."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    shapes = (T128 + 1,)  # bos and the 10,239 shifted video tokens
+    out, fp32 = {"chained": {}}, None
+    for label, dtype, rev, dropout, tol in (
+            ("128 px reversible decoder, fp32", None, True, 0.0, LOGITS_ATOL),
+            (f"128 px reversible decoder, fp32, dropout {DROP_RATE}", None, True, DROP_RATE,
+             LOGITS_ATOL),
+            ("128 px reversible decoder, bf16", "bfloat16", True, 0.0, TOL[torch.bfloat16]),
+            ("128 px plain decoder, fp32", None, False, 0.0, LOGITS_ATOL)):
+        # the same weights and inputs in every run (the bf16 inputs rounded)
+        model = nuwa128_model(NUWA, VQGanVAE, dtype=dtype, seed=SEED + 120, dec_reversible=rev,
+                              attn_dropout=dropout, ff_dropout=dropout)
+        stack = model.video_transformer
+        torch_dtype = torch.bfloat16 if dtype else torch.float32
+        streams, weights, ctx, cmask = pp_inputs(NUWA128["dim"], shapes, torch_dtype,
+                                                 SEED + 121)
+        seed = 1234 if dropout else None
+        out["chained"][label], grads = pp_compare(label, knda, stack, streams, weights, ctx,
+                                                  cmask, seed, tol, fp32 if dtype else None)
+        fp32 = grads if fp32 is None else fp32
+        if dtype:
+            times = {chained: cuda_ms(lambda c=chained: pp_step(
+                knda, stack, streams, weights, ctx, cmask, None, c), iters=1, reps=3, warmup=1)
+                     for chained in (False, True)}
+            print(f"128 px reversible decoder bf16 forward and backward (b = {NUWA128_BATCH}, "
+                  f"{shapes[0]} tokens): chained {times[True]:.1f} ms against unpipelined "
+                  f"{times[False]:.1f} ms ({times[True] / times[False]:.3f} of it; CUDA events, "
+                  f"{smi})", flush=True)
+            busy = {chained: share(lambda c=chained: pp_step(
+                knda, stack, streams, weights, ctx, cmask, None, c),
+                f"{'chained' if chained else 'unpipelined'} bf16 step", wall=times[chained])
+                for chained in (False, True)}
+            if None not in busy.values():
+                print(f"kernel time of the chained step {busy[True] / busy[False]:.3f} of the "
+                      f"unpipelined one's", flush=True)
+            out["ms"] = times
+            out["kernel_ms"] = busy
+            out["bytes"] = pp_stage_bytes(stack)
+        del model, stack
+        torch.cuda.empty_cache()
+    model = dual_model(NUWAVideoAudio, VQGanVAE, dict(DUAL, dec_depth=PP_DUAL_DEPTH), DUAL_VAE,
+                       dtype=None, seed=SEED + 122)
+    fmap = DUAL["image_size"] // 2 ** DUAL_VAE["num_layers"]
+    frames = DUAL["max_video_frames"]
+    dual_shapes = (frames * fmap**2, frames * DUAL["num_audio_tokens_per_video_frame"])
+    streams, weights, ctx, cmask = pp_inputs(DUAL["dim"], dual_shapes, torch.float32,
+                                             SEED + 123)
+    label = f"config 5 reversible dual decoder, depth {PP_DUAL_DEPTH}, fp32"
+    out["chained"][label], _ = pp_compare(label, knda, model.video_audio_transformer, streams,
+                                          weights, ctx, cmask, None, LOGITS_ATOL)
+    del model, fp32
+    torch.cuda.empty_cache()
+    print(f"  (the chained stages: {time.perf_counter() - start:.1f} s into the phase)",
+          flush=True)
+    out["trainer"] = one_rank_trainer_128(
+        NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, tally, "pipeline parallel",
+        lambda: init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "pipe")), PP_STEPS,
+        pipeline_parallel=True, pipeline_microbatches=PP_MICROBATCHES)
+    print(f"  (the trainers: {time.perf_counter() - start:.1f} s into the phase)", flush=True)
+    print(smi, flush=True)
+    return out
 
 def main():
     if not torch.cuda.is_available():
@@ -3992,6 +4430,23 @@ def main():
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
+
+    # the CPU sides of the GPU-vs-CPU checks, in the order the checks read them
+    refs = CpuRefs()
+    text128 = nuwa128_text(tokenizer, 1)
+    for key, fn, *args in (
+            ("serving", serving_side, "cpu"), ("train", train_side, "cpu"),
+            ("sketch", sketch_side, "cpu"),
+            (("sketch train", 0.0), sketch_train_side, "cpu", 0.0),
+            ("128 px", nuwa128_side, "cpu", text128),
+            (("128 px train", 0.0), train_128_side, "cpu", text128, 0.0),
+            ("dual", dual_side, "cpu"),
+            (("dual train", 0.0), dual_train_side, "cpu", 0.0, True),
+            (("128 px train", DROP_RATE), train_128_side, "cpu", text128, DROP_RATE),
+            (("dual train", DROP_RATE), dual_train_side, "cpu", DROP_RATE, True),
+            (("sketch train", DROP_RATE), sketch_train_side, "cpu", DROP_RATE),
+            ("dual full", full_dual_side, "cpu")):
+        refs.submit(key, fn, *args)
 
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -4019,39 +4474,41 @@ def main():
     check_cross_autograd(kcross)
     cross_bwd_rows = time_cross_bwd(kcross)
     phase("kernel checks and times")
-    model, texts, serve_launches = serve(NUWA, knda)
-    check_against_cpu(NUWA)
+    model, texts, serve_launches, serve_ms = serve(NUWA, knda)
+    refs.submit("int8", int8_side, texts[1], int8_video())
+    check_against_cpu(refs)
     phase("NUWA serving")
     train_launches, _ = train(NUWA, NUWATrainer, knda)
-    train_against_cpu(NUWA)
+    train_against_cpu(refs)
     phase("NUWA training")
-    sketch, short, inputs, cross_launches, sketch_fwd = serve_sketch(NUWASketch, VQGanVAE, knda)
-    sketch_against_cpu(NUWASketch, VQGanVAE)
+    sketch, inputs, cross_launches, sketch_fwd, sketch_ms = serve_sketch(NUWASketch, VQGanVAE,
+                                                                         knda)
+    sketch_against_cpu(refs)
     phase("NUWASketch serving")
     sketch_train_launches, sketch_train_ms = train_sketch(NUWASketch, VQGanVAE, knda)
-    sketch_train_against_cpu(NUWASketch, VQGanVAE)
+    sketch_train_against_cpu(refs)
     phase("NUWASketch training")
     rb_errs = check_rb(knda)
     check_determinism(knda, kcross)
     rb_rows = time_train_kernels(knda, fmap=(FMAP128, FMAP128), t=T128, plain_iters=2)
     phase("Sparse3DNA kernels at fmap 32 and determinism")
     serve128_launches, _ = serve_128(NUWA, VQGanVAE, tokenizer, knda)
-    nuwa128_against_cpu(NUWA, VQGanVAE, tokenizer)
+    nuwa128_against_cpu(refs, tokenizer)
     phase("NUWA serving at 128 px")
     train128_launches, train128_ms = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda)
-    train_128_against_cpu(NUWA, VQGanVAE, tokenizer)
+    train_128_against_cpu(refs, tokenizer)
     phase("NUWA training at 128 px")
     audio_err = check_audio(knda)
     dual_errs = check_dual_video(knda)
     audio_rows = time_audio(knda)
     dual_launches, _ = serve_dual(NUWAVideoAudio, VQGanVAE, knda)
-    dual_against_cpu(NUWAVideoAudio, VQGanVAE)
+    dual_against_cpu(refs)
     phase("NUWAVideoAudio serving and the audio geometry")
     audio_bwd_err = check_audio_bwd(knda)
     check_audio_autograd(knda)
     audio_bwd_rows = time_audio_bwd(knda)
     dual_train_launches, dual_train = train_dual(NUWAVideoAudio, VQGanVAE, knda)
-    dual_train_against_cpu(NUWAVideoAudio, VQGanVAE)
+    dual_train_against_cpu(refs)
     phase("NUWAVideoAudio training and the audio backward")
     drop_rows = dropout_rows(knda)
     drop128_launches, drop128_ms = train_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda,
@@ -4059,14 +4516,14 @@ def main():
     print(f"128 px train step with attn_dropout = ff_dropout = {DROP_RATE}: {drop128_ms:.1f} ms "
           f"against {train128_ms:.1f} ms without ({100 * (drop128_ms / train128_ms - 1):+.1f}%)",
           flush=True)
-    train_128_against_cpu(NUWA, VQGanVAE, tokenizer, dropout=DROP_RATE)
+    train_128_against_cpu(refs, tokenizer, dropout=DROP_RATE)
     drop_dual_launches, drop_dual = train_dual(NUWAVideoAudio, VQGanVAE, knda,
                                                dropout=DROP_RATE)
     print(f"dual train step with attn_dropout = ff_dropout = {DROP_RATE}: "
           f"{drop_dual['ms']:.1f} ms against {dual_train['ms']:.1f} ms without "
           f"({100 * (drop_dual['ms'] / dual_train['ms'] - 1):+.1f}%), peak memory "
           f"{drop_dual['peak_gib']:.2f} against {dual_train['peak_gib']:.2f} GiB", flush=True)
-    dual_train_against_cpu(NUWAVideoAudio, VQGanVAE, dropout=DROP_RATE)
+    dual_train_against_cpu(refs, dropout=DROP_RATE)
     drop_sketch_launches, drop_sketch_ms = train_sketch(NUWASketch, VQGanVAE, knda,
                                                         dropout=DROP_RATE)
     for variant, ms in drop_sketch_ms.items():
@@ -4074,22 +4531,22 @@ def main():
         print(f"sketch train step ({variant}) with attn_dropout = ff_dropout = {DROP_RATE}: "
               f"{ms:.1f} ms against {base:.1f} ms without ({100 * (ms / base - 1):+.1f}%)",
               flush=True)
-    sketch_train_against_cpu(NUWASketch, VQGanVAE, dropout=DROP_RATE)
+    sketch_train_against_cpu(refs, dropout=DROP_RATE)
     phase("training with attention and feed-forward dropout")
     surface = collections.Counter()  # the surface phases' launches
     dense_causal(knda, surface)
     phase("dense causal decoder (BASELINE config 2)")
     full_nuwa(model, texts, knda, surface)
     full_sketch(NUWASketch, VQGanVAE, knda, surface)
-    full_dual(NUWAVideoAudio, VQGanVAE, knda, surface)
+    full_dual(NUWAVideoAudio, VQGanVAE, knda, surface, refs)
     phase('method="full"')
-    int8_serving(NUWA, NUWAVideoAudio, VQGanVAE, knda, model, texts, surface)
+    int8_serving(NUWA, knda, model, texts, surface, refs)
     phase("int8 serving")
     resume_128(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda, surface)
     phase("checkpoint and resume at 128 px")
-    throughput(model, texts)
+    throughput(model, serve_ms)
     device_share(model, texts)
-    sketch_throughput(sketch, short, inputs)
+    sketch_throughput(sketch, inputs, sketch_ms)
     phase("throughput")
     mesh_phase(NUWA, VQGanVAE, NUWATrainer, VQGanVAETrainer, tokenizer, knda, surface, model,
                texts)
@@ -4097,12 +4554,15 @@ def main():
     cp_errs, cp_rows, cp_launches = cp_phase(NUWA, VQGanVAE, NUWATrainer, tokenizer, knda,
                                              surface, rb_rows)
     phase("context parallelism: the query window and the CP trainer")
-    del model, sketch, short
+    pp = pp_phase(NUWA, NUWAVideoAudio, VQGanVAE, NUWATrainer, tokenizer, knda, surface)
+    phase("pipeline parallelism: the chained stages and the PP trainer")
+    del model, sketch
     torch.cuda.empty_cache()
     train_codec(VQGanVAE, VQGanVAETrainer, knda)
     codec_against_cpu(VQGanVAE)
     codec_resume(VQGanVAE, VQGanVAETrainer)
     phase("codec training (VQGanVAETrainer)")
+    refs.close()
 
     # launches: the NUWA serving run's, the training run's, the sketch
     # serving run's, the sketch training runs', the 128-px runs', the
@@ -4173,6 +4633,17 @@ def main():
             "shards": [{k: r[k] for k in ("context", "rank", "queries", "keys", "ms", "bound_ms",
                                           "bound_by", "of_unsharded")}
                        for r in cp_rows if r["name"] == name],
+        }
+        # phase 20: the PP trainer's launches (counted in "launches" too), and
+        # the chained stages' launches beside the unpipelined decoder's
+        entries[-1]["pipeline_parallel"] = {
+            "trainer_launches": pp["trainer"][name],
+            # the bf16 128-px reversible decoder's forward and backward
+            "chained_ms": pp["ms"][True], "unpipelined_ms": pp["ms"][False],
+            "chained_kernel_ms": pp["kernel_ms"][True],
+            "unpipelined_kernel_ms": pp["kernel_ms"][False], **pp["bytes"],
+            "chained": {label: {"launches": got[name], "unpipelined_launches": want[name]}
+                        for label, (want, got) in pp["chained"].items()},
         }
     # the audio geometry of SparseCausal2DNA (TPU kernels 1-3 through
     # _audio_core_op, 4-6 through _audio_rb_core_op): the forward at the

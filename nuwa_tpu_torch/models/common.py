@@ -21,6 +21,12 @@ from ..core.tp import whole
 from ..utils.quantize import head_logits
 
 
+def check_pp(cp_mesh, pp_mesh):
+    """The models' forward takes one of context and pipeline parallelism."""
+    if cp_mesh is not None and pp_mesh is not None:
+        raise ValueError("PP does not compose with CP")
+
+
 def cached_ar_rollout(*, dec, caches, embed_table, pos_emb, bos_vec, to_logits,
                       batch, total, generator, filter_thres, temperature,
                       cond_scale, dim, dtype=None, start_pos=0, init_prev=None):

@@ -35,8 +35,8 @@ from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
 from ..utils.quantize import head_logits
-from .common import (cached_ar_rollout, full_ar_rollout, ids_to_output, long_frame_decoder,
-                     long_frame_full)
+from .common import (cached_ar_rollout, check_pp, full_ar_rollout, ids_to_output,
+                     long_frame_decoder, long_frame_full)
 
 METHODS = ("cached", "full")
 
@@ -173,9 +173,11 @@ class NUWA(nn.Module):
     # ---- decoder core -----------------------------------------------------
 
     def _decode_logits(self, frame_indices_input, text_embeds, text_mask, *, train=False,
-                       seed=None, cp_mesh=None):
+                       seed=None, cp_mesh=None, pp_mesh=None, pp_microbatches=1,
+                       pp_data_axis=None):
         """frame_indices_input: (b, n) tokens, already shifted for teacher
-        forcing; returns (b, n + 1, vocab) logits."""
+        forcing; returns (b, n + 1, vocab) logits. ``pp_mesh``: the decoder
+        runs as GPipe stages over its 'pipe' axis (``parallel.pipeline``)."""
         b, n = frame_indices_input.shape
         emb = self.image_embedding(frame_indices_input, train=train)
         emb = emb + self.video_pos_emb()[:n][None]
@@ -183,12 +185,20 @@ class NUWA(nn.Module):
         emb = torch.cat([bos, emb], dim=1)
         if self.dtype is not None:
             emb = emb.to(self.dtype)
-        out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask,
-                                     seed=seed, cp_mesh=cp_mesh)
+        if pp_mesh is not None:  # lazy: parallel and train import each other
+            from ..parallel.pipeline import pipelined_transformer
+
+            out = pipelined_transformer(
+                self.video_transformer, emb, pp_mesh, num_microbatches=pp_microbatches,
+                data_axis=pp_data_axis, context=text_embeds, context_mask=text_mask, seed=seed)
+        else:
+            out = self.video_transformer(emb, context=text_embeds, context_mask=text_mask,
+                                         seed=seed, cp_mesh=cp_mesh)
         return head_logits(out, self.to_logits)
 
     def forward(self, text, video, *, return_loss=False, cond_dropout_prob=0.2,
-                train=False, generator=None, uncond=None, row0=0, cp_mesh=None):
+                train=False, generator=None, uncond=None, row0=0, cp_mesh=None,
+                pp_mesh=None, pp_microbatches=1, pp_data_axis=None):
         """Teacher-forced logits of a video given text ids, or with
         ``return_loss`` the mean cross-entropy of predicting each token from
         the ones before it (the input is shifted by one, so the decoder sees
@@ -205,8 +215,14 @@ class NUWA(nn.Module):
         b) of a global batch (a rank's share under data parallelism), and
         the dropout masks key its rows as those global rows. ``cp_mesh``:
         the decoder's Sparse3DNA layers split their frames over a mesh axis
-        (context parallelism: ``nda.Sparse3DNA.forward``).
+        (context parallelism: ``nda.Sparse3DNA.forward``). ``pp_mesh``: the
+        decoder runs as GPipe stages over the mesh's 'pipe' axis in
+        ``pp_microbatches`` microbatches, the batch being this rank's rows
+        of 'data' when ``pp_data_axis`` names it (pipeline parallelism:
+        ``parallel.pipeline``); the text encoder, the embeddings and the
+        logits run whole on every rank of 'pipe'.
         """
+        check_pp(cp_mesh, pp_mesh)
         text = self._ids(text)
         b = text.shape[0]
         text_mask = text != 0
@@ -220,7 +236,8 @@ class NUWA(nn.Module):
         if train and uncond is not None:
             text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
         logits = self._decode_logits(inp, text_embeds, text_mask, train=train, seed=dec_seed,
-                                     cp_mesh=cp_mesh)
+                                     cp_mesh=cp_mesh, pp_mesh=pp_mesh,
+                                     pp_microbatches=pp_microbatches, pp_data_axis=pp_data_axis)
         if not return_loss:
             return logits
         return cross_entropy(logits, frame_indices)

@@ -39,8 +39,8 @@ from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..vqgan_vae import VQGanVAE
 from ..utils.quantize import head_logits
-from .common import (cached_ar_rollout, full_ar_rollout, ids_to_output, long_frame_decoder,
-                     long_frame_full)
+from .common import (cached_ar_rollout, check_pp, full_ar_rollout, ids_to_output,
+                     long_frame_decoder, long_frame_full)
 from .nuwa import METHODS, cross_entropy, dropout_seeds
 
 
@@ -165,7 +165,8 @@ class NUWASketch(nn.Module):
     # ---- decoder core -----------------------------------------------------
 
     def _decode_logits(self, frame_indices_input, sketch_embeds, context_mask, *, train=False,
-                       seed=None, cp_mesh=None):
+                       seed=None, cp_mesh=None, pp_mesh=None, pp_microbatches=1,
+                       pp_data_axis=None):
         """frame_indices_input: (b, n) video tokens, already shifted for
         teacher forcing; seed: the decoder's dropout seed, or None. Returns
         (b, n + 1, vocab) logits."""
@@ -175,12 +176,21 @@ class NUWASketch(nn.Module):
         emb = torch.cat([self.video_bos.expand(b, 1, self.dim), emb], dim=1)
         if self.dtype is not None:
             emb = emb.to(self.dtype)
-        out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask,
-                                     seed=seed, cp_mesh=cp_mesh)
+        if pp_mesh is not None:  # lazy: parallel and train import each other
+            from ..parallel.pipeline import pipelined_transformer
+
+            out = pipelined_transformer(
+                self.video_transformer, emb, pp_mesh, num_microbatches=pp_microbatches,
+                data_axis=pp_data_axis, context=sketch_embeds, context_mask=context_mask,
+                seed=seed)
+        else:
+            out = self.video_transformer(emb, context=sketch_embeds, context_mask=context_mask,
+                                         seed=seed, cp_mesh=cp_mesh)
         return head_logits(out, self.to_logits)
 
     def forward(self, sketch, video, *, sketch_mask=None, return_loss=False,
-                cond_dropout_prob=0.2, train=False, generator=None, uncond=None, cp_mesh=None):
+                cond_dropout_prob=0.2, train=False, generator=None, uncond=None, cp_mesh=None,
+                pp_mesh=None, pp_microbatches=1, pp_data_axis=None):
         """Teacher-forced logits (b, F * HW + 1, vocab) of the tokens of
         ``video`` (b, F, c, h, w) pixels, F = max_video_frames, given the
         sketch; or with ``return_loss`` the mean cross-entropy of predicting
@@ -192,7 +202,11 @@ class NUWASketch(nn.Module):
         ``generator`` first, and the sketch encoder and the decoder take
         seeds derived from it. ``cp_mesh``: the Sparse3DNA layers of the
         decoder and of a centered encoder split their frames over a mesh
-        axis (context parallelism)."""
+        axis (context parallelism). ``pp_mesh``, ``pp_microbatches``,
+        ``pp_data_axis``: the decoder runs as GPipe stages over the mesh's
+        'pipe' axis (pipeline parallelism, as ``NUWA.forward``); the sketch
+        encoder runs whole on every rank."""
+        check_pp(cp_mesh, pp_mesh)
         video = self._pixels(video)
         if video.shape[1] != self.max_video_frames:
             raise ValueError(f"video needs all {self.max_video_frames} frames")
@@ -210,7 +224,8 @@ class NUWASketch(nn.Module):
             uncond = torch.as_tensor(uncond, device=self.device)
             context_mask = context_mask & ~uncond[:, None]
         logits = self._decode_logits(inp, sketch_embeds, context_mask, train=train,
-                                     seed=dec_seed, cp_mesh=cp_mesh)
+                                     seed=dec_seed, cp_mesh=cp_mesh, pp_mesh=pp_mesh,
+                                     pp_microbatches=pp_microbatches, pp_data_axis=pp_data_axis)
         if not return_loss:
             return logits
         return cross_entropy(logits, frame_indices)

@@ -45,7 +45,7 @@ from ..ops.utils import resolve_device
 from ..transformer import ReversibleTransformer, Transformer
 from ..utils.quantize import head_logits
 from ..vqgan_vae import VQGanVAE
-from .common import ar_decode_loop, ids_to_output
+from .common import ar_decode_loop, check_pp, ids_to_output
 from .nuwa import METHODS, cross_entropy, dropout_seeds
 
 
@@ -185,15 +185,24 @@ class NUWAVideoAudio(nn.Module):
         return self._cast(torch.cat([self.audio_bos.expand(b, 1, self.dim), emb], dim=1))
 
     def _decode(self, video_inp, audio_inp, text_embeds, text_mask, *, train=False, seed=None,
-                cp_mesh=None):
+                cp_mesh=None, pp_mesh=None, pp_microbatches=1, pp_data_axis=None):
         v = self._embed_video_tokens(video_inp, train)
         a = self._embed_audio_tokens(audio_inp, train)
-        v, a = self.video_audio_transformer(v, a, context=text_embeds, context_mask=text_mask,
-                                            seed=seed, cp_mesh=cp_mesh)
+        if pp_mesh is not None:  # lazy: parallel and train import each other
+            from ..parallel.pipeline import pipelined_dual_decoder
+
+            v, a = pipelined_dual_decoder(
+                self.video_audio_transformer, v, a, pp_mesh, num_microbatches=pp_microbatches,
+                data_axis=pp_data_axis, context=text_embeds, context_mask=text_mask, seed=seed)
+        else:
+            v, a = self.video_audio_transformer(v, a, context=text_embeds,
+                                                context_mask=text_mask, seed=seed,
+                                                cp_mesh=cp_mesh)
         return head_logits(v, self.to_video_logits), head_logits(a, self.to_audio_logits)
 
     def forward(self, text, video, audio, *, return_loss=False, cond_dropout_prob=0.2,
-                train=False, generator=None, uncond=None, cp_mesh=None):
+                train=False, generator=None, uncond=None, cp_mesh=None, pp_mesh=None,
+                pp_microbatches=1, pp_data_axis=None):
         """Teacher-forced (video logits, audio logits) given text ids, or
         with ``return_loss`` the video loss plus ``audio_loss_weight`` times
         the audio loss, each the mean cross-entropy of predicting every
@@ -206,7 +215,11 @@ class NUWAVideoAudio(nn.Module):
         ``generator``, from which the encoder's and the decoder's layers
         take theirs. ``cp_mesh``: the video stream's Sparse3DNA layers split
         their frames over a mesh axis (context parallelism); the audio
-        stream runs whole."""
+        stream runs whole. ``pp_mesh``, ``pp_microbatches``,
+        ``pp_data_axis``: the dual decoder runs as GPipe stages over the
+        mesh's 'pipe' axis, both streams through every stage (pipeline
+        parallelism, as ``NUWA.forward``)."""
+        check_pp(cp_mesh, pp_mesh)
         text = self._ids(text)
         b = text.shape[0]
         text_mask = text != 0
@@ -223,7 +236,9 @@ class NUWAVideoAudio(nn.Module):
             text_mask = text_mask & ~torch.as_tensor(uncond, device=self.device)[:, None]
         video_logits, audio_logits = self._decode(video_inp, audio_inp, text_embeds,
                                                   text_mask, train=train, seed=dec_seed,
-                                                  cp_mesh=cp_mesh)
+                                                  cp_mesh=cp_mesh, pp_mesh=pp_mesh,
+                                                  pp_microbatches=pp_microbatches,
+                                                  pp_data_axis=pp_data_axis)
         if not return_loss:
             return video_logits, audio_logits
         return (cross_entropy(video_logits, frame_indices)

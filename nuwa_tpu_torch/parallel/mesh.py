@@ -7,9 +7,10 @@ port runs one process a rank, every rank the same code, over a
 batch over ``data``, the TP rules' parameter splits over ``model``
 (``parallel.sharding``), or ``("data", "model", "context")`` with the
 frames of the Sparse3DNA attention over ``context``
-(``parallel.context_parallel``). The pipeline's ``pipe`` axis is not in the
-port yet (ROADMAP A8b-PP). The ranks talk over NCCL on the card and over gloo
-on the CPU (the tests); a mesh on ``cuda`` needs NCCL and never falls back.
+(``parallel.context_parallel``), or ``("data", "pipe")`` with the decoder
+stack's stages over ``pipe`` (``parallel.pipeline``). The ranks talk over
+NCCL on the card and over gloo on the CPU (the tests); a mesh on ``cuda``
+needs NCCL and never falls back.
 
 ``Sharding(mesh, spec)`` takes the place of ``NamedSharding``: ``spec`` a
 tuple of axis names or None a dimension, as a ``PartitionSpec``; ``local``
@@ -23,6 +24,7 @@ from ..core.tp import Shard
 
 AXES = ("data", "model")
 CP_AXES = ("data", "model", "context")
+PP_AXES = ("data", "pipe")
 
 
 def make_mesh(data: int = -1, model: int = 1, context: int = 1, pipe: int = 1,
@@ -31,13 +33,12 @@ def make_mesh(data: int = -1, model: int = 1, context: int = 1, pipe: int = 1,
     ranks (rank = data index * model + model index), or with ``context > 1``
     a ("data", "model", "context") one (DPxCP: the batch over 'data', the
     frames over 'context'; rank = (data index * model + model index) *
-    context + context index, JAX's ``reshape(data, model, context)``);
-    ``data=-1`` takes the rest of the world. ``device="cpu"`` builds it on
-    the CPU over gloo (the tests); on ``cuda`` the group's backend must be
-    NCCL. ``pipe > 1`` raises: the pipeline is not in the port yet."""
-    if pipe > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (the 'pipe' axis) is not in the port yet (ROADMAP A8b-PP)")
+    context + context index, JAX's ``reshape(data, model, context)``), or
+    with ``pipe > 1`` a ("data", "pipe") one (PPxDP: GPipe stages over
+    'pipe'; rank = data index * pipe + pipe index, JAX's ``reshape(data,
+    pipe)``); ``data=-1`` takes the rest of the world. ``device="cpu"``
+    builds it on the CPU over gloo (the tests); on ``cuda`` the group's
+    backend must be NCCL."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed process group")
     backend = dist.get_backend()
@@ -46,13 +47,22 @@ def make_mesh(data: int = -1, model: int = 1, context: int = 1, pipe: int = 1,
         raise RuntimeError(f"a mesh on {device} needs the {want} backend, the process "
                            f"group has {backend}")
     n = dist.get_world_size()
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if pipe > 1:
+        assert model == 1 and context == 1, (
+            "pipe composes with 'data' only (stage params are replicated "
+            "across every other axis)")
+        if data == -1:
+            assert n % pipe == 0, f"{n} devices not divisible by pipe={pipe}"
+            data = n // pipe
+        assert data * pipe == n, f"mesh {data}x{pipe} != {n} devices"
+        return init_device_mesh(device, (data, pipe), mesh_dim_names=PP_AXES)
     if data == -1:
         assert n % (model * context) == 0, (
             f"{n} devices not divisible by model*context={model * context}")
         data = n // (model * context)
     assert data * model * context == n, f"mesh {data}x{model}x{context} != {n} devices"
-    from torch.distributed.device_mesh import init_device_mesh
-
     if context > 1:
         return init_device_mesh(device, (data, model, context), mesh_dim_names=CP_AXES)
     return init_device_mesh(device, (data, model), mesh_dim_names=AXES)

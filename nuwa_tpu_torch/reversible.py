@@ -4,12 +4,13 @@ Counterpart of ``nuwa_tpu/reversible.py``. Blocks are couples ``(f, g)``:
 
     y1 = x1 + f(x2)        y2 = x2 + g(y1)
 
-The input is duplicated into both streams and the output is their mean. The
-forward keeps only the last two streams; the backward walks the couples in
-reverse, inverts each one (``x2 = y2 - g(y1)``, ``x1 = y1 - f(x2)``) and
-re-runs f and g with grad enabled to get their input and parameter
-gradients, which it returns through autograd (so each parameter's gradient
-is accumulated once, by autograd). ``reverse=False`` runs the same math
+The input is duplicated into both streams and the output is their mean
+(``reversible_sequence``); a pipeline stage takes the pair and hands it on
+(``reversible_pair``). The forward keeps only the last two streams; the
+backward walks the couples in reverse, inverts each one (``x2 = y2 -
+g(y1)``, ``x1 = y1 - f(x2)``) and re-runs f and g with grad enabled to get
+their input and parameter gradients, which it returns through autograd (so
+each parameter's gradient is accumulated once, by autograd). ``reverse=False`` runs the same math
 under plain autograd, which keeps every activation.
 
 Each couple carries the dropout seeds of its f and g, which every call of
@@ -56,10 +57,9 @@ def _add(a, b):
 
 class _Reversible(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, couples, names, x, *tensors):
+    def forward(ctx, couples, names, x1, x2, *tensors):
         values = tensors[: len(names)]  # the parameters follow, for their gradients
         kwargs = dict(zip(names, values))
-        x1 = x2 = x
         for f, f_route, g, g_route, (fs, gs) in couples:
             x1 = x1 + f(x2, seed=fs, **_route(kwargs, f_route))
             x2 = x2 + g(x1, seed=gs, **_route(kwargs, g_route))
@@ -96,7 +96,16 @@ class _Reversible(torch.autograd.Function):
             y1, y2 = x1, x2
             dy2 = dy2 + dfx2  # dy1 already holds the x1 cotangent
         dvalues = [dkwargs.get(n) for n in ctx.names]
-        return (None, None, dy1 + dy2, *dvalues, *dparams)
+        return (None, None, dy1, dy2, *dvalues, *dparams)
+
+
+def reversible_pair(couples, x1, x2, kwargs):
+    """The stream pair (x1, x2) through ``couples`` (as in
+    ``reversible_sequence``) with the O(1)-memory backward; returns the
+    pair. ``kwargs`` holds no None."""
+    names = tuple(kwargs)
+    params = [p for f, _, g, *_ in couples for p in (*f.parameters(), *g.parameters())]
+    return _Reversible.apply(couples, names, x1, x2, *kwargs.values(), *params)
 
 
 def reversible_sequence(couples, x, kwargs, *, reverse=True):
@@ -111,7 +120,6 @@ def reversible_sequence(couples, x, kwargs, *, reverse=True):
             y1 = y1 + f(y2, seed=fs, **_route(kwargs, f_route))
             y2 = y2 + g(y1, seed=gs, **_route(kwargs, g_route))
         return (y1 + y2) * 0.5
-    names = tuple(kwargs)
-    params = [p for f, _, g, *_ in couples for p in (*f.parameters(), *g.parameters())]
-    y1, y2 = _Reversible.apply(couples, names, x, *kwargs.values(), *params)
+    # autograd adds the two streams' cotangents into x's
+    y1, y2 = reversible_pair(couples, x, x, kwargs)
     return (y1 + y2) * 0.5

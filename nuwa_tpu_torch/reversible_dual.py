@@ -13,18 +13,20 @@ three block types, each a quad of modules (f, g, j, k):
         n1 = m1 + j(m2, y2)   # audio attends the updated video
         n2 = m2 + g(n1)       # audio ff
 
-Each stream enters both halves of its tower and leaves as their mean. The
-forward keeps only the last four streams and the routed tensors. The
-backward walks the blocks in reverse and inverts each quad in the JAX
-package's order: an ``xmod`` quad g, then j (which reads the updated y2),
-then k, then f (which reads m2); a ``self`` / ``cross`` quad g and f, then k
-and j. It re-runs each module with grad enabled on detached inputs to get
-its input, parameter and routed-tensor cotangents (the text ``context``
-among them), and returns them through autograd, so each parameter's
-gradient is accumulated once. ``reverse=False`` runs the same math under
-plain autograd, which keeps every activation. Each block carries the
-dropout seeds of its four modules, which every call of them gets, the
-recompute's too (the JAX package's ``key{i}f`` ... ``key{i}k``).
+Each stream enters both halves of its tower and leaves as their mean
+(``dual_reversible_sequence``); a pipeline stage takes the quad and hands it
+on (``dual_reversible_quad``). The forward keeps only the last four streams
+and the routed tensors. The backward walks the blocks in reverse and
+inverts each quad in the JAX package's order: an ``xmod`` quad g, then j
+(which reads the updated y2), then k, then f (which reads m2); a ``self`` /
+``cross`` quad g and f, then k and j. It re-runs each module with grad
+enabled on detached inputs to get its input, parameter and routed-tensor
+cotangents (the text ``context`` among them), and returns them through
+autograd, so each parameter's gradient is accumulated once.
+``reverse=False`` runs the same math under plain autograd, which keeps
+every activation. Each block carries the dropout seeds of its four
+modules, which every call of them gets, the recompute's too (the JAX
+package's ``key{i}f`` ... ``key{i}k``).
 """
 from __future__ import annotations
 
@@ -85,9 +87,9 @@ def _vjp(module, inputs, kwargs, names, seed, cotangent, dkwargs):
 
 class _DualReversible(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, blocks, names, video, audio, *tensors):
+    def forward(ctx, blocks, names, x1, x2, m1, m2, *tensors):
         values = tensors[: len(names)]  # the parameters follow, for their gradients
-        outs = _run(blocks, video, video, audio, audio, dict(zip(names, values)))
+        outs = _run(blocks, x1, x2, m1, m2, dict(zip(names, values)))
         ctx.blocks, ctx.names = blocks, names
         ctx.save_for_backward(*outs, *values)
         return outs
@@ -140,7 +142,16 @@ class _DualReversible(torch.autograd.Function):
             y1, y2, n1, n2 = x1, x2, m1, m2
             dy2, dn2 = dx2, dm2  # dy1 and dn1 already hold the x1, m1 cotangents
         dvalues = [dkwargs.get(n) for n in ctx.names]
-        return (None, None, dy1 + dy2, dn1 + dn2, *dvalues, *dparams)
+        return (None, None, dy1, dy2, dn1, dn2, *dvalues, *dparams)
+
+
+def dual_reversible_quad(blocks, x1, x2, m1, m2, kwargs):
+    """The quad (x1, x2, m1, m2) through ``blocks`` (as in
+    ``dual_reversible_sequence``) with the O(1)-memory backward; returns the
+    quad. ``kwargs`` holds no None."""
+    names = tuple(kwargs)
+    params = [p for _, mods, *_ in blocks for m in mods for p in m.parameters()]
+    return _DualReversible.apply(blocks, names, x1, x2, m1, m2, *kwargs.values(), *params)
 
 
 def dual_reversible_sequence(blocks, video, audio, kwargs, *, reverse=True):
@@ -149,12 +160,8 @@ def dual_reversible_sequence(blocks, video, audio, kwargs, *, reverse=True):
     ``kwargs`` and seeds the four modules' dropout seeds (f, g, j, k).
     Returns the mean of each tower's two streams."""
     kwargs = {n: v for n, v in kwargs.items() if v is not None}
-    if reverse:
-        names = tuple(kwargs)
-        params = [p for _, mods, *_ in blocks for m in mods for p in m.parameters()]
-        y1, y2, n1, n2 = _DualReversible.apply(
-            blocks, names, video, audio, *kwargs.values(), *params
-        )
+    if reverse:  # autograd adds each tower's two cotangents into its input's
+        y1, y2, n1, n2 = dual_reversible_quad(blocks, video, video, audio, audio, kwargs)
     else:
         y1, y2, n1, n2 = _run(blocks, video, video, audio, audio, kwargs)
     return (y1 + y2) * 0.5, (n1 + n2) * 0.5

@@ -37,26 +37,39 @@ def get_optimizer(params, lr=3e-4, wd=1e-1):
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm):
+def clip_by_global_norm_(params, max_norm, stage_group=None, staged=()):
     """Scale the gradients in place so that their global norm is at most
     ``max_norm``, as ``optax.clip_by_global_norm``: unchanged when the norm is
     below it, else ``g / norm * max_norm``. (``clip_grad_norm_`` divides by
     ``norm + 1e-6`` instead.) Returns the norm before clipping. Gradients of
     parameters split over the model axis (``parallel.shard_params``) are
-    parts: their sum of squares is all-reduced over the axis, and each
-    replicated gradient counts once, so the norm is the whole model's."""
+    parts: their sum of squares is all-reduced over the axis. With
+    ``stage_group``, the parameters in ``staged`` are this rank's pipeline
+    stage's (``parallel.pipeline.StageLayout``), each held by one rank of
+    the group: their sum of squares is all-reduced over it. Each replicated
+    gradient counts once, so the norm is the whole model's on every rank."""
     grads = [p.grad for p in params if p.grad is not None]
-    split = [p for p in params if p.grad is not None and shard_of(p) is not None]
-    if not split:
+    staged = {id(p) for p in staged} if stage_group is not None else set()
+    split = [p for p in params if p.grad is not None and shard_of(p) is not None
+             and id(p) not in staged]
+    if not split and not staged:
         norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     else:
         def squares(gs):
+            if not gs:
+                return torch.zeros((), device=grads[0].device)
             return torch.stack([torch.linalg.vector_norm(g) for g in gs]).square().sum()
 
         total = squares([p.grad for p in split])
-        dist.all_reduce(total, group=shard_of(split[0]).group)
-        whole = [p.grad for p in params if p.grad is not None and shard_of(p) is None]
-        norm = (total + squares(whole) if whole else total).sqrt()
+        if split:
+            dist.all_reduce(total, group=shard_of(split[0]).group)
+        if staged:
+            stage = squares([p.grad for p in params if p.grad is not None and id(p) in staged])
+            dist.all_reduce(stage, group=stage_group)
+            total = total + stage
+        whole = [p.grad for p in params if p.grad is not None and shard_of(p) is None
+                 and id(p) not in staged]
+        norm = (total + squares(whole)).sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))

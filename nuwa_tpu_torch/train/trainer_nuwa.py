@@ -50,8 +50,23 @@ the JAX trainer does: on a ("data", "model") mesh the frames ride 'data'
 and every rank takes the whole batch (its gradients are then the whole
 batch's on every rank, and no average over 'data' follows); on a mesh with
 a 'context' axis (``make_mesh(context=)``) the frames ride 'context' and the
-batch is split over 'data' as above (DPxCP). ``pipeline_parallel`` and
-``pipeline_microbatches`` (the pipeline, ROADMAP A8b-PP) raise.
+batch is split over 'data' as above (DPxCP).
+
+``pipeline_parallel=True`` (a mesh with a 'pipe' axis,
+``make_mesh(pipe=)``; not with ``context_parallel``) runs the decoder as
+GPipe stages over 'pipe' in ``pipeline_microbatches`` microbatches of each
+rank's rows (``NUWA.forward(pp_mesh=)``, ``parallel.pipeline``). With more
+than one stage each rank keeps only its stage's parameters of the decoder
+stack, the other stages' tensors freed (``StageLayout``), and only those and
+the replicated parameters go to the optimizer, so its stack parameter and
+moment bytes are 1/S of the whole (``zero1`` splits its moments again over
+'data'); the stage and the replicated gradients are averaged over 'data',
+and the clip's norm adds the stages' squares over 'pipe'. A checkpoint
+holds the stack in the JAX PP trainer's layout (each slot's leaves in
+params, ``mu`` and ``nu`` with a leading (S,) axis, gathered over 'pipe');
+a resume reads that layout or the flat one of an unmeshed trainer, JAX's
+or the port's. The step-0 sample gathers the stack on every rank for the
+cached ``generate`` and frees it after.
 """
 from __future__ import annotations
 
@@ -66,6 +81,7 @@ from ..convert import export_jax_params, jax_path, load_jax_params
 from ..core.tp import shard_of
 from ..ops.sampling import prob_mask_like
 from ..parallel.mesh import axis_size
+from ..parallel.pipeline import StageLayout
 from ..parallel.sharding import (all_reduce_grads_, all_reduce_mean, data_rows, gathered,
                                  shard_params)
 from ..parallel.zero import Zero1AdamW
@@ -96,9 +112,14 @@ class NUWATrainer:
                  pipeline_parallel=False, pipeline_microbatches=1, zero1=False):
         if (save_model_every is not None or resume) and results_folder is None:
             raise ValueError("save_model_every and resume need a results_folder")
-        if pipeline_parallel or pipeline_microbatches != 1:
-            raise NotImplementedError("pipeline parallelism is not in the port yet "
-                                      "(ROADMAP A8b-PP)")
+        if pipeline_parallel:
+            if mesh is None or "pipe" not in mesh.mesh_dim_names:
+                raise ValueError("pipeline_parallel requires a mesh with a 'pipe' axis")
+            if context_parallel:
+                raise ValueError("PP does not compose with CP")
+            if axis_size(mesh, "model") > 1:
+                raise ValueError("the pipelined trainer's mesh splits 'data' and 'pipe' only "
+                                 "(make_mesh(pipe=))")
         if context_parallel and mesh is None:
             raise ValueError("context_parallel requires a mesh")
         if zero1 and (mesh is None or axis_size(mesh, "data") <= 1):
@@ -114,6 +135,18 @@ class NUWATrainer:
             shard_params(nuwa, mesh)
         self.mesh = mesh
         self.cp_mesh = mesh if context_parallel else None
+        self.pp = (dict(pp_mesh=mesh, pp_microbatches=pipeline_microbatches,
+                        pp_data_axis="data" if "data" in mesh.mesh_dim_names else None)
+                   if pipeline_parallel else {})
+        # more than one stage: this rank keeps its stage of the decoder stack
+        self.stages = (StageLayout(nuwa.video_transformer, mesh)
+                       if pipeline_parallel and axis_size(mesh, "pipe") > 1 else None)
+        freed = set(self.stages.shapes) if self.stages is not None else set()
+        # {JAX path: trained} of the other stages' freed tensors
+        self._freed = {jax_path(nuwa, name, buffer): not buffer and t.requires_grad
+                       for buffer, named in ((False, nuwa.named_parameters()),
+                                             (True, nuwa.named_buffers()))
+                       for name, t in named if id(t) in freed}
         self.main = mesh is None or dist.get_rank() == 0  # prints and writes the files
         self.nuwa = nuwa
         self.save_model_every = save_model_every
@@ -133,7 +166,7 @@ class NUWATrainer:
             DataLoader(dataset, batch_size, seed=seed).cycle(), grad_accum_every
         )
         # the frozen codec's parameters need no gradient and are not optimized
-        self.params = [p for p in nuwa.parameters() if p.requires_grad]
+        self.params = [p for p in nuwa.parameters() if p.requires_grad and id(p) not in freed]
         if zero1:
             paths = {id(p): jax_path(nuwa, name) for name, p in nuwa.named_parameters()}
             self.opt = Zero1AdamW(self.params, [paths[id(p)] for p in self.params], mesh,
@@ -156,11 +189,20 @@ class NUWATrainer:
         ids = {id(p) for p in self.params}
         trained = {jax_path(self.nuwa, name): p for name, p in self.nuwa.named_parameters()
                    if id(p) in ids}
-        return export_jax_params(self.nuwa), trained
+        tensors = {path: t for path, t in export_jax_params(self.nuwa).items()
+                   if path not in self._freed}
+        return tensors, trained
 
     def _whole(self):
         """The model's split tensors whole inside the block (a collective)."""
         return gathered(self.nuwa) if self.mesh is not None else contextlib.nullcontext()
+
+    def _stack(self, gather=True):
+        """Every stage's tensors of the decoder stack held inside the block
+        (``StageLayout.whole``)."""
+        if self.stages is None:
+            return contextlib.nullcontext()
+        return self.stages.whole(gather)
 
     def _opt_state(self, p):
         """AdamW's state of ``p``, its moments whole over the mesh."""
@@ -185,6 +227,10 @@ class NUWATrainer:
                                            "exp_avg_sq": torch.zeros_like(p)}
             for leaf, name in _OPT_LEAVES.items():
                 opt[leaf][path] = state[name]
+        if self.stages is not None:  # the stack in JAX's PP layout, gathered over 'pipe'
+            tensors = self.stages.stack(tensors)
+            opt = {leaf: self.stages.stack(values, gather=leaf != "step")
+                   for leaf, values in opt.items()}
         flat = {checkpoint.keystr(("params",) + _parts(path)): t
                 for path, t in tensors.items()}
         for leaf, values in opt.items():
@@ -218,7 +264,12 @@ class NUWATrainer:
             return None
         path = found[1]
         leaves = checkpoint.load_checkpoint(path)
+        if self.stages is not None:  # JAX's PP layout, or a flat file
+            leaves = self.stages.unstack(leaves)
         tensors, trained = self._paths()
+        # the other stages' tensors are read too, and kept only inside ``whole``
+        want = set(tensors) | set(self._freed)
+        want_trained = set(trained) | {p for p, t in self._freed.items() if t}
         params, moments = {}, {leaf: {} for leaf in _OPT_LEAVES}
         count = step = gen = None
         for key, value in leaves.items():
@@ -240,16 +291,17 @@ class NUWATrainer:
                 gen = value
             elif parts != ("key",):  # the JAX PRNG key cannot carry over
                 raise checkpoint.CheckpointMismatchError(f"{path}: unexpected leaf {key}")
-        for what, got, want in (("params", params, tensors), ("mu", moments["mu"], trained),
-                                ("nu", moments["nu"], trained)):
-            if set(got) != set(want):
+        for what, got, paths in (("params", params, want), ("mu", moments["mu"], want_trained),
+                                 ("nu", moments["nu"], want_trained)):
+            if set(got) != paths:
                 raise checkpoint.CheckpointMismatchError(
                     f"{path}: its {what} are not this model's: missing "
-                    f"{sorted(set(want) - set(got))[:5]}, unexpected "
-                    f"{sorted(set(got) - set(want))[:5]}")
-        if step is None or (count is None and set(moments["step"]) != set(trained)):
+                    f"{sorted(paths - set(got))[:5]}, unexpected "
+                    f"{sorted(set(got) - paths)[:5]}")
+        if step is None or (count is None and set(moments["step"]) != want_trained):
             raise checkpoint.CheckpointMismatchError(f"{path}: no step or optimizer count")
-        load_jax_params(self.nuwa, {path: params[path] for path in tensors})
+        with self._stack(gather=False):
+            load_jax_params(self.nuwa, {path: params[path] for path in want})
         for path, p in trained.items():
             p_step = moments["step"][path] if count is None else count
             state = {"exp_avg": moments["mu"][path], "exp_avg_sq": moments["nu"][path]}
@@ -280,14 +332,18 @@ class NUWATrainer:
                                         generator=self.generator, device=self.nuwa.device)[rows]
             loss = self.nuwa(text[rows], video[rows], return_loss=True, train=True,
                              cond_dropout_prob=self.cond_dropout_prob, generator=self.generator,
-                             uncond=uncond, row0=rows.start or 0, cp_mesh=self.cp_mesh)
+                             uncond=uncond, row0=rows.start or 0, cp_mesh=self.cp_mesh,
+                             **self.pp)
             (loss / self.grad_accum_every).backward()
             loss_sum = loss_sum + loss.detach()
         if self.data_parallel:
             all_reduce_grads_(self.params, self.mesh)
             loss_sum = all_reduce_mean(loss_sum, self.mesh)
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(self.params, self.max_grad_norm)
+            staged = {}
+            if self.stages is not None:  # the stages' squares add over 'pipe'
+                staged = dict(stage_group=self.stages.group, staged=self.stages.own_parameters())
+            clip_by_global_norm_(self.params, self.max_grad_norm, **staged)
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.step += 1
@@ -309,7 +365,8 @@ class NUWATrainer:
         self._print(f"{steps} sampling")
         text = texts[0][:1]
         num_frames = int(min(self.nuwa.max_video_frames, self.num_sampled_frames))
-        video = self.nuwa.generate(text, generator=self.generator, num_frames=num_frames)
+        with self._stack():  # the plain cached decoder runs every layer
+            video = self.nuwa.generate(text, generator=self.generator, num_frames=num_frames)
         if video.ndim == 2:  # no VAE attached: token ids
             logs["sampled_indices"] = video[0].cpu().numpy()
             return

@@ -184,10 +184,16 @@ class Transformer(nn.Module):
         self.kinds = [kind for kind, _ in menu]
         self.layers = nn.ModuleList([m for _, m in menu])
 
-    def forward(self, x, *, mask=None, context=None, context_mask=None,
-                rotary_pos_emb=None, seed=None, cp_mesh=None):
-        seeds = split_seed(seed, len(self.layers))
-        for kind, layer, s in zip(self.kinds, self.layers, seeds):
+    @property
+    def layer_menu(self):
+        """(kind, module) per entry in the JAX package's menu order."""
+        return list(zip(self.kinds, self.layers))
+
+    def run_layers(self, x, start, stop, seeds, *, mask=None, context=None, context_mask=None,
+                   rotary_pos_emb=None, cp_mesh=None):
+        """Residual layers ``start`` to ``stop`` (a pipeline stage's slice),
+        ``seeds`` theirs, each block's keyword arguments routed by its kind."""
+        for kind, layer, s in zip(self.kinds[start:stop], self.layers[start:stop], seeds):
             if kind == "self":
                 kw = dict(mask=mask, rotary_pos_emb=rotary_pos_emb)
                 if cp_mesh is not None and self.sparse_3dna_attn:
@@ -197,6 +203,13 @@ class Transformer(nn.Module):
             else:
                 kw = {}
             x = layer(x, seed=s, **kw) + x
+        return x
+
+    def forward(self, x, *, mask=None, context=None, context_mask=None,
+                rotary_pos_emb=None, seed=None, cp_mesh=None):
+        x = self.run_layers(x, 0, len(self.layers), split_seed(seed, len(self.layers)),
+                            mask=mask, context=context, context_mask=context_mask,
+                            rotary_pos_emb=rotary_pos_emb, cp_mesh=cp_mesh)
         return self.norm(x)
 
 
@@ -235,13 +248,33 @@ class ReversibleTransformer(Transformer):
         self.kinds = kinds
         self.layers = nn.ModuleList(couples)
 
+    @property
+    def layer_menu(self):
+        """(kind, module) per entry in the JAX package's menu order: per
+        depth self, cross, ff_cross, ff."""
+        menu = []
+        for i, (kind, c) in enumerate(zip(self.kinds, self.layers)):
+            if kind == "self":
+                menu.append(("self", c.f))
+                ff = c.g  # closes the depth, after its cross couple if any
+                if self.kinds[i + 1:i + 2] != ["cross"]:
+                    menu.append(("ff", ff))
+            else:
+                menu += [("cross", c.f), ("ff_cross", c.g), ("ff", ff)]
+        return menu
+
+    def couples(self, seed=None, cp_mesh=None):
+        """The couples in ``reversible_sequence``'s form, each with its f and
+        g dropout seeds (f0, g0, f1, g1, ... of ``seed``)."""
+        seeds = split_seed(seed, 2 * len(self.layers))
+        bind = cp_mesh is not None and self.sparse_3dna_attn
+        return [(BindCP(c.f, cp_mesh) if bind and kind == "self" else c.f,
+                 _ROUTES[kind], c.g, (), (seeds[2 * i], seeds[2 * i + 1]))
+                for i, (kind, c) in enumerate(zip(self.kinds, self.layers))]
+
     def forward(self, x, *, mask=None, context=None, context_mask=None,
                 rotary_pos_emb=None, reverse=True, seed=None, cp_mesh=None):
-        seeds = split_seed(seed, 2 * len(self.layers))  # f0, g0, f1, g1, ...
-        bind = cp_mesh is not None and self.sparse_3dna_attn
-        couples = [(BindCP(c.f, cp_mesh) if bind and kind == "self" else c.f,
-                    _ROUTES[kind], c.g, (), (seeds[2 * i], seeds[2 * i + 1]))
-                   for i, (kind, c) in enumerate(zip(self.kinds, self.layers))]
         kwargs = dict(mask=mask, context=context, context_mask=context_mask,
                       rotary_pos_emb=rotary_pos_emb)
-        return self.norm(reversible_sequence(couples, x, kwargs, reverse=reverse))
+        return self.norm(reversible_sequence(self.couples(seed, cp_mesh), x, kwargs,
+                                             reverse=reverse))

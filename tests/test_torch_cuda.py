@@ -1058,3 +1058,71 @@ def test_windows_the_kernels_do_not_take_raise():
     with pytest.raises(ValueError, match="audio"):
         knda.sparse_3dna_fwd(q, k, v, kb, vb, th, None, tok0=16, **audio)
     assert knda.sparse_3dna_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_chained_pipeline_stages_on_the_card_match_the_unpipelined_stack(dropout):
+    """A small reversible Sparse3DNA decoder (the NUWA decoder's layers, 8
+    frames of 4 x 4, dilations (1, 2)) as 2 stages of 2 microbatches chained
+    on the card (``parallel.pipeline.chained_transformer``, each rank's
+    stage function and schedule) against the unpipelined stack, fp32: the
+    output (with dropout the same masks), every gradient within 1e-4 of its
+    max abs, and twice the kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from nuwa_tpu_torch.core.layers import init_weights_
+    from nuwa_tpu_torch.parallel.pipeline import chained_transformer
+    from nuwa_tpu_torch.transformer import ReversibleTransformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stack = init_weights_(ReversibleTransformer(
+        dim=32, depth=4, heads=2, dim_head=16, causal=True, cross_attend=True,
+        sparse_3dna_attn=True, sparse_3dna_video_shape=(8, 4, 4), sparse_3dna_dilations=(1, 2),
+        shift_video_tokens=True, attn_dropout=dropout, ff_dropout=dropout), 3).to("cuda")
+    gen = torch.Generator().manual_seed(4)
+    x, ctx, w = (torch.randn(*shape, generator=gen).cuda()
+                 for shape in ((4, 128, 32), (4, 6, 32), (4, 128, 32)))
+    runs = []
+    for chained in (False, True):
+        xs, c = x.clone().requires_grad_(), ctx.clone().requires_grad_()
+        knda.reset_launches()
+        kw = dict(context=c, seed=99 if dropout else None)
+        out = chained_transformer(stack, xs, 2, num_microbatches=2, **kw) if chained else \
+            stack(xs, **kw)
+        (out * w).sum().backward()
+        grads = {n: p.grad.clone() for n, p in stack.named_parameters()}
+        grads.update(x=xs.grad, context=c.grad)
+        runs.append((out.detach(), grads, knda.sparse_3dna_fwd.launches,
+                     knda.sparse_3dna_bwd_q.launches, knda.sparse_3dna_bwd_kv.launches))
+        stack.zero_grad(set_to_none=True)
+    (want, g_want, *l_want), (got, g_got, *l_got) = runs
+    assert (got - want).abs().max().item() <= 1e-5
+    for name, ref in g_want.items():
+        err = (g_got[name] - ref).abs().max().item()
+        assert err <= 1e-4 * max(ref.abs().max().item(), 1e-30), name
+    assert l_want == [8, 4, 4] and l_got == [16, 8, 8]
+
+
+@pytest.mark.cuda
+def test_pipeline_refuses_a_cpu_mesh_with_cuda_tensors(tmp_path):
+    """A ('data', 'pipe') mesh on the CPU (gloo) takes CPU tensors: CUDA
+    tensors raise, before any collective."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from nuwa_tpu_torch.parallel import pipelined_transformer
+    from nuwa_tpu_torch.transformer import Transformer
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "pipe"))
+        stack = Transformer(dim=32, depth=2, heads=2, dim_head=16).to("cuda")
+        with pytest.raises(ValueError, match="cpu mesh got tensors on cuda"):
+            pipelined_transformer(stack, torch.zeros(2, 8, 32, device="cuda"), mesh,
+                                  num_microbatches=2)
+    finally:
+        dist.destroy_process_group()

@@ -317,17 +317,20 @@ def test_tp_serving_generate_ids_equal_unmeshed(runs, case):
 
 
 def test_mesh_options_that_belong_to_a8b_raise(runs):
-    """The pipeline (A8b-PP) raises; ``context=`` builds a ("data",
-    "model", "context") mesh in JAX's rank order (rank = (data * model +
-    model index) * context + context index), as the ranks found."""
+    """The pipeline's options (A8b-PP) raise without what they need: a
+    process group for ``make_mesh(pipe=)``, a mesh with a 'pipe' axis for
+    ``pipeline_parallel`` (the meshed runs are tests/test_torch_parallel_pp.py);
+    ``context=`` builds a ("data", "model", "context") mesh in JAX's rank
+    order (rank = (data * model + model index) * context + context index),
+    as the ranks found."""
     from nuwa_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(data=1, pipe=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="'pipe' axis"):
         _trainer(None, pipeline_parallel=True)
-    with pytest.raises(NotImplementedError):
-        _trainer(None, pipeline_microbatches=2)
+    with pytest.raises(ValueError, match="'pipe' axis"):
+        _trainer(None, pipeline_parallel=True, pipeline_microbatches=2)
     with pytest.raises(ValueError, match="context_parallel"):
         _trainer(None, context_parallel=True)
     with pytest.raises(ValueError, match="zero1"):

@@ -102,18 +102,17 @@ def test_zero1_moments_are_placed_as_jax(models, jax_zero):
     assert got == mu
 
 
-def test_parallel_exports_cover_jax_but_a8b():
-    """The JAX package's ``parallel`` names, but for the pipeline's (ROADMAP
-    A8b-PP), are the port's too; the context-parallel function, which JAX's
-    ``__all__`` does not list either, lives at the JAX module's path."""
+def test_parallel_exports_cover_jax():
+    """The JAX package's ``parallel`` names, the pipeline's among them, are
+    the port's too; the context-parallel function, which JAX's ``__all__``
+    does not list either, lives at the JAX module's path."""
     import nuwa_tpu.parallel as jparallel
     import nuwa_tpu.parallel.context_parallel as jcp
 
     import nuwa_tpu_torch.parallel as tparallel
     import nuwa_tpu_torch.parallel.context_parallel as tcp
 
-    pipeline = {"pipelined_transformer", "stack_stage_params", "validate_stages"}
-    assert set(jparallel.__all__) - pipeline <= set(tparallel.__all__)
+    assert set(jparallel.__all__) <= set(tparallel.__all__)
     for name in tparallel.__all__:
         assert getattr(tparallel, name) is not None, name
     assert callable(jcp.context_parallel_sparse_3dna)
