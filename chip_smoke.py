@@ -157,10 +157,15 @@ Phases, each of which exits non-zero on failure:
    at full width (VQGanVAE(dim=256, image_size=256, num_layers=4,
    vq_codebook_size=8192): GAN, random-weight VGG16 perceptual loss, k-means
    init; lr 3e-4, batch 8, 4 microbatches; fp32) on 64 seeded 256-px
-   moving-square frames read from a uint8 memmap, 3 steps with the EMA on
-   from step 0: each step's losses and codebook usage, k-means run once, the
-   EMA moved, generator and discriminator ms, images/s, peak memory, the
-   parameters of the codec, discriminator and VGG16, and no kernel launch;
+   moving-square frames read from a uint8 memmap through the port's batch
+   loader (host C++ built with g++ first: its path and build seconds, its
+   gather of 32 of the frames and rot90 of each at every k bit for bit
+   against their numpy versions, one gather's and one dataset read's host
+   ms against numpy's), 3
+   steps with the EMA on from step 0: each step's losses and codebook
+   usage, k-means run once, the EMA moved, generator and discriminator ms,
+   images/s, peak memory, the parameters of the codec, discriminator and
+   VGG16, the images read through the loader, and no kernel launch;
    (b) BASELINE config 1 with the GAN and the random VGG, b = 2, fp32 on the
    GPU against the CPU: the generator loss with every gradient and the
    codebook state after the update (k-means), the discriminator loss with
@@ -3492,14 +3497,80 @@ def codec_frames(n, size, seed):
     return video.reshape(n, 3, size, size)
 
 
+LOADER_BATCH, LOADER_REPEATS = 32, 5
+
+
+def check_loader(mm):
+    """The batch loader (``nuwa_tpu_torch/native``, host C++ built with g++)
+    on the codec phase's memmap: its build, ``gather_normalize_f32`` of
+    LOADER_BATCH seeded indices and ``rot90_f32`` of every gathered image at
+    each k from -1 to 4, bit for bit against their numpy versions, and the
+    host time of one gather and of one dataset read (an image gathered and
+    rotated), native against numpy (medians of LOADER_REPEATS)."""
+    from nuwa_tpu_torch import native
+    from nuwa_tpu_torch.native import loader
+
+    found = loader.library_path().exists()
+    start = time.perf_counter()
+    path = native.build_library()
+    build_s = time.perf_counter() - start
+    if not native.library_available():
+        fail(f"the batch loader {path} does not load")
+    idx = np.random.default_rng(SEED + 68).integers(0, len(mm), size=LOADER_BATCH)
+    times = {"native": [], "numpy": []}
+    for _ in range(LOADER_REPEATS):
+        outs = {}
+        for name, fn in (("native", native.gather_normalize_f32),
+                         ("numpy", loader.gather_normalize_f32_plain)):
+            start = time.perf_counter()
+            outs[name] = fn(mm, idx)
+            times[name].append(1e3 * (time.perf_counter() - start))
+        got, want = outs["native"], outs["numpy"]
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+            fail("the batch loader's gather_normalize_f32 differs from its numpy version")
+    ks = range(-1, 5)
+    rot_equal = all(np.array_equal(native.rot90_f32(img, k), loader.rot90_f32_plain(img, k))
+                    for img in got for k in ks)
+    # the dataset's own read: one index gathered, then rotated (k cycling)
+    reads = {"native": [], "numpy": []}
+    for _ in range(LOADER_REPEATS):
+        for name, gather, rot in (
+                ("native", native.gather_normalize_f32, native.rot90_f32),
+                ("numpy", loader.gather_normalize_f32_plain, loader.rot90_f32_plain)):
+            start = time.perf_counter()
+            for i in range(len(mm)):
+                rot(gather(mm, np.asarray([i]))[0], i % 4)
+            reads[name].append(1e3 * (time.perf_counter() - start) / len(mm))
+    native_ms, plain_ms, read_ms, plain_read_ms = (
+        statistics.median(d[n]) for d in (times, reads) for n in ("native", "numpy"))
+    threads = min(os.cpu_count() or 1, 8)
+    print(f"batch loader (g++ -O3, host): {os.path.relpath(path)} "
+          f"{'found built' if found else f'built in {build_s:.2f} s'}; gather_normalize_f32 "
+          f"of {LOADER_BATCH} of the {len(mm)} frames {tuple(mm.shape[1:])} bit-equal to its "
+          f"numpy version ({LOADER_REPEATS} times); rot90_f32 of each at k {ks[0]}..{ks[-1]} "
+          f"bit-equal: {rot_equal}; one {LOADER_BATCH}-image gather {native_ms:.2f} ms native "
+          f"({threads} threads) against {plain_ms:.2f} ms numpy (median of {LOADER_REPEATS}; "
+          f"{plain_ms / native_ms:.2f}x); one dataset read (an image gathered and rotated, "
+          f"k cycling over the {len(mm)} frames) {read_ms:.3f} ms native against "
+          f"{plain_read_ms:.3f} ms numpy (median of {LOADER_REPEATS})", flush=True)
+    if not rot_equal:
+        fail("the batch loader's rot90_f32 differs from its numpy version")
+    return {"build_s": None if found else build_s, "native_ms": native_ms,
+            "plain_ms": plain_ms, "read_ms": read_ms, "plain_read_ms": plain_read_ms,
+            "threads": threads}
+
+
 def train_codec(VQGanVAE, VQGanVAETrainer, knda):
     """The README's codec and trainer at full width, fp32, on CODEC_FRAMES
     256-px frames read from a uint8 memmap (MemmappedImageDataset, random
-    90-degree rotations), no results folder: CODEC_STEPS steps with the EMA
-    on from step 0. Step 0 runs k-means and the gradient penalty. Launches
-    no kernel of the port (the JAX package runs the codec outside Pallas)."""
-    import os
+    90-degree rotations, through the batch loader, which ``check_loader``
+    builds and checks first), no results folder: CODEC_STEPS steps with the
+    EMA on from step 0. Step 0 runs k-means and the gradient penalty.
+    Launches no kernel of the port (the JAX package runs the codec outside
+    Pallas)."""
     import tempfile
+
+    from nuwa_tpu_torch import native
 
     frames = codec_frames(CODEC_FRAMES, README_VAE["image_size"], SEED + 60)
     with tempfile.TemporaryDirectory() as folder:
@@ -3507,6 +3578,17 @@ def train_codec(VQGanVAE, VQGanVAETrainer, knda):
         mm = np.memmap(path, mode="w+", dtype=np.uint8, shape=frames.shape)
         mm[:] = np.round(frames * 255).astype(np.uint8)
         mm.flush()
+        loader_figures = check_loader(mm)
+        reads = collections.Counter()
+
+        def counted(name):
+            fn = getattr(native, name)
+
+            def call(*args, **kwargs):
+                reads[name] += 1
+                return fn(*args, **kwargs)
+            return call
+
         torch.cuda.reset_peak_memory_stats()
         vae = VQGanVAE(**README_VAE, device="cuda", seed=SEED + 61)
         trainer = VQGanVAETrainer(
@@ -3533,9 +3615,15 @@ def train_codec(VQGanVAE, VQGanVAETrainer, knda):
         initted = [vae.vq.initted.item()]
         logs = []
         reset_launches(knda)
-        for _ in range(CODEC_STEPS):
-            logs.append(trainer.train_step())
-            initted.append(vae.vq.initted.item())
+        # the dataset imports the loader's functions from nuwa_tpu_torch.native
+        # at each read: count the trainer's reads through them
+        with contextlib.ExitStack() as stack:
+            for name in ("gather_normalize_f32", "rot90_f32"):
+                stack.callback(setattr, native, name, getattr(native, name))
+                setattr(native, name, counted(name))
+            for _ in range(CODEC_STEPS):
+                logs.append(trainer.train_step())
+                initted.append(vae.vq.initted.item())
         got = launch_counts(knda)
         peak = torch.cuda.max_memory_allocated() / 2**30
         ema_gap = max((trainer.ema[n] - p).abs().max().item()
@@ -3557,9 +3645,13 @@ def train_codec(VQGanVAE, VQGanVAETrainer, knda):
           f"{1e3 * window / steady:.2f} images/s ({window} images a step); peak memory "
           f"{peak:.2f} GiB; parameters: codec {counts['codec'] / 1e6:.1f} M, discriminator "
           f"{counts['discriminator'] / 1e6:.1f} M, VGG16 {counts['vgg'] / 1e6:.1f} M; "
-          f"kernel launches {sum(got.values())}", flush=True)
+          f"kernel launches {sum(got.values())}; images read through the batch loader "
+          f"{reads['gather_normalize_f32']} (rot90_f32 {reads['rot90_f32']})", flush=True)
     if not all(math.isfinite(log[k]) for log in logs for k in ("loss", "discr_loss")):
         fail("codec training gave a non-finite loss")
+    if not reads["gather_normalize_f32"] >= CODEC_STEPS * window or \
+            reads["rot90_f32"] != reads["gather_normalize_f32"]:
+        fail(f"the codec trainer did not read its images through the batch loader: {reads}")
     if initted != [0.0] + [1.0] * CODEC_STEPS:
         fail(f"k-means did not run once at step 0: initted {initted}")
     if not ema_gap > 0:
@@ -3570,7 +3662,8 @@ def train_codec(VQGanVAE, VQGanVAETrainer, knda):
         fail(f"codec training launched kernels of the port: {got}")
     result = {"step_ms": steady, "gen_ms": statistics.mean(times["gen"][1:]),
               "discr_ms": statistics.mean(times["discr"][1:]), "first_step_ms": step_ms[0],
-              "images_per_s": 1e3 * window / steady, "peak_gib": peak, **counts}
+              "images_per_s": 1e3 * window / steady, "peak_gib": peak, **counts,
+              "loader": loader_figures, "loader_reads": dict(reads)}
     del trainer, vae
     torch.cuda.empty_cache()
     return result

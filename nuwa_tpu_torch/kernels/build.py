@@ -31,11 +31,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Path:
+def hashed_library(build_dir: Path, name: str, sources) -> Path:
+    """``build_dir/lib<name>-<hash>.so``, the hash of every file of
+    ``sources`` in order: the name a library built from them takes, so that
+    an edited source never loads a stale library. The port's host library
+    (``native/loader.py``) is named by the same rule."""
     digest = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
-        digest.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    for path in sources:
+        digest.update(Path(path).read_bytes())
+    return Path(build_dir) / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _target(name: str) -> Path:
+    return hashed_library(BUILD_DIR, name, (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))))
 
 
 def build_all(names=None) -> dict[str, str]:

@@ -19,7 +19,7 @@ from .data import (
     stack_microbatches,
 )
 from .ema import ema_init, ema_update
-from .optimizer import clip_by_global_norm_, get_optimizer, weight_decay_mask
+from .optimizer import clip_by_global_norm_, get_optimizer, trainable_mask, weight_decay_mask
 from .trainer_nuwa import NUWATrainer
 from .trainer_vqgan import VQGanVAETrainer
 
@@ -39,6 +39,7 @@ __all__ = [
     "ema_update",
     "clip_by_global_norm_",
     "get_optimizer",
+    "trainable_mask",
     "weight_decay_mask",
     "NUWATrainer",
     "VQGanVAETrainer",

@@ -3,7 +3,8 @@
 the same order as the JAX trainers.
 
 Datasets: image folders (``ImageDataset``, random horizontal flips) and
-uint8 image memmaps (``MemmappedImageDataset``, random 90° rotations), both
+uint8 image memmaps (``MemmappedImageDataset``, random 90° rotations, read
+through the port's g++ batch loader, ``nuwa_tpu_torch.native``), both
 drawing from ``random.Random(seed)`` in the JAX package's order;
 moving-MNIST memmaps (``MnistDataset``); pre-tokenized video-index memmaps
 (``VideoIndicesDataset``) and ``convert_video_dataset_to_indices``, which
@@ -80,7 +81,9 @@ class ImageDataset:
 
 
 class MemmappedImageDataset:
-    """uint8 ``np.memmap`` of images with optional random 90° rotations."""
+    """uint8 ``np.memmap`` of images with optional random 90° rotations,
+    read and rotated by the batch loader (``native``), which raises if it
+    cannot be built."""
 
     def __init__(self, *, path, shape, random_rotate=True, seed=0):
         path = Path(path)

@@ -6,7 +6,8 @@ Counterpart of ``nuwa_tpu/train/optimizer.py``. ``torch.optim`` applies the
 update (the JAX package leaves it to XLA; no kernel of its own is involved).
 The JAX package's frozen-subtree mask is ``requires_grad`` here:
 ``get_optimizer`` leaves out the parameters that do not require grad, such
-as NUWASketch's frozen VAEs.
+as NUWASketch's frozen VAEs. ``trainable_mask`` gives the JAX mask's
+answer by name.
 """
 from __future__ import annotations
 
@@ -19,6 +20,14 @@ from ..core.tp import shard_of
 def weight_decay_mask(params):
     """True for the parameters that receive weight decay (ndim >= 2)."""
     return [p.ndim >= 2 for p in params]
+
+
+def trainable_mask(module, frozen_keys=("vae", "sketch_vae")):
+    """{name: bool} over ``module.named_parameters()``: False under a
+    submodule named in ``frozen_keys`` (the embedded frozen VAE copies), as
+    the JAX mask marks every key of its params tree under such a key."""
+    return {name: not any(part in frozen_keys for part in name.split(".")[:-1])
+            for name, _ in module.named_parameters()}
 
 
 def get_optimizer(params, lr=3e-4, wd=1e-1):
